@@ -1,0 +1,799 @@
+"""Device-resident index and full-result query evaluation on torch:
+twin of docodo_tpu/ops/device_index.py for the full-result slice.
+
+The index lives on the device as a structure of arrays (int32, INF32
+padding):
+
+  term_offsets : int32[T+1]  CSR offsets into `coords`
+  coords       : int32[N]    posting coordinates, per-term ascending
+  bounds       : int32[P]    page END coordinates (exclusive)
+  page_doc     : int32[P]    doc ordinal per page
+  is_header    : bool[P]     header page ("0") mask
+  page_of      : int32[N]    page index of every posting
+  small        : SmallTabs   padded per-term rows (coords || page_of)
+
+The slice serves W <= 2 words with one variant each: each bucket of
+queries goes through one of the three CUDA kernels when its shape is
+admitted (query_kernels), else through the plain route below
+(query_step_full); the kernel buckets share one rank top-k and one doc
+grouping at the end, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from docodo_tpu_torch.ops import query_kernels as qk
+from docodo_tpu_torch.ops.seqops import (
+    INF32,
+    and_masked,
+    locate_compact,
+    rank_in_sorted,
+)
+
+# the JAX package's small-table widths and budget (device_index.py:76,
+# 149); its DOCODO_SMALL_TAB* overrides are not read here
+SMALL_TAB_WIDTHS = (64, 128)
+SMALL_TAB_BYTES = 128 * 1024 * 1024
+SMALL_TAB_BAND_MAX = 32768
+
+
+def _bucket(n: int, lo: int = 64) -> int:
+    """Power-of-two shape bucket (device_index.py:1883)."""
+    c = lo
+    while c < n:
+        c <<= 1
+    return c
+
+
+def _bucket_sort_key(kv):
+    """Deterministic bucket order (device_index.py:96)."""
+    qcap = kv[0][0]
+    return ((qcap,) if isinstance(qcap, int) else qcap, kv[0][1:])
+
+
+def build_page_of(bounds_np, coords_np):
+    """page_of[i] = page index of posting coordinate i: #bounds <= coord,
+    clamped to P-1 (copied from device_index.py:103)."""
+    bounds_np = np.asarray(bounds_np, dtype=np.int64)
+    pages = np.searchsorted(
+        bounds_np, np.asarray(coords_np, dtype=np.int64), side="right"
+    )
+    p = max(int(bounds_np.shape[0]), 1)
+    return np.minimum(pages, p - 1).astype(np.int32)
+
+
+@dataclass
+class SmallTab:
+    """One posting table (device_index.py:119): `w` is the width it
+    serves; `tab` is [rows, 2w] (coords || page_of) or [rows, w];
+    `row_map[t]` is term t's row or -1. A cumulative table (band False)
+    holds every term with count <= w, a banded one the terms with count
+    in (w/2, w]."""
+
+    w: int
+    row_map: object
+    tab: object
+    band: bool = False
+
+    def to(self, device) -> "SmallTab":
+        return SmallTab(self.w, torch.tensor(self.row_map, device=device),
+                        torch.tensor(self.tab, device=device), self.band)
+
+
+def build_small_tables(offsets_np, coords_np, pages_np=None):
+    """The small-term posting tables as numpy SmallTabs, or None
+    (copied from the numpy body of device_index.py:149, at its default
+    widths, budget and band limit)."""
+    counts = np.diff(np.asarray(offsets_np, dtype=np.int64))
+    t = counts.size
+    if t == 0:
+        return None
+    coords_np = np.asarray(coords_np)
+    n = coords_np.shape[0]
+    budget = SMALL_TAB_BYTES
+    out = []
+
+    def emit(w: int, tids, band: bool) -> bool:
+        nonlocal budget
+        if tids.size == 0:
+            # an empty band still gets a zero-row table so coverage
+            # checks can tell "no terms" from "skipped by budget"
+            if band:
+                out.append(SmallTab(
+                    w, np.full(t, -1, dtype=np.int32),
+                    np.zeros((0, 2 * w if pages_np is not None else w),
+                             dtype=np.int32),
+                    band=True))
+            return True
+        rows = _bucket(int(tids.size), lo=8)
+        nbytes = rows * w * 4 * (2 if pages_np is not None else 1)
+        if nbytes > budget:
+            return False
+        budget -= nbytes
+        row_map = np.full(t, -1, dtype=np.int32)
+        row_map[tids] = np.arange(tids.size, dtype=np.int32)
+        starts = np.asarray(offsets_np, dtype=np.int64)[tids]
+        cnts = counts[tids].astype(np.int32)
+        idx = np.minimum(
+            starts[:, None] + np.arange(w, dtype=np.int64)[None, :], n - 1
+        )
+        lane = np.arange(w, dtype=np.int32)[None, :]
+        cols = 2 * w if pages_np is not None else w
+        tab = np.full((rows, cols), INF32, dtype=np.int32)
+        vals = coords_np[idx].astype(np.int32) if n else tab[: tids.size, :w]
+        tab[: tids.size, :w] = np.where(
+            lane < cnts[:, None], vals, INF32)
+        if pages_np is not None and n:
+            pgs = np.asarray(pages_np)[idx].astype(np.int32)
+            tab[: tids.size, w:] = np.where(
+                lane < cnts[:, None], pgs, INF32)
+        out.append(SmallTab(w, row_map, tab, band=band))
+        return True
+
+    for w in SMALL_TAB_WIDTHS:
+        emit(w, np.flatnonzero(counts <= w).astype(np.int64), band=False)
+    w = max(SMALL_TAB_WIDTHS) * 2
+    while w <= SMALL_TAB_BAND_MAX and budget > 0:
+        tids = np.flatnonzero(
+            (counts > w // 2) & (counts <= w)).astype(np.int64)
+        if not emit(w, tids, band=True):
+            break  # budget exhausted: larger bands only get bigger
+        w *= 2
+    return tuple(out) or None
+
+
+def build_postings(term_ids: torch.Tensor, coords: torch.Tensor,
+                   num_terms: int):
+    """Sort the (term, coord) tuple stream and emit CSR offsets
+    (device_index.py:275): one stable sort on the packed int64 key
+    term << 32 | coord, then searchsorted. Padding slots carry term
+    INF32 and sort past every term. Returns (terms, coords,
+    offsets int32[T+1])."""
+    key = (term_ids.long() << 32) | coords.long()
+    order = torch.sort(key, stable=True).indices
+    st = term_ids[order]
+    sc = coords[order]
+    offsets = torch.searchsorted(
+        st, torch.arange(num_terms + 1, dtype=torch.int32,
+                         device=st.device), right=False).to(torch.int32)
+    return st, sc, offsets
+
+
+# ---------------------------------------------------------------------------
+# posting fetch
+# ---------------------------------------------------------------------------
+
+def _fetch_tables(small, cap: int):
+    """The tables that together hold every term with count <= cap, or
+    None (device_index.py:455)."""
+    if small is None:
+        return None
+    cums = [st for st in small if not st.band]
+    for st in cums:
+        if st.w == cap and st.tab.shape[0] > 0:
+            return (st,)
+    if not cums or cap <= max(st.w for st in cums):
+        return None
+    base = max(cums, key=lambda st: st.w)
+    if base.tab.shape[0] == 0:
+        return None
+    tabs = [base]
+    w = base.w * 2
+    bands = {st.w: st for st in small if st.band}
+    while w <= cap:
+        st = bands.get(w)
+        if st is None:
+            return None
+        if st.tab.shape[0] > 0:
+            tabs.append(st)
+        w *= 2
+    return tuple(tabs)
+
+
+def _tab_serves(small, cap: int) -> bool:
+    """Whether combined (coords || pages) tables fully serve this cap
+    (device_index.py:487)."""
+    tabs = _fetch_tables(small, cap)
+    return tabs is not None and all(
+        st.tab.shape[1] == 2 * st.w for st in tabs)
+
+
+def _term_span(term_offsets, terms, cap: int):
+    safe = terms.clamp_min(0).long()
+    start = term_offsets[safe]
+    ln = term_offsets[safe + 1] - start
+    ln = torch.where(terms >= 0, ln, 0).clamp_max(cap).to(torch.int32)
+    return safe, start, ln
+
+
+def _table_rows(tabs, safe, cap: int, halves: int):
+    """Row-gather every term's table row(s), padded to cap: a list of
+    `halves` [B, cap] tensors (coords, then pages)."""
+    bsz = safe.shape[0]
+    dev = safe.device
+    outs = [torch.full((bsz, cap), INF32, dtype=torch.int32, device=dev)
+            for _ in range(halves)]
+    for st in tabs:
+        row = st.row_map[safe]
+        both = st.tab[row.clamp_min(0).long()]
+        has = (row >= 0)[:, None]
+        for h in range(halves):
+            g = both[:, h * st.w: (h + 1) * st.w]
+            if st.w < cap:
+                g = torch.cat([g, g.new_full((bsz, cap - st.w), INF32)],
+                              dim=1)
+            outs[h] = torch.where(has, g, outs[h])
+    return outs
+
+
+def gather_term(coords, term_offsets, terms, cap: int, small=None):
+    """Fetch each term's postings into [B, cap] (device_index.py:397):
+    term < 0 gives an empty row, longer lists keep their first cap
+    coords. `small` may be passed only when every real term has count
+    <= cap. Returns (vals int32[B, cap] INF32-padded, n int32[B])."""
+    safe, start, ln = _term_span(term_offsets, terms, cap)
+    lane = torch.arange(cap, device=coords.device)[None, :]
+    tabs = _fetch_tables(small, cap)
+    if tabs is not None:
+        (vals,) = _table_rows(tabs, safe, cap, 1)
+    else:
+        idx = (start[:, None].long() + lane).clamp_max(coords.shape[0] - 1)
+        vals = coords[idx]
+    return torch.where(lane < ln[:, None], vals, INF32), ln
+
+
+def gather_term_paged(coords, page_of, term_offsets, terms, cap: int,
+                      small=None):
+    """gather_term plus each posting's page (device_index.py:499): both
+    halves of a combined small table come from one row gather.
+    Returns (vals, pages, n); padding lanes carry INF32 in both."""
+    safe, start, ln = _term_span(term_offsets, terms, cap)
+    lane = torch.arange(cap, device=coords.device)[None, :]
+    tabs = _fetch_tables(small, cap)
+    if tabs is not None and all(st.tab.shape[1] == 2 * st.w for st in tabs):
+        vals, pgs = _table_rows(tabs, safe, cap, 2)
+    else:
+        idx = (start[:, None].long() + lane).clamp_max(coords.shape[0] - 1)
+        vals, pgs = coords[idx], page_of[idx]
+    live = lane < ln[:, None]
+    return (torch.where(live, vals, INF32), torch.where(live, pgs, INF32),
+            ln)
+
+
+# ---------------------------------------------------------------------------
+# the plain route: AND fold -> locate -> top-k -> doc grouping
+# ---------------------------------------------------------------------------
+
+def _fold_select(skip, acc, keep_acc, n_acc, vals, keep):
+    """The previous fold state (padded to the new width) where `skip`,
+    the fresh AND result elsewhere (device_index.py:256)."""
+    pad = vals.shape[1] - acc.shape[1]
+    acc_w = torch.cat([acc, acc.new_full((acc.shape[0], pad), INF32)], dim=1)
+    keep_w = torch.cat([keep_acc, keep_acc.new_zeros((acc.shape[0], pad))],
+                       dim=1)
+    s = skip[:, None]
+    return (torch.where(s, acc_w, vals), torch.where(s, keep_w, keep),
+            torch.where(skip, n_acc, keep.sum(dim=1, dtype=torch.int32)))
+
+
+def eval_and_query(coords, term_offsets, terms, rs, cap: int, small=None):
+    """Proximity-AND fold over each row's terms [B, W <= 2], one variant
+    per word, -1 padded (device_index.py:548, and the V = 1 branch of
+    eval_query_masked, :942): a padded word is the identity. Returns the
+    masked stream (vals ascending incl. dropped slots, keep, r)."""
+    w = terms.shape[1]
+    if w > 2:
+        raise NotImplementedError(
+            "W >= 3 folds are ROADMAP Queue B (b), the wide surface")
+    acc, n_acc = gather_term(coords, term_offsets, terms[:, 0], cap, small)
+    keep_acc = (torch.arange(cap, device=acc.device)[None, :]
+                < n_acc[:, None])
+    r_acc = rs[:, 0]
+    if w == 2:
+        b, nb = gather_term(coords, term_offsets, terms[:, 1], cap, small)
+        vals, keep, r_out = and_masked(acc, n_acc, r_acc, b, nb, rs[:, 1])
+        skip = terms[:, 1] < 0
+        acc, keep_acc, n_acc = _fold_select(skip, acc, keep_acc, n_acc,
+                                            vals, keep)
+        r_acc = torch.where(skip, r_acc, r_out)
+    return acc, keep_acc, r_acc
+
+
+class LocateFull(NamedTuple):
+    """Full per-query result, batched (device_index.py:726): pages /
+    ranks / counts rank-ordered [B, topk], the untruncated totals, the
+    doc grouping (None without docs) and the kept hits [B, hit_cap]."""
+
+    pages: torch.Tensor
+    ranks: torch.Tensor
+    counts: torch.Tensor
+    n_pages: torch.Tensor
+    docs: Optional[torch.Tensor]
+    doc_ranks: Optional[torch.Tensor]
+    hits: torch.Tensor
+    n_hits: torch.Tensor
+
+
+class PreFull(NamedTuple):
+    """A bucket's result before the rank top-k and doc grouping
+    (device_index.py:752): first-topk runs in slot order."""
+
+    pg_c: torch.Tensor
+    rk_c: torch.Tensor
+    ct_c: torch.Tensor
+    n_pages: torch.Tensor
+    n_hits: torch.Tensor
+    hits: torch.Tensor
+
+
+def doc_group_topk(top_page, top_rank, page_doc, is_header):
+    """Doc ordinal of every top-k slot, and doc rank = 1 + ln(sum of the
+    doc's top-k page ranks), x10 when the doc's header page is among
+    them, at each doc's first top-k slot (device_index.py:777), over
+    rows [B, topk].
+
+    Doc and header are plain page_doc / is_header gathers; the
+    reference's doc-start compare-all (P <= DOC_CA_MAX) only avoids
+    gathers on the TPU and gives the same result. The per-doc sums keep the reference's segmented Hillis-Steele order
+    (device_index.py:835-855): prefix-sum differences lose an ulp and
+    break exact doc-rank ties."""
+    bsz, topk = top_page.shape
+    dev = top_page.device
+    valid_top = top_rank > 0
+    safe = top_page.clamp_min(0).long()
+    docs = torch.where(valid_top, page_doc[safe], -1).to(torch.int32)
+    hdr = is_header[safe] & valid_top
+
+    key = torch.where(valid_top, docs, INF32)
+    skey, skidx = torch.sort(key, dim=1, stable=True)
+    srank = torch.gather(top_rank, 1, skidx)
+    shdr = torch.gather(hdr.to(torch.int32), 1, skidx)
+    start = torch.cat([torch.ones((bsz, 1), dtype=torch.bool, device=dev),
+                       skey[:, 1:] != skey[:, :-1]], dim=1)
+    run_sum, run_hdr = srank, shdr
+    d = 1
+    while d < topk:
+        same = torch.cat([skey[:, d:], skey.new_full((bsz, d), -7)],
+                         dim=1) == skey
+        run_sum = run_sum + torch.where(
+            same, torch.cat([run_sum[:, d:], run_sum.new_zeros((bsz, d))],
+                            dim=1), 0.0)
+        run_hdr = run_hdr + torch.where(
+            same, torch.cat([run_hdr[:, d:], run_hdr.new_zeros((bsz, d))],
+                            dim=1), 0)
+        d <<= 1
+    doc_rank = 1.0 + torch.log(run_sum.clamp_min(1e-30))
+    doc_rank = torch.where(run_hdr > 0, doc_rank * 10.0, doc_rank)
+    sval = torch.where(start & (skey < INF32), doc_rank, 0.0)
+    out = torch.empty_like(sval).scatter_(1, skidx, sval)
+    return docs, out
+
+
+def locate_full(vals, keep, bounds, page_doc, is_header, topk: int,
+                hit_cap: int, with_docs: bool = True) -> LocateFull:
+    """Masked streams [B, n] -> full results (device_index.py:865).
+
+    The page runs compact to their first `topk` in slot order by a
+    prefix-sum scatter (the reference's [topk, n] one-hot would be
+    hundreds of MB a row at caps near 1M); n_pages stays exact, and a
+    row with more runs is re-served on the host by its caller. The hits
+    compact to their first hit_cap. Runs past n_pages carry page -1
+    here where the reference's XLA route leaves 0; the top-k tail masks
+    both."""
+    page = rank_in_sorted(vals, bounds, strict=False)
+    page = page.clamp_max(bounds.shape[0] - 1)
+    pg_c, rk_c, ct_c, n_pages, n_hits, hits = locate_compact(
+        vals, keep, page, topk, hit_cap)
+    pages, ranks, counts, _ = qk.streams_topk_tail(pg_c, rk_c, ct_c,
+                                                   n_pages, topk)
+    docs = doc_ranks = None
+    if with_docs:
+        docs, doc_ranks = doc_group_topk(pages, ranks, page_doc, is_header)
+    return LocateFull(pages=pages, ranks=ranks, counts=counts,
+                      n_pages=n_pages, docs=docs, doc_ranks=doc_ranks,
+                      hits=hits, n_hits=n_hits)
+
+
+def query_step_full(term_offsets, coords, bounds, page_doc, is_header,
+                    terms, rs, cap: int, topk: int, hit_cap: int,
+                    with_docs: bool = True, small=None) -> LocateFull:
+    """A batch of queries end to end on the plain route
+    (device_index.py:981)."""
+    vals, keep, _ = eval_and_query(coords, term_offsets, terms, rs, cap,
+                                   small)
+    return locate_full(vals, keep, bounds, page_doc, is_header, topk,
+                       hit_cap, with_docs=with_docs)
+
+
+# ---------------------------------------------------------------------------
+# kernel routing and the multi-bucket dispatcher
+# ---------------------------------------------------------------------------
+
+def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
+                        topk: int, hit_cap: int, small=None, page_of=None):
+    """One bucket [B, W] through the slice's kernels (the V = 1 branch of
+    device_index._pallas_bucket_full, :1706-1800) up to its PreFull, or
+    None when its shape is not admitted: W > 2, a W = 2 cap past 512, a
+    W = 1 cap past 1024 (256 without carried pages), or W = 1 with
+    topk > cap.
+
+    Pages ride the fetch when combined small tables serve the cap
+    (carried); otherwise the wrappers look them up (shared)."""
+    w = tq.shape[1]
+    if w > 2:
+        return None
+    single = w == 1
+    carried = page_of is not None and _tab_serves(small, cap)
+    w1_limit = qk.MAX_STREAM_WIDTH if carried else qk.W1_FULL_STREAM_MAX
+    limit = w1_limit if single else qk.MAX_SORTED_PALLAS_CAP
+    if cap > limit or (single and topk > cap):
+        return None
+
+    def fetch(terms):
+        if carried:
+            return gather_term_paged(coords, page_of, term_offsets, terms,
+                                     cap, small)
+        vals, ln = gather_term(coords, term_offsets, terms, cap, small)
+        return vals, None, ln
+
+    a, apg, na = fetch(tq[:, 0])
+    kw = dict(topk=topk, hit_cap=hit_cap, a_pg=apg, tail=False)
+    if single and cap > qk.MAX_PALLAS_CAP:
+        outs = qk.union_locate_full(
+            a[:, None, :], na[:, None], bounds,
+            **dict(kw, a_pg=None if apg is None else apg[:, None, :]))
+    elif single:
+        outs = qk.single_locate_full(a, na, bounds, **kw)
+    else:
+        b, bpg, nb = fetch(tq[:, 1])
+        outs = qk.sorted_and_locate_full(
+            a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
+            bounds, b_pg=bpg, **kw)
+    return PreFull(*outs)
+
+
+def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
+                 cap: int, topk: int, hit_cap: int, with_docs: bool,
+                 use_kernels: bool, small=None, page_of=None):
+    """One full-result bucket (device_index.py:1302, without the chunked
+    branches that only a TPU reaches): the kernels' PreFull when
+    admitted, else the plain route's finished LocateFull."""
+    if use_kernels:
+        out = _kernel_bucket_full(
+            term_offsets, coords, bounds, tq, rq, cap=cap, topk=topk,
+            hit_cap=hit_cap, small=small, page_of=page_of)
+        if out is not None:
+            return out
+    return query_step_full(term_offsets, coords, bounds, page_doc,
+                           is_header, tq, rq, cap=cap, topk=topk,
+                           hit_cap=hit_cap, with_docs=with_docs, small=small)
+
+
+def multi_bucket_query_full(term_offsets, coords, bounds, page_doc,
+                            is_header, terms_list, rs_list, caps,
+                            topk: int, hit_caps, with_docs: bool = True,
+                            use_kernels: bool = False, small=None,
+                            page_of=None):
+    """Every bucket of a batch (device_index.py:1438), each with its own
+    cap and hit buffer width. With the kernels, each kernel bucket
+    returns its first-topk runs and one rank top-k plus one doc grouping
+    run over all of them; rows are independent, so the results equal
+    per-bucket tails. Returns one LocateFull per bucket."""
+    outs = [
+        _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq,
+                     rq, cap=cap, topk=topk, hit_cap=hb, with_docs=with_docs,
+                     use_kernels=use_kernels, small=small, page_of=page_of)
+        for tq, rq, cap, hb in zip(terms_list, rs_list, caps, hit_caps)
+    ]
+    idxs = [i for i, o in enumerate(outs) if isinstance(o, PreFull)]
+    if idxs:
+        pre = [outs[i] for i in idxs]
+        pages, ranks, counts, _ = qk.streams_topk_tail(
+            torch.cat([p.pg_c for p in pre]),
+            torch.cat([p.rk_c for p in pre]),
+            torch.cat([p.ct_c for p in pre]),
+            torch.cat([p.n_pages for p in pre]), topk)
+        docs = doc_ranks = None
+        if with_docs:
+            docs, doc_ranks = doc_group_topk(pages, ranks, page_doc,
+                                             is_header)
+        off = 0
+        for i, p in zip(idxs, pre):
+            sl = slice(off, off + p.pg_c.shape[0])
+            outs[i] = LocateFull(
+                pages=pages[sl], ranks=ranks[sl], counts=counts[sl],
+                n_pages=p.n_pages,
+                docs=None if docs is None else docs[sl],
+                doc_ranks=None if doc_ranks is None else doc_ranks[sl],
+                hits=p.hits, n_hits=p.n_hits)
+            off += p.pg_c.shape[0]
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# host-side wrapper
+# ---------------------------------------------------------------------------
+
+_STATE_ARRAYS = ("term_offsets", "coords", "bounds", "page_doc",
+                 "is_header", "page_of")
+
+
+@dataclass
+class DeviceIndex:
+    """Device arrays plus the host dictionaries for query compilation
+    (device_index.py:1903)."""
+
+    term_offsets: torch.Tensor
+    coords: torch.Tensor
+    bounds: torch.Tensor
+    page_doc: torch.Tensor
+    is_header: torch.Tensor
+    page_of: torch.Tensor
+    small: Optional[tuple]
+    terms: List[str]
+    page_ids: List[str]
+    doc_names: List[str]
+    _tmap: dict
+    offsets_np: np.ndarray
+    page_doc_np: np.ndarray
+    bounds_np: np.ndarray
+    _cgq_cache: dict = field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return self.coords.device
+
+    @classmethod
+    def from_index(cls, ind, device="cpu") -> "DeviceIndex":
+        """Stage a host Index (ArrayIndex CSR + PageTable) on `device`
+        (device_index.py:1939)."""
+        arr = ind.arr
+        if arr.coords is None:
+            raise ValueError("device upload requires an in-memory index")
+        if arr.max_coord >= INF32:
+            raise ValueError(
+                f"corpus spans {arr.max_coord} chars >= 2^31-1: a single "
+                f"device shard's int32 coordinate space is full")
+        pt = ind.pages
+        offsets_np = np.asarray(arr.offsets, dtype=np.int64)
+        page_doc_np = np.asarray(pt.page_doc, dtype=np.int32)
+        if np.any(np.diff(page_doc_np) < 0):
+            raise ValueError("page_doc must be non-decreasing "
+                             "(contiguous doc page runs)")
+        bounds_np = pt.bounds.astype(np.int64)
+        header_np = np.fromiter((pid == "0" for pid in pt.page_ids),
+                                dtype=bool, count=len(pt.page_ids))
+        coords64 = arr.coords.astype(np.int64)
+        pages_np = build_page_of(bounds_np, coords64)
+        arrays = {
+            "term_offsets": offsets_np.astype(np.int32),
+            "coords": coords64.astype(np.int32),
+            "bounds": bounds_np.astype(np.int32),
+            "page_doc": page_doc_np,
+            "is_header": header_np,
+            "page_of": pages_np,
+        }
+        small = build_small_tables(offsets_np, coords64, pages_np=pages_np)
+        for i, st in enumerate(small or ()):
+            arrays.update(_small_state(i, st))
+        return cls.from_state(arrays, list(arr.terms), list(pt.page_ids),
+                              list(pt.doc_names), device=device)
+
+    @classmethod
+    def from_state(cls, arrays, terms, page_ids, doc_names,
+                   device="cpu") -> "DeviceIndex":
+        """Stage the index from numpy arrays: the six named in
+        `_STATE_ARRAYS` plus small{i}_w / _band / _row_map / _tab for
+        each small table, as `state()` returns them, or as the JAX
+        package's DeviceIndex holds them."""
+        dev = torch.device(device)
+        t = {k: torch.tensor(np.asarray(arrays[k]), device=dev)
+             for k in _STATE_ARRAYS}
+        small = []
+        i = 0
+        while f"small{i}_w" in arrays:
+            small.append(SmallTab(
+                int(arrays[f"small{i}_w"]),
+                np.asarray(arrays[f"small{i}_row_map"]),
+                np.asarray(arrays[f"small{i}_tab"]),
+                bool(arrays[f"small{i}_band"])).to(dev))
+            i += 1
+        offsets_np = np.asarray(arrays["term_offsets"], dtype=np.int64)
+        return cls(
+            term_offsets=t["term_offsets"], coords=t["coords"],
+            bounds=t["bounds"], page_doc=t["page_doc"],
+            is_header=t["is_header"], page_of=t["page_of"],
+            small=tuple(small) or None, terms=list(terms),
+            page_ids=list(page_ids), doc_names=list(doc_names),
+            _tmap={w: i for i, w in enumerate(terms)},
+            offsets_np=offsets_np,
+            page_doc_np=np.asarray(arrays["page_doc"], dtype=np.int32),
+            bounds_np=np.asarray(arrays["bounds"], dtype=np.int64),
+        )
+
+    def state(self) -> dict:
+        """The staged arrays as numpy, keyed as from_state takes them."""
+        out = {k: getattr(self, k).cpu().numpy() for k in _STATE_ARRAYS}
+        for i, st in enumerate(self.small or ()):
+            out.update(_small_state(i, st))
+        return out
+
+    def device_bytes(self) -> int:
+        ts = [getattr(self, k) for k in _STATE_ARRAYS]
+        for st in self.small or ():
+            ts += [st.row_map, st.tab]
+        return sum(x.numel() * x.element_size() for x in ts)
+
+    def term_id(self, term: str) -> int:
+        return self._tmap.get(term, -1)
+
+    def posting_count(self, term: str) -> int:
+        tid = self.term_id(term)
+        if tid < 0:
+            return 0
+        return int(self.offsets_np[tid + 1] - self.offsets_np[tid])
+
+    def compile_group_query(self, query):
+        """One group query [(codes, r), ...] -> (id rows, rs, w, v, cap
+        need, min_need), or None when some group has no known term
+        (device_index.py:2106). Cached per query."""
+        try:
+            key = tuple(
+                (codes if isinstance(codes, str) else tuple(codes), r)
+                for codes, r in query
+            )
+        except TypeError:
+            key = None
+        if key is not None and key in self._cgq_cache:
+            return self._cgq_cache[key]
+        out = self._compile_group_query_uncached(query)
+        if key is not None and len(self._cgq_cache) < 200_000:
+            self._cgq_cache[key] = out
+        return out
+
+    def _compile_group_query_uncached(self, query):
+        rows, rvals = [], []
+        need = 1
+        min_need = None
+        for codes, r in query:
+            if isinstance(codes, str):
+                codes = (codes,)
+            ids = []
+            group_vol = 0
+            for c in codes:
+                tid = self.term_id(c)
+                if tid >= 0:
+                    ids.append(tid)
+                    cnt = self.posting_count(c)
+                    need = max(need, cnt)
+                    group_vol += cnt
+            if not ids:
+                return None
+            min_need = group_vol if min_need is None else min(
+                min_need, group_vol)
+            rows.append(ids)
+            rvals.append(r)
+        w = max(len(rows), 1)
+        v = max((len(ids) for ids in rows), default=1)
+        return rows, rvals, w, v, need, min_need or 1
+
+    def search_batch_full(self, queries, topk: int = 64,
+                          hit_cap: int = 512, want_docs: bool = True,
+                          use_kernels: Optional[bool] = None):
+        """Full-result batch evaluation (device_index.py:2170, the fused
+        path). queries: per query a list of (codes, r) groups, codes a
+        term key (one variant per word; at most two words).
+
+        Returns a dict of numpy arrays: pages / ranks / counts [B, topk],
+        n_pages / n_hits [B], hits [B, hit_cap] (ascending kept
+        coordinates, INF32 padded) and, with want_docs, docs /
+        doc_ranks [B, topk]. n_pages > topk or n_hits > hit_cap flags
+        rank truncation.
+
+        use_kernels: the CUDA kernels (default on a CUDA device; on the
+        CPU their plain versions) or, with False, the plain route for
+        every bucket."""
+        if use_kernels is None:
+            use_kernels = self.device.type == "cuda"
+        b = len(queries)
+        out = {
+            "pages": np.full((b, topk), -1, dtype=np.int32),
+            "ranks": np.zeros((b, topk), dtype=np.float32),
+            "counts": np.zeros((b, topk), dtype=np.int32),
+            "n_pages": np.zeros(b, dtype=np.int32),
+            "n_hits": np.zeros(b, dtype=np.int32),
+            "hits": np.full((b, hit_cap), INF32, dtype=np.int32),
+        }
+        if want_docs:
+            out["docs"] = np.full((b, topk), -1, dtype=np.int32)
+            out["doc_ranks"] = np.zeros((b, topk), dtype=np.float32)
+
+        # hit-stream readback tiers: a query whose smallest operand
+        # bounds its result small reads back a small buffer; overflow
+        # still flags through n_hits
+        hit_tiers = sorted({min(hit_cap, t) for t in (128, 512, hit_cap)})
+
+        def hit_tier(min_need: int) -> int:
+            want = 4 * min_need + 16
+            for t in hit_tiers:
+                if want <= t:
+                    return t
+            return hit_cap
+
+        compiled = []
+        buckets = {}
+        for i, q in enumerate(queries):
+            cg = self.compile_group_query(q)
+            compiled.append(cg)
+            if cg is None:
+                continue
+            _rows, _rvals, w, v, need, min_need = cg
+            if w > 2 or v > 1:
+                raise NotImplementedError(
+                    f"query {i} has {w} words and {v} variants: W >= 3 "
+                    f"and variant ORs are ROADMAP Queue B (b), the wide "
+                    f"surface")
+            buckets.setdefault(
+                (_bucket(need), w, 1, hit_tier(min_need)), []).append(i)
+
+        terms_list, rs_list, caps_list, hcaps_list, idx_list = (
+            [], [], [], [], [])
+        dev = self.device
+        for (qcap, w, _vb, hb), idxs in sorted(buckets.items(),
+                                                key=_bucket_sort_key):
+            brows = _bucket(len(idxs), lo=8)
+            terms = np.full((brows, w), -1, dtype=np.int32)
+            rs = np.ones((brows, w), dtype=np.int32)
+            for row, i in enumerate(idxs):
+                rows_i, rvals_i = compiled[i][0], compiled[i][1]
+                for j, (ids, r) in enumerate(zip(rows_i, rvals_i)):
+                    terms[row, j] = ids[0]
+                    rs[row, j] = r
+            terms_list.append(torch.as_tensor(terms, device=dev))
+            rs_list.append(torch.as_tensor(rs, device=dev))
+            caps_list.append(qcap)
+            hcaps_list.append(hb)
+            idx_list.append(idxs)
+        if not idx_list:
+            return out
+        outs = multi_bucket_query_full(
+            self.term_offsets, self.coords, self.bounds, self.page_doc,
+            self.is_header, terms_list, rs_list, caps_list, topk,
+            hcaps_list, with_docs=want_docs, use_kernels=use_kernels,
+            small=self.small, page_of=self.page_of)
+        # one transfer per fixed-width field, one per bucket for the hits
+        fields = ["pages", "ranks", "counts", "n_pages", "n_hits"]
+        if want_docs:
+            fields += ["docs", "doc_ranks"]
+        host = {f: torch.cat([getattr(o, f) for o in outs]).cpu().numpy()
+                for f in fields}
+        off = 0
+        for idxs, hb, o in zip(idx_list, hcaps_list, outs):
+            n = len(idxs)
+            sl = slice(off, off + n)
+            for f in ("pages", "ranks", "counts", "docs", "doc_ranks"):
+                if f in host:
+                    out[f][idxs] = host[f][sl]
+            out["n_pages"][idxs] = host["n_pages"][sl]
+            nh = host["n_hits"][sl]
+            # a query overflowing its tier must flag truncation
+            out["n_hits"][idxs] = (np.where(nh > hb, np.int32(hit_cap + 1),
+                                            nh) if hb < hit_cap else nh)
+            out["hits"][idxs, :hb] = o.hits[:n].cpu().numpy()
+            off += o.pages.shape[0]
+        return out
+
+
+def _small_state(i: int, st: SmallTab) -> dict:
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else \
+            np.asarray(x)
+
+    return {f"small{i}_w": np.int64(st.w), f"small{i}_band": np.bool_(st.band),
+            f"small{i}_row_map": host(st.row_map),
+            f"small{i}_tab": host(st.tab)}

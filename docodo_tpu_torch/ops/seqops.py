@@ -1,0 +1,191 @@
+"""Posting algebra on batched torch tensors: the twin of
+docodo_tpu/ops/seqops.py for the full-result slice (W <= 2, V = 1).
+
+Every function takes a batch of rows written out as the leading
+dimension (the JAX package vmaps the same functions over one row).
+Streams are int32 and padded with INF32; ranks and counts are float32.
+
+The TPU workarounds of the reference (compare-all ranks, one-hot
+placement and compaction) are not carried over: on the GPU a merge is a
+scatter at searchsorted ranks and a compaction is a prefix sum plus a
+scatter. The outputs and their tie-break orders are the contract.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INF32 = 2**31 - 1
+
+
+def topk_nonneg(ranks: torch.Tensor, k: int):
+    """Top `k` of non-negative f32 ranks per row: (values, slots).
+
+    Ties go to the lowest slot, as `lax.top_k` does (seqops.py:31): a
+    stable descending sort keeps equal ranks in slot order.
+    `torch.topk` leaves the order of ties unspecified and is not used."""
+    vals, slots = torch.sort(ranks, dim=1, descending=True, stable=True)
+    return vals[:, :k], slots[:, :k]
+
+
+def select_slots(stream: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """stream[B, n] read at slots[B, k] (seqops.py:42)."""
+    return torch.gather(stream, 1, slots)
+
+
+def rank_in_sorted(queries: torch.Tensor, sorted_vals: torch.Tensor,
+                   strict: bool) -> torch.Tensor:
+    """#{j: sorted_vals[j] < q} (strict) or <= q, per element of
+    `queries` (seqops.py:100, searchsorted branch). `sorted_vals` is 1-D
+    or has the rows of `queries`."""
+    return torch.searchsorted(sorted_vals, queries,
+                              right=not strict).to(torch.int32)
+
+
+def combine_r(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Result window: max magnitude; ordered only if both ordered."""
+    abs_r = torch.maximum(r1.abs(), r2.abs())
+    return torch.where((r1 < 0) & (r2 < 0), -abs_r, abs_r)
+
+
+def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
+    """x[:, l - 1] at lane l, `fill` at lane 0."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+
+def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
+    """x[:, l + 1] at lane l, `fill` at the last lane."""
+    return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
+
+
+def fold_dups(vals, isa, isb, valid):
+    """Cross-operand duplicates merge onto their first element; the
+    second becomes a ghost (seqops.py:243-252). Returns (isa, isb,
+    ghost)."""
+    dup_prev = (vals == _shift_right(vals, -1)) & valid
+    dup_next = (vals == _shift_left(vals, INF32)) & valid
+    isa2 = (isa | (dup_next & _shift_left(isa, False))) & ~dup_prev
+    isb2 = (isb | (dup_next & _shift_left(isb, False))) & ~dup_prev
+    return isa2, isb2, dup_prev
+
+
+def merge_sorted_tagged(a, na, b, nb):
+    """Merge two batches of padded ascending lists [B, p1], [B, p2]
+    (seqops.py:183). Each element lands at its index plus its rank in
+    the other operand (ties: a first), which is a bijection onto the
+    merged slots, so one scatter places it.
+
+    Returns (vals, isa, isb, ghost, valid), each [B, p1 + p2]."""
+    bsz, p1 = a.shape
+    p2 = b.shape[1]
+    dev = a.device
+    ia = torch.arange(p1, device=dev)[None, :] < na[:, None]
+    ib = torch.arange(p2, device=dev)[None, :] < nb[:, None]
+    av = torch.where(ia, a, INF32)
+    bv = torch.where(ib, b, INF32)
+    ra = torch.arange(p1, device=dev) + rank_in_sorted(av, bv, strict=True)
+    rb = torch.arange(p2, device=dev) + rank_in_sorted(bv, av, strict=False)
+    vals = torch.empty((bsz, p1 + p2), dtype=torch.int32, device=dev)
+    vals.scatter_(1, ra.long(), av)
+    vals.scatter_(1, rb.long(), bv)
+    isa = torch.zeros((bsz, p1 + p2), dtype=torch.bool, device=dev)
+    isb = torch.zeros_like(isa)
+    isa.scatter_(1, ra.long(), ia)
+    isb.scatter_(1, rb.long(), ib)
+    valid = vals < INF32
+    isa, isb, ghost = fold_dups(vals, isa, isb, valid)
+    return vals, isa, isb, ghost, valid
+
+
+def span_contains(marks, starts, terminals):
+    """Whether each slot's enclosing [start..terminal] span holds a
+    marked slot (seqops.py:271)."""
+    cum = torch.cumsum(marks.to(torch.int32), dim=1)
+    prev = _shift_right(cum, 0)
+    before = torch.cummax(torch.where(starts, prev, -1), dim=1).values
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(terminals, cum, INF32), [1]), dim=1).values, [1])
+    return (end - before) > 0
+
+
+def segment_and(vals, isa, isb, ghost, valid, r):
+    """Gap segmentation, the ordered cut and the per-segment
+    both-operands test over a merged tagged stream (seqops.py:289).
+    `r` is the combined window per row. Returns the keep mask."""
+    n = vals.shape[1]
+    idx = torch.arange(n, device=vals.device, dtype=torch.int32)[None, :]
+    abs_r = r.abs()[:, None]
+    prev = _shift_right(vals, 0)
+    gap_cut = (abs_r != 0) & ((vals - prev) > abs_r)
+    seg_start = (idx == 0) | (gap_cut & valid)
+    # ordered mode: the first A-tagged element of each gap segment
+    # opens a new segment unless it already starts one
+    start_idx = torch.cummax(torch.where(seg_start, idx, -1), dim=1).values
+    isa_i = isa.to(torch.int32)
+    before = torch.cumsum(isa_i, dim=1, dtype=torch.int32) - isa_i
+    before_at_start = torch.cummax(
+        torch.where(seg_start, before, -1), dim=1).values
+    ordered_cut = isa & (before == before_at_start) & (idx != start_idx)
+    seg_start = torch.where((r < 0)[:, None], seg_start | ordered_cut,
+                            seg_start)
+    terminal = _shift_left(seg_start, True)
+    has_a = span_contains(isa, seg_start, terminal)
+    has_b = span_contains(isb, seg_start, terminal)
+    return has_a & has_b & valid & ~ghost
+
+
+def and_masked(a, na, ra, b, nb, rb):
+    """Proximity-AND without compaction (seqops.py:327): (vals
+    [B, p1 + p2] ascending incl. dropped slots, keep, r)."""
+    r = combine_r(ra, rb)
+    vals, isa, isb, ghost, valid = merge_sorted_tagged(a, na, b, nb)
+    return vals, segment_and(vals, isa, isb, ghost, valid, r), r
+
+
+def locate_compact(vals, keep, page, kpad: int, hpad: int):
+    """Masked ascending stream -> the first `kpad` page runs in slot
+    order and the first `hpad` kept hits, with exact totals.
+
+    A run starts at a kept slot whose page differs from the previous
+    kept slot's; each later slot of the run adds 30 // max(5, gap).
+    rank = (1 + bonus) + ln(count) in f32 (device_index._locate_core,
+    pallas_query._locate_rank_core). Run sums are exact integers, so
+    any summation order gives the same f32. Page values at dropped
+    slots are never read.
+
+    Returns (pg_c int32[B, kpad] (-1 pad), rk_c f32[B, kpad] (0 pad),
+    ct_c f32[B, kpad] (0 pad), n_pages int32[B], n_hits int32[B],
+    hits int32[B, hpad] (INF32 pad))."""
+    bsz, n = vals.shape
+    dev = vals.device
+    lane = torch.arange(n, device=dev)[None, :]
+    last = torch.cummax(torch.where(keep, lane, -1), dim=1).values
+    prev_idx = _shift_right(last, -1)
+    has_prev = prev_idx >= 0
+    safe = prev_idx.clamp_min(0)
+    prev_val = torch.gather(vals, 1, safe)
+    prev_page = torch.where(has_prev, torch.gather(page, 1, safe), -1)
+    first = keep & (page != prev_page)
+    gap = torch.where(has_prev, vals - prev_val, 0)
+    bonus = torch.where(keep & ~first, 30 // gap.clamp_min(5), 0)
+    run_id = torch.cumsum(first, dim=1) - 1
+    n_pages = first.sum(dim=1, dtype=torch.int32)
+    n_hits = keep.sum(dim=1, dtype=torch.int32)
+    # runs past kpad and dropped slots land in the spare column kpad
+    rsel = torch.where(keep & (run_id < kpad), run_id, kpad)
+    zeros = torch.zeros((bsz, kpad + 1), dtype=torch.int32, device=dev)
+    cnt = zeros.scatter_add(1, rsel, keep.to(torch.int32))[:, :kpad]
+    bon = zeros.scatter_add(1, rsel, bonus.to(torch.int32))[:, :kpad]
+    psel = torch.where(first, rsel, kpad)
+    pg = zeros.scatter(1, psel, page)[:, :kpad]
+    cnt_f = cnt.to(torch.float32)
+    rank = (1.0 + bon.to(torch.float32)) + torch.log(cnt_f.clamp_min(1.0))
+    served = torch.arange(kpad, device=dev)[None, :] < n_pages[:, None]
+    pg_c = torch.where(served, pg, -1)
+    rk_c = torch.where(served, rank, 0.0)
+    ct_c = torch.where(served, cnt_f, 0.0)
+    slot = torch.cumsum(keep, dim=1) - 1
+    hsel = torch.where(keep & (slot < hpad), slot, hpad)
+    hits = torch.full((bsz, hpad + 1), INF32, dtype=torch.int32, device=dev)
+    hits = hits.scatter(1, hsel, vals)[:, :hpad]
+    return pg_c, rk_c, ct_c, n_pages, n_hits, hits

@@ -1,0 +1,91 @@
+"""Each CUDA kernel of docodo_tpu_torch against its plain PyTorch
+version, on a CUDA card; every test skips without one. The module
+imports no jax, so on a GPU machine without jax it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: int fields and hits exact; ranks within 1 ulp (the kernel's
+logf and torch.log on the card)."""
+
+import numpy as np
+import pytest
+import torch
+
+from docodo_tpu_torch.ops import query_kernels as qk
+
+INF32 = 2**31 - 1
+BOUNDS = np.arange(1, 80, dtype=np.int32) * 60
+FIELDS = ("pg_c", "rk_c", "ct_c", "n_pages", "n_hits", "hits")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _batch(rng, bsz, cap):
+    """Two ascending subsets of one pool per row (shared coordinates),
+    empty and full rows, both window signs."""
+    pool = np.cumsum(rng.integers(1, 30, size=(bsz, 2 * cap)), axis=1)
+    pick = lambda: np.sort(np.argsort(rng.random((bsz, 2 * cap)), axis=1)
+                           [:, :cap], axis=1)
+    a = np.take_along_axis(pool, pick(), axis=1).astype(np.int32)
+    b = np.take_along_axis(pool, pick(), axis=1).astype(np.int32)
+    na = rng.integers(0, cap + 1, bsz).astype(np.int32)
+    nb = rng.integers(0, cap + 1, bsz).astype(np.int32)
+    na[::7], nb[1::7], na[2::5], nb[2::5] = 0, 0, cap, cap
+    ra = np.where(np.arange(bsz) % 2 == 0, 25, -25).astype(np.int32)
+    rb = np.where(np.arange(bsz) % 2 == 0, 20, -20).astype(np.int32)
+    return a, na, ra, b, nb, rb
+
+
+def _pages(x):
+    return np.minimum(np.searchsorted(BOUNDS, x, side="right"),
+                      BOUNDS.size - 1).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cap", [
+    ("sorted_and_locate_full", 64), ("sorted_and_locate_full", 512),
+    ("single_locate_full", 128), ("union_locate_full", 1024),
+])
+def test_kernel_matches_plain_on_card(cuda_device, name, cap):
+    rng = np.random.default_rng(cap)
+    a, na, ra, b, nb, rb = _batch(rng, 512, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    topk = 16
+    kw = dict(topk=topk, hit_cap=1024, tail=False)
+    if name == "sorted_and_locate_full":
+        args = (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(BOUNDS))
+        kw.update(a_pg=c(_pages(a)), b_pg=c(_pages(b)))
+    elif name == "single_locate_full":
+        args = (c(a), c(na), c(BOUNDS))
+        kw.update(a_pg=c(_pages(a)))
+    else:
+        args = (c(a)[:, None], c(na)[:, None], c(BOUNDS))
+        kw.update(a_pg=c(_pages(a))[:, None])
+    got = getattr(qk, name)(*args, **kw)
+    torch.cuda.synchronize()
+    want = getattr(qk, name + "_plain")(*args, **kw)
+    for field, g, w in zip(FIELDS, got, want):
+        g, w = g.cpu(), w.cpu()
+        if field == "rk_c":
+            d = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            assert int(d.abs().max()) <= 1, field
+        else:
+            assert torch.equal(g, w), field
+    assert int(got[3].max()) > topk  # rows with more runs than topk
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    a = torch.zeros((8, 256), dtype=torch.int32, device=cuda_device)
+    n = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    bounds = torch.as_tensor(BOUNDS, device=cuda_device)
+    with pytest.raises(ValueError, match="caps <= 128"):
+        qk.single_locate_full(a, n, bounds, topk=8, hit_cap=64, a_pg=a)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.single_locate_full(a[:, ::2], n, bounds, topk=8, hit_cap=64,
+                              a_pg=a[:, ::2])

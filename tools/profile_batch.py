@@ -1,0 +1,209 @@
+"""Where the time of one full-result batch goes: docodo_tpu_torch's
+search_batch_full over the standard 10k mix on a seeded Zipf corpus (the
+corpus and mix of chip_smoke.py), on the kernel route and the plain
+route.
+
+    python3 tools/profile_batch.py [--corpus-mb 64] [--seed 0] [--out FILE]
+
+Prints, per route:
+  - the whole batch and its phases over RUNS warm runs, the routes
+    alternating (median, min, max, ms on the host clock): bucketing
+    (query compile and bucket arrays), dispatch (every bucket enqueued),
+    drain (the device finishing after dispatch), readback (device to
+    numpy and the scatter into the result);
+  - each bucket alone with a synchronise around it: cap, words, rows,
+    whether a kernel or the plain route served it, ms;
+  - one batch under torch.profiler: device time, profiled wall, busy
+    share and the largest device items.
+The phase split synchronises once, after dispatch, so a batch reads a
+little slower than unsplit. The last line is one JSON object with all of
+it, also written to --out. Imports no jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from benchmarks.common import standard_mix  # noqa: E402
+from docodo_tpu_torch.ops import device_index as tdi  # noqa: E402
+from docodo_tpu_torch.synthetic import build_index, zipf_documents  # noqa: E402
+
+TOPK = 64
+HIT_CAP = 1024
+N_QUERIES = 10_000
+RUNS = 5
+ROUTES = {"kernel": True, "plain": False}
+
+
+def card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return smi.splitlines()[0]
+
+
+def phased_batch(dix, queries, use_kernels: bool) -> dict:
+    """One batch, its host clock split at the entry and exit of
+    multi_bucket_query_full, with a synchronise after dispatch."""
+    marks = {}
+    inner = tdi.multi_bucket_query_full
+
+    def timed(*a, **k):
+        marks["enter"] = time.perf_counter()
+        outs = inner(*a, **k)
+        marks["dispatched"] = time.perf_counter()
+        torch.cuda.synchronize()
+        marks["drained"] = time.perf_counter()
+        return outs
+
+    tdi.multi_bucket_query_full = timed
+    try:
+        t0 = time.perf_counter()
+        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                              use_kernels=use_kernels)
+        t1 = time.perf_counter()
+    finally:
+        tdi.multi_bucket_query_full = inner
+    ms = lambda a, b: (b - a) * 1e3
+    return {"batch": ms(t0, t1), "bucketing": ms(t0, marks["enter"]),
+            "dispatch": ms(marks["enter"], marks["dispatched"]),
+            "drain": ms(marks["dispatched"], marks["drained"]),
+            "readback": ms(marks["drained"], t1)}
+
+
+def bucket_times(dix, queries, use_kernels: bool) -> list:
+    """Each bucket of one batch with a synchronise before and after."""
+    rows = []
+    inner = tdi._bucket_full
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        tq = a[5]
+        rows.append({"cap": k["cap"], "words": int(tq.shape[1]),
+                     "rows": int(tq.shape[0]),
+                     "route": "kernel" if isinstance(out, tdi.PreFull)
+                     else "plain",
+                     "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    tdi._bucket_full = timed
+    try:
+        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                              use_kernels=use_kernels)
+    finally:
+        tdi._bucket_full = inner
+    return rows
+
+
+def profiled_batch(dix, queries, use_kernels: bool, top: int = 8) -> dict:
+    """One batch under torch.profiler: summed device time of every
+    kernel and copy against the profiled wall. Only device-side events
+    count: a host op carries the device time of what it launched."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                              use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+
+    items = sorted(((dev_us(e), e.count, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU and dev_us(e) > 0),
+                   reverse=True)
+    device_ms = sum(us for us, _, _ in items) / 1e3
+    return {"device_ms": device_ms, "wall_ms": wall,
+            "busy_share": device_ms / wall,
+            "top": [{"name": k[:80], "calls": n, "ms": us / 1e3}
+                    for us, n, k in items[:top]]}
+
+
+def summarize(runs: list) -> dict:
+    return {key: {"median": statistics.median(r[key] for r in runs),
+                  "min": min(r[key] for r in runs),
+                  "max": max(r[key] for r in runs)}
+            for key in runs[0]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--corpus-mb", type=float, default=64.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_batch: no CUDA device")
+    smi = card()
+
+    docs = zipf_documents(int(args.corpus_mb * 1e6), seed=args.seed)
+    with tempfile.TemporaryDirectory(prefix="docodo_profile_") as work:
+        ind = build_index(docs, work)
+    dix = tdi.DeviceIndex.from_index(ind, device="cuda")
+    counts = np.diff(dix.offsets_np)
+    terms, rs = standard_mix(counts, dix.terms, N_QUERIES)
+    queries = [[(dix.terms[t[j]], int(r[j])) for j in range(2) if t[j] >= 0]
+               for t, r in zip(terms, rs)]
+    print(f"{args.corpus_mb:g} MB seed {args.seed}: {dix.bounds.numel()} "
+          f"pages, {dix.coords.numel()} postings, {len(queries)} queries; "
+          f"{smi}", flush=True)
+
+    report = {"card": smi, "corpus_mb": args.corpus_mb, "seed": args.seed,
+              "runs": RUNS, "routes": {}}
+    for use in ROUTES.values():  # warm both routes
+        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                              use_kernels=use)
+    phased = {name: [] for name in ROUTES}
+    for i in range(RUNS):
+        order = list(ROUTES) if i % 2 == 0 else list(ROUTES)[::-1]
+        for name in order:
+            phased[name].append(phased_batch(dix, queries, ROUTES[name]))
+    for name, use in ROUTES.items():
+        rep = {"phases_ms": summarize(phased[name]),
+               "buckets": bucket_times(dix, queries, use),
+               "profile": profiled_batch(dix, queries, use)}
+        report["routes"][name] = rep
+        print(f"== {name} route ({smi})")
+        for key, v in rep["phases_ms"].items():
+            print(f"  {key:9s} median {v['median']:9.3f} ms "
+                  f"(min {v['min']:.3f}, max {v['max']:.3f})")
+        for b in rep["buckets"]:
+            print(f"  bucket cap {b['cap']:8d} W={b['words']} rows "
+                  f"{b['rows']:5d} {b['route']:6s} {b['ms']:9.3f} ms")
+        p = rep["profile"]
+        print(f"  profiler: device {p['device_ms']:.3f} ms of "
+              f"{p['wall_ms']:.3f} ms wall, busy share "
+              f"{p['busy_share']:.3f}")
+        for t in p["top"]:
+            print(f"    {t['ms']:9.3f} ms {t['calls']:6d}x {t['name']}")
+    line = json.dumps(report)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()
