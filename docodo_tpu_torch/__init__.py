@@ -1,18 +1,21 @@
-"""docodo_tpu_torch: the device half of docodo_tpu on PyTorch and CUDA.
+"""docodo_tpu_torch: the docodo engine on PyTorch and CUDA.
 
-The JAX package (docodo_tpu) is the reference this port is held against.
-The host layers (index build, parsing, sources) are shared with it and
-import no jax; this package replaces its `ops/` on torch, with the TPU
-kernels of the full-result query path as CUDA kernels for Hopper
-(csrc/locate_full.cu). It imports torch and never jax.
+The JAX package (docodo_tpu) is the reference this port is held against;
+the port imports torch, never jax, and nothing of docodo_tpu: it keeps
+its own copies of the host modules it needs. The TPU kernels of the
+full-result query path are CUDA kernels for Hopper (csrc/*.cu).
 
+  index.py             host index build over paged documents
+  lang/, constants.py  tokenizer, stemmers, word coder (no vocabularies)
+  mix.py, oracle.py    the standard query mix and the numpy AND oracle
+  synthetic.py         seeded Zipf corpora
   ops/seqops.py        posting algebra on batched tensors
   ops/device_index.py  the device index and full-result query routing
   ops/query_kernels.py the kernel wrappers and their plain versions
   ops/_cuda.py         nvcc build at first use + ctypes binding
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 
 def __getattr__(name):

@@ -1,10 +1,11 @@
-"""Build and bind the slice's CUDA kernels (csrc/locate_full.cu).
+"""Build and bind the port's CUDA kernels (csrc/*.cu).
 
-The source compiles with `nvcc` into a shared library with a plain C
-interface on first use, under `build/docodo_tpu_torch/` at the root of
-the checkout, keyed by a hash of the source and the flags, and loads
-through ctypes. Nothing here runs at import: the CPU tests import every
-module on a machine with no CUDA compiler.
+Each source compiles with `nvcc` into an object, all sources at once,
+and the objects link into one shared library with a plain C interface,
+on first use, under `build/docodo_tpu_torch/` at the root of the
+checkout, keyed by a hash of the sources and the flags; it loads through
+ctypes. Nothing here runs at import: the CPU tests import every module
+on a machine with no CUDA compiler.
 
 Each entry point launches on PyTorch's current stream and returns
 cudaGetLastError(); a launch that returns anything else raises. A
@@ -24,10 +25,12 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "locate_full.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu")
+HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "docodo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""
@@ -45,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES + HEADERS:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"locate_full_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"docodo_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
@@ -59,31 +64,31 @@ def build() -> float:
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [src.name for src, p in zip(SOURCES, procs) if p.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
         capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    build_log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{build_log}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return time.perf_counter() - t0
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.docodo_sorted_and_locate_full.argtypes = (
-        [p] * 8 + [i] * 4 + [p] * 7)
-    lib.docodo_single_locate_full.argtypes = [p] * 3 + [i] * 4 + [p] * 7
-    lib.docodo_union_locate_full.argtypes = [p] * 3 + [i] * 4 + [p] * 7
-    for fn in (lib.docodo_sorted_and_locate_full,
-               lib.docodo_single_locate_full,
-               lib.docodo_union_locate_full):
-        fn.restype = ctypes.c_int
-    lib.docodo_cuda_error_string.argtypes = [i]
-    lib.docodo_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -91,11 +96,15 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        _lib = _bind(ctypes.CDLL(str(library_path())))
+        lib = ctypes.CDLL(str(library_path()))
+        lib.docodo_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.docodo_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
     return _lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+def check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of dtype and shape."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -108,53 +117,91 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 class Kernel:
-    """One C entry point of the library and the count of its launches."""
+    """One C entry point of the library and the count of its launches.
 
-    def __init__(self, symbol: str, max_lanes: int):
+    `signature` spells the C arguments before the stream: "p" a device
+    pointer (a tensor, or None for a null pointer), "i" an int."""
+
+    def __init__(self, symbol: str, signature: str):
         self.symbol = symbol
-        self.max_lanes = max_lanes
+        self.signature = signature
         self.launches = 0
+        self._fn = None
 
-    def __call__(self, inputs, n: int, kpad: int, hpad: int):
-        """inputs: the pointer arguments in the C entry point's order,
-        int32 [rows, cap] posting/page blocks and [rows] per-row scalars;
-        n: the stream width a row makes. Returns (pg_c, rk_c, ct_c,
-        n_pages, n_hits, hits)."""
-        rows, cap = inputs[0].shape
-        if not 0 < n <= self.max_lanes:
-            raise ValueError(f"{self.symbol}: stream width {n} outside "
-                             f"(0, {self.max_lanes}]")
-        if not (0 < kpad <= n and 0 < hpad <= n):
-            raise ValueError(f"{self.symbol}: kpad {kpad} / hpad {hpad} "
-                             f"outside (0, {n}]")
-        for k, t in enumerate(inputs):
-            _check(t, f"input {k}", torch.int32,
-                   (rows, cap) if t.dim() == 2 else (rows,))
-        dev = inputs[0].device
-        i32 = dict(dtype=torch.int32, device=dev)
-        f32 = dict(dtype=torch.float32, device=dev)
-        outs = (torch.empty((rows, kpad), **i32),
-                torch.empty((rows, kpad), **f32),
-                torch.empty((rows, kpad), **f32),
-                torch.empty((rows,), **i32),
-                torch.empty((rows,), **i32),
-                torch.empty((rows, hpad), **i32))
-        lib = library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = getattr(lib, self.symbol)(
-                *[t.data_ptr() for t in inputs], rows, cap, kpad, hpad,
-                *[t.data_ptr() for t in outs], stream)
+    def _bound(self):
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+            fn.argtypes = [kinds[c] for c in self.signature] + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on `device`'s current stream; raises on a launch error."""
+        if len(args) != len(self.signature):
+            raise TypeError(f"{self.symbol} takes {len(self.signature)} "
+                            f"arguments, got {len(args)}")
+        conv = [(None if a is None else a.data_ptr()) if kind == "p"
+                else int(a) for kind, a in zip(self.signature, args)]
+        fn = self._bound()
+        with torch.cuda.device(device):
+            rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            msg = lib.docodo_cuda_error_string(rc).decode()
+            msg = library().docodo_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: {msg} ({rc})")
         self.launches += 1
-        return outs
 
 
-SORTED_AND = Kernel("docodo_sorted_and_locate_full", 1024)
-SINGLE = Kernel("docodo_single_locate_full", 128)
-UNION = Kernel("docodo_union_locate_full", 1024)
+def full_result(kernel: Kernel, inputs, n: int, max_lanes: int, kpad: int,
+                hpad: int):
+    """Launch one of the row-per-block full-result kernels of
+    locate_full.cu. inputs: the pointer arguments in the C entry point's
+    order, int32 [rows, cap] posting/page blocks and [rows] per-row
+    scalars; n: the stream width a row makes. Returns (pg_c, rk_c, ct_c,
+    n_pages, n_hits, hits)."""
+    rows, cap = inputs[0].shape
+    if not 0 < n <= max_lanes:
+        raise ValueError(f"{kernel.symbol}: stream width {n} outside "
+                         f"(0, {max_lanes}]")
+    if not (0 < kpad <= n and 0 < hpad <= n):
+        raise ValueError(f"{kernel.symbol}: kpad {kpad} / hpad {hpad} "
+                         f"outside (0, {n}]")
+    for k, t in enumerate(inputs):
+        check(t, f"input {k}", torch.int32,
+              (rows, cap) if t.dim() == 2 else (rows,))
+    outs = full_result_outputs(rows, kpad, hpad, inputs[0].device)
+    kernel.launch(inputs[0].device, *inputs, rows, cap, kpad, hpad, *outs)
+    return outs
+
+
+def full_result_outputs(rows: int, kpad: int, hpad: int, dev):
+    """Uninitialised (pg_c, rk_c, ct_c, n_pages, n_hits, hits)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((rows, kpad), **i32),
+            torch.empty((rows, kpad), **f32),
+            torch.empty((rows, kpad), **f32),
+            torch.empty((rows,), **i32),
+            torch.empty((rows,), **i32),
+            torch.empty((rows, hpad), **i32))
+
+
+_FULL = "pppppppp" + "iiii" + "pppppp"
+_W1 = "ppp" + "iiii" + "pppppp"
+SORTED_AND = Kernel("docodo_sorted_and_locate_full", _FULL)
+SINGLE = Kernel("docodo_single_locate_full", _W1)
+UNION = Kernel("docodo_union_locate_full", _W1)
+MERGE_AND_LOCATE = Kernel("docodo_merge_and_locate_topk", _FULL)
+MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "ii" + "ppp")
+AND_KEEP = Kernel("docodo_and_keep", "pppp" + "ii" + "pp")
+LOCATE_RUNS = Kernel("docodo_locate_runs",
+                     "ppp" + "i" + "iiii" + "pppppp")
 KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "single_locate_full": SINGLE,
-           "union_locate_full": UNION}
+           "union_locate_full": UNION,
+           "merge_and_locate_topk": MERGE_AND_LOCATE,
+           "merge_tagged": MERGE_TAGGED,
+           "and_keep": AND_KEEP,
+           "locate_runs": LOCATE_RUNS}

@@ -12,11 +12,12 @@ padding):
   page_of      : int32[N]    page index of every posting
   small        : SmallTabs   padded per-term rows (coords || page_of)
 
-The slice serves W <= 2 words with one variant each: each bucket of
-queries goes through one of the three CUDA kernels when its shape is
-admitted (query_kernels), else through the plain route below
-(query_step_full); the kernel buckets share one rank top-k and one doc
-grouping at the end, as in the JAX package.
+The slice serves W <= 2 words with one variant each: with the kernels,
+each bucket of queries goes through a slot kernel when its shape is
+admitted, else through the chunked kernels (query_kernels); the kernel
+buckets share one rank top-k and one doc grouping at the end, as in the
+JAX package. Without the kernels every bucket takes the plain route
+below (query_step_full).
 """
 
 from __future__ import annotations
@@ -457,18 +458,72 @@ def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
     return PreFull(*outs)
 
 
+# smallest bucket batch the chunked route admits (device_index.py:995,
+# _chunk_min_b's default; its DOCODO_CHUNK_MIN_B override is not read)
+CHUNK_MIN_B = 1
+
+
+def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
+                         topk: int, hit_cap: int, small=None, page_of=None):
+    """One W <= 2 bucket past slot admission through the chunked kernels
+    (the V = 1 chunked branches of device_index._bucket_full,
+    :1329-1405, as a TPU takes them) up to its PreFull, or None for W > 2
+    or fewer than CHUNK_MIN_B rows.
+
+    W = 2 (caps past slot admission, so 2 cap >= 2048, the JAX
+    package's condition): with carried pages and 2 cap <= 4096 the
+    fused merge + AND + locate kernel (:1124-1167); otherwise the merge,
+    the AND keep and the locate kernels (:1168-1196), the pages carried
+    through the merge or, past the page-carrying tables, looked up by the
+    locate kernel. The JAX package sorts the uncarried concatenation; the
+    merge kernel gives the same (coord, tag) stream from the two sorted
+    blocks.
+
+    W = 1: the gathered block is the kept stream, and the locate kernel
+    takes it with its carried pages (:1371-1386) or looks them up
+    (:1387-1398). The JAX package gives W = 1 streams narrower than 2048
+    lanes to its XLA locate instead; the results are the same."""
+    w = tq.shape[1]
+    if w > 2 or tq.shape[0] < CHUNK_MIN_B:
+        return None
+    carried = page_of is not None and _tab_serves(small, cap)
+
+    def fetch(terms):
+        if carried:
+            return gather_term_paged(coords, page_of, term_offsets, terms,
+                                     cap, small)
+        vals, ln = gather_term(coords, term_offsets, terms, cap, small)
+        return vals, None, ln
+
+    a, apg, na = fetch(tq[:, 0])
+    if w == 1:
+        return PreFull(*qk.locate_runs(a, bounds, topk=topk,
+                                       hit_cap=hit_cap, pg=apg))
+    b, bpg, nb = fetch(tq[:, 1])
+    ra, rb = rq[:, 0].contiguous(), rq[:, 1].contiguous()
+    if carried and 2 * cap <= qk.FUSED_AND_MAX:
+        return PreFull(*qk.merge_and_locate_topk(
+            a, na, ra, b, nb, rb, apg, bpg, topk=topk, hit_cap=hit_cap))
+    vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
+    hv = qk.and_keep(vals, tag, ra, rb)
+    return PreFull(*qk.locate_runs(hv, bounds, topk=topk, hit_cap=hit_cap,
+                                   pg=pg))
+
+
 def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
                  cap: int, topk: int, hit_cap: int, with_docs: bool,
                  use_kernels: bool, small=None, page_of=None):
-    """One full-result bucket (device_index.py:1302, without the chunked
-    branches that only a TPU reaches): the kernels' PreFull when
-    admitted, else the plain route's finished LocateFull."""
+    """One full-result bucket (device_index.py:1302): with the kernels,
+    the slot kernels' PreFull where admitted, else the chunked kernels';
+    without them, or for a shape no kernel takes, the plain route's
+    finished LocateFull."""
     if use_kernels:
-        out = _kernel_bucket_full(
-            term_offsets, coords, bounds, tq, rq, cap=cap, topk=topk,
-            hit_cap=hit_cap, small=small, page_of=page_of)
-        if out is not None:
-            return out
+        for route in (_kernel_bucket_full, _chunked_bucket_full):
+            out = route(term_offsets, coords, bounds, tq, rq, cap=cap,
+                        topk=topk, hit_cap=hit_cap, small=small,
+                        page_of=page_of)
+            if out is not None:
+                return out
     return query_step_full(term_offsets, coords, bounds, page_doc,
                            is_header, tq, rq, cap=cap, topk=topk,
                            hit_cap=hit_cap, with_docs=with_docs, small=small)
@@ -549,8 +604,9 @@ class DeviceIndex:
         return self.coords.device
 
     @classmethod
-    def from_index(cls, ind, device="cpu") -> "DeviceIndex":
-        """Stage a host Index (ArrayIndex CSR + PageTable) on `device`
+    def from_index(cls, ind, device="cuda") -> "DeviceIndex":
+        """Stage a host index (docodo_tpu_torch.index.build_index's, or
+        any object with its `arr` CSR and `pages` table) on `device`
         (device_index.py:1939)."""
         arr = ind.arr
         if arr.coords is None:
@@ -586,7 +642,7 @@ class DeviceIndex:
 
     @classmethod
     def from_state(cls, arrays, terms, page_ids, doc_names,
-                   device="cpu") -> "DeviceIndex":
+                   device="cuda") -> "DeviceIndex":
         """Stage the index from numpy arrays: the six named in
         `_STATE_ARRAYS` plus small{i}_w / _band / _row_map / _tab for
         each small table, as `state()` returns them, or as the JAX

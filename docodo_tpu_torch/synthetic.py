@@ -15,7 +15,8 @@ from typing import List
 
 import numpy as np
 
-from docodo_tpu.sources.base import IndexPage, ListDataSource
+from docodo_tpu_torch import index as host_index
+from docodo_tpu_torch.index import IndexPage, ListDataSource
 
 _LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
 ZIPF_EXPONENT = 1.05
@@ -85,18 +86,7 @@ def zipf_documents(total_chars: int, seed: int = 0, vocab: int = 50_000,
             for d, pages in sorted(doc_pages.items())]
 
 
-def build_index(docs: List[PagedDocument], path: str):
-    """Build an in-memory `docodo_tpu.Index` over `docs` (host only),
-    with its work files (index file, text cache) under `path`."""
-    from docodo_tpu.index import Index
-    from docodo_tpu.native import pipeline as npipe
-
-    # fill the native tokenizer's lazy tables on this thread first: their
-    # fill publishes the fold table before the class table, so a racing
-    # first call from the build's threads reads no class table and the
-    # build drops that page (docodo_tpu/native/pipeline.py:23-41)
-    npipe._tables()
-    ind = Index(path=path, in_memory=True)
-    ind.add_data_source(ListDataSource("synth", docs))
-    ind.create()
-    return ind
+def build_index(docs: List[PagedDocument]) -> host_index.HostIndex:
+    """Index `docs` with the port's host build (docodo_tpu_torch.index),
+    as the source "synth"."""
+    return host_index.build_index(ListDataSource("synth", docs))

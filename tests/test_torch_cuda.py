@@ -89,3 +89,62 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         qk.single_locate_full(a[:, ::2], n, bounds, topk=8, hit_cap=64,
                               a_pg=a[:, ::2])
+
+
+def _merged(rng, bsz, cap, dev):
+    """_batch's blocks with pages, merged on the card."""
+    a, na, ra, b, nb, rb = _batch(rng, bsz, cap)
+    c = lambda x: torch.as_tensor(x, device=dev)
+    return dict(a=c(a), na=c(na), ra=c(ra), b=c(b), nb=c(nb), rb=c(rb),
+                a_pg=c(_pages(a)), b_pg=c(_pages(b)), bounds=c(BOUNDS))
+
+
+def _assert_fields_equal(got, want):
+    for field, g, w in zip(FIELDS, got, want):
+        g, w = g.cpu(), w.cpu()
+        if field == "rk_c":
+            d = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            assert int(d.abs().max()) <= 1, field
+        else:
+            assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,topk", [(1024, 64), (2048, 2048)])
+def test_merge_and_locate_topk_matches_plain_on_card(cuda_device, cap, topk):
+    x = _merged(np.random.default_rng(cap), 256, cap, cuda_device)
+    args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["a_pg"],
+            x["b_pg"])
+    got = qk.merge_and_locate_topk(*args, topk=topk, hit_cap=1000)
+    torch.cuda.synchronize()
+    want = qk.merge_and_locate_topk_plain(*args, topk=topk, hit_cap=1000)
+    _assert_fields_equal(got, want)
+    assert int(got[4].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,paged", [(512, True), (4096, True),
+                                       (4096, False)])
+def test_chunked_kernels_match_plain_on_card(cuda_device, cap, paged):
+    """merge_tagged -> and_keep -> locate_runs, each against its plain
+    version on the same inputs."""
+    x = _merged(np.random.default_rng(cap + paged), 128, cap, cuda_device)
+    apg, bpg = (x["a_pg"], x["b_pg"]) if paged else (None, None)
+    vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"], apg,
+                                    bpg)
+    torch.cuda.synchronize()
+    wv, wt, wp = qk.merge_tagged_plain(x["a"], x["na"], x["b"], x["nb"],
+                                       apg, bpg)
+    assert torch.equal(vals, wv) and torch.equal(tag, wt)
+    if paged:
+        live = wv < INF32
+        assert torch.equal(pg[live], wp[live])
+    hv = qk.and_keep(vals, tag, x["ra"], x["rb"])
+    torch.cuda.synchronize()
+    assert torch.equal(hv, qk.and_keep_plain(vals, tag, x["ra"], x["rb"]))
+    assert int((hv < INF32).sum()) > 0
+    kw = dict(topk=16, hit_cap=1000, pg=pg)
+    got = qk.locate_runs(hv, x["bounds"], **kw)
+    torch.cuda.synchronize()
+    _assert_fields_equal(got, qk.locate_runs_plain(hv, x["bounds"], **kw))
+    assert int(got[3].max()) > 16

@@ -26,11 +26,11 @@ def f32_ulps(a, b) -> int:
 
 
 @pytest.fixture(scope="module")
-def indexes(tmp_path_factory):
+def indexes():
     ind = build_index(zipf_documents(300_000, seed=11, vocab=4000,
-                                     doc_chars=20_000),
-                      str(tmp_path_factory.mktemp("index")))
-    return ind, jdi.DeviceIndex.from_index(ind), tdi.DeviceIndex.from_index(ind)
+                                     doc_chars=20_000))
+    return (ind, jdi.DeviceIndex.from_index(ind),
+            tdi.DeviceIndex.from_index(ind, device="cpu"))
 
 
 def _jax_state(jdx) -> dict:
@@ -63,7 +63,7 @@ def test_from_index_stages_the_jax_state(indexes):
     assert any(k.endswith("_band") and want[k] for k in want)
     _assert_state_equal(tdx.state(), want)
     again = tdi.DeviceIndex.from_state(want, jdx.terms, jdx.page_ids,
-                                       jdx.doc_names)
+                                       jdx.doc_names, device="cpu")
     _assert_state_equal(again.state(), want)
     assert again.terms == tdx.terms and again.page_ids == tdx.page_ids
     np.testing.assert_array_equal(again.offsets_np, jdx.offsets_np)

@@ -1,9 +1,12 @@
 """The full-result slice end to end: docodo_tpu_torch's search_batch_full
 against the JAX package's on one seeded Zipf corpus (about 60k tokens),
 with the JAX Pallas kernels in interpret mode. The mix is the standard
-one plus the corpus's most frequent words, so the W=2 kernel (caps <= 512),
-both W=1 kernels (caps <= 128 and 256-1024) and the plain route (wider
-caps) all serve rows.
+one plus words chosen by posting count, so every slot kernel (W=2 caps
+<= 512, W=1 caps <= 128 and 256-1024) and every chunked branch (W=2 caps
+1024, 2048 and 4096-8192, W=1 caps 2048-8192, each with pages carried by
+the small tables and, on a second staging without the wide tables,
+looked up) serve rows; the plain route serves the same mix without the
+kernels.
 
 Tolerances: ranks and doc_ranks within 2 ulp (torch.log and XLA's log
 differ by 1 ulp on about 1% of counts on the CPU); every other field
@@ -17,8 +20,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from benchmarks.common import standard_mix
 from docodo_tpu.ops.device_index import DeviceIndex as JaxDeviceIndex
+from docodo_tpu_torch.mix import standard_mix
 from docodo_tpu_torch.ops import device_index as tdi
 from docodo_tpu_torch.ops import query_kernels as qk
 from docodo_tpu_torch.synthetic import build_index, zipf_documents
@@ -27,26 +30,37 @@ TOPK = 64
 HIT_CAP = 512
 RANK_ULPS = 2
 REPO = Path(__file__).resolve().parent.parent
+KERNEL_ROUTES = {"sorted_and_locate_full", "single_locate_full",
+                 "union_locate_full", "merge_and_locate_topk",
+                 "merge_tagged", "and_keep", "locate_runs"}
+UNCARRIED_FROM = 1024  # the second staging keeps small tables below this
 
 
 def mixed_queries(dix, n_standard: int = 24):
-    """The standard mix, plus the most frequent words alone, paired and
-    ordered (the plain route at the widest caps), words of 512-1024
-    postings (the union kernel at cap 1024, the plain route for W=2), a
-    pair of 256-512 postings (the W=2 kernel at cap 512, with hits) and
-    a query with an unknown word."""
+    """The standard mix, plus words by posting count alone, paired and
+    ordered: the most frequent (caps 8192), 2048-4096 postings (cap
+    4096), 1024-2048 (cap 2048), 512-1024 (cap 1024: the union kernel
+    for W=1, the fused W=2 kernel) and 256-512 (the W=2 slot kernel at
+    cap 512, with hits), and a query with an unknown word."""
     counts = np.diff(dix.offsets_np)
     terms, rs = standard_mix(counts, dix.terms, n_standard)
     queries = [[(dix.terms[t[j]], int(r[j])) for j in range(2) if t[j] >= 0]
                for t, r in zip(terms, rs)]
+
+    def by_count(lo, hi, k=2):
+        return [dix.terms[t]
+                for t in np.flatnonzero((counts > lo) & (counts <= hi))[:k]]
+
     top = [dix.terms[t] for t in np.argsort(-counts, kind="stable")[:3]]
-    mid = [dix.terms[t] for t in
-           np.flatnonzero((counts > 512) & (counts <= 1024))[:2]]
-    low = [dix.terms[t] for t in
-           np.flatnonzero((counts > 256) & (counts <= 512))[:2]]
+    c4k, c2k = by_count(2048, 4096), by_count(1024, 2048)
+    mid, low = by_count(512, 1024), by_count(256, 512)
     queries += [
         [(top[0], 260)], [(top[0], -12), (top[1], -10)],
         [(top[0], 262), (top[2], 258)],
+        [(c4k[0], 259)], [(c4k[0], -11), (c4k[1], -9)],
+        [(c4k[1], 261), (mid[1], 262)],
+        [(c2k[0], 263)], [(c2k[0], 260), (mid[0], 258)],
+        [(c2k[1], -10), (c2k[0], -12)],
         [(mid[0], 261)], [(mid[0], 259), (mid[1], 263)],
         [(low[0], 260), (low[1], 262)],
         [("nosuchword", 260), (dix.terms[0], 260)],
@@ -54,13 +68,30 @@ def mixed_queries(dix, n_standard: int = 24):
     return queries
 
 
+def uncarried(tdx):
+    """The same index staged without the small tables of width
+    UNCARRIED_FROM and up: wider buckets fetch by element and the
+    kernels look their pages up."""
+    state = tdx.state()
+    arrays = {k: v for k, v in state.items() if not k.startswith("small")}
+    j = 0
+    i = 0
+    while f"small{i}_w" in state:
+        if int(state[f"small{i}_w"]) < UNCARRIED_FROM:
+            for f in ("w", "band", "row_map", "tab"):
+                arrays[f"small{j}_{f}"] = state[f"small{i}_{f}"]
+            j += 1
+        i += 1
+    return tdi.DeviceIndex.from_state(arrays, tdx.terms, tdx.page_ids,
+                                      tdx.doc_names, device="cpu")
+
+
 @pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
+def corpus():
     ind = build_index(zipf_documents(480_000, seed=7, vocab=5000,
-                                     doc_chars=40_000),
-                      str(tmp_path_factory.mktemp("index")))
+                                     doc_chars=40_000))
     jdx = JaxDeviceIndex.from_index(ind)
-    tdx = tdi.DeviceIndex.from_index(ind)
+    tdx = tdi.DeviceIndex.from_index(ind, device="cpu")
     queries = mixed_queries(tdx)
     want = jdx.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
                                  use_pallas=True)
@@ -84,27 +115,62 @@ def assert_results_equal(got: dict, want: dict):
             assert bad.size == 0, f"{k} differs at rows {bad[:5, 0]}"
 
 
-def test_kernel_route_equals_jax(corpus, monkeypatch):
-    tdx, queries, want = corpus
+def _kernel_route(tdx, queries, monkeypatch):
+    """search_batch_full on the kernel route, with the wrappers it called
+    and the (words, cap, carried) of every chunked bucket."""
     routes = {}
+    chunked = set()
 
-    def counting(name, fn):
+    def counting(mod, name):
+        fn = getattr(mod, name)
+
         def wrapped(*a, **k):
             routes[name] = routes.get(name, 0) + 1
             return fn(*a, **k)
-        monkeypatch.setattr(qk if hasattr(qk, name) else tdi, name, wrapped)
+        monkeypatch.setattr(mod, name, wrapped)
 
-    for name in ("sorted_and_locate_full", "single_locate_full",
-                 "union_locate_full"):
-        counting(name, getattr(qk, name))
-    counting("query_step_full", tdi.query_step_full)
+    for name in KERNEL_ROUTES:
+        counting(qk, name)
+    counting(tdi, "query_step_full")
+    inner = tdi._chunked_bucket_full
+
+    def chunk_seen(term_offsets, coords, bounds, tq, rq, **k):
+        out = inner(term_offsets, coords, bounds, tq, rq, **k)
+        if out is not None:
+            chunked.add((tq.shape[1], min(k["cap"], 4096),
+                         tdi._tab_serves(k["small"], k["cap"])))
+        return out
+    monkeypatch.setattr(tdi, "_chunked_bucket_full", chunk_seen)
     got = tdx.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
                                 use_kernels=True)
+    return got, routes, chunked
+
+
+def test_kernel_route_equals_jax(corpus, monkeypatch):
+    tdx, queries, want = corpus
+    got, routes, chunked = _kernel_route(tdx, queries, monkeypatch)
     assert_results_equal(got, want)
-    assert set(routes) == {"sorted_and_locate_full", "single_locate_full",
-                           "union_locate_full", "query_step_full"}, routes
+    assert set(routes) == KERNEL_ROUTES, routes
+    assert {(2, 1024, True), (2, 2048, True), (2, 4096, True),
+            (1, 2048, True), (1, 4096, True)} <= chunked, chunked
     pairs = np.array([len(q) == 2 for q in queries])
     assert (got["n_hits"][pairs] > 0).sum() >= 5
+
+
+def test_uncarried_kernel_route_equals_jax(corpus, monkeypatch):
+    """Past the page-carrying tables the chunked route merges without
+    pages and the locate kernel looks them up; the results do not
+    change."""
+    tdx, queries, want = corpus
+    got, routes, chunked = _kernel_route(uncarried(tdx), queries,
+                                         monkeypatch)
+    assert_results_equal(got, want)
+    # W=1 caps 256-1024 carry no pages here: none takes the union kernel
+    assert set(routes) == KERNEL_ROUTES - {"merge_and_locate_topk",
+                                           "union_locate_full"}, routes
+    assert {(2, 1024, False), (2, 2048, False), (2, 4096, False),
+            (1, 1024, False), (1, 2048, False), (1, 4096, False)} \
+        <= chunked, chunked
 
 
 def test_plain_route_equals_jax(corpus):
@@ -115,21 +181,31 @@ def test_plain_route_equals_jax(corpus):
 
 
 def test_port_imports_no_jax():
-    """The port and the host modules it shares run the slice without
-    loading jax."""
+    """The port's host build, the search, and chip_smoke's CPU-runnable
+    helpers (the mix, the oracle) run without loading jax, the JAX
+    package or the benchmarks."""
     code = textwrap.dedent("""
-        import sys, tempfile
+        import sys
+        import numpy as np
+        import chip_smoke
         from docodo_tpu_torch import DeviceIndex
+        from docodo_tpu_torch.mix import standard_mix
+        from docodo_tpu_torch.oracle import group_and
         from docodo_tpu_torch.synthetic import build_index, zipf_documents
-        with tempfile.TemporaryDirectory() as work:
-            ind = build_index(zipf_documents(60_000, seed=1, vocab=800), work)
-        dix = DeviceIndex.from_index(ind)
+        ind = build_index(zipf_documents(60_000, seed=1, vocab=800))
+        dix = DeviceIndex.from_index(ind, device="cpu")
         words = dix.terms[10:12]
         out = dix.search_batch_full(
             [[(words[0], 260)], [(words[0], 260), (words[1], 260)]],
             use_kernels=True)
         assert out["pages"].shape == (2, 64)
-        assert "jax" not in sys.modules, "jax was imported"
+        terms, rs = standard_mix(np.diff(dix.offsets_np), dix.terms, 30)
+        assert terms.shape == (30, 2)
+        a = dix.coords[dix.offsets_np[10]:dix.offsets_np[11]].numpy()
+        group_and(a, a, 5, 5)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
+        assert not loaded, loaded
         print("no jax")
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -12,9 +12,10 @@ Prints, per route:
     drain (the device finishing after dispatch), readback (device to
     numpy and the scatter into the result);
   - each bucket alone with a synchronise around it: cap, words, rows,
-    whether a kernel or the plain route served it, ms;
+    the route that served it (a slot kernel, the chunked kernels or the
+    plain route), ms;
   - one batch under torch.profiler: device time, profiled wall, busy
-    share and the largest device items.
+    share, the largest device items and each CUDA kernel's device time.
 The phase split synchronises once, after dispatch, so a batch reads a
 little slower than unsplit. The last line is one JSON object with all of
 it, also written to --out. Imports no jax.
@@ -27,7 +28,6 @@ import json
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -38,7 +38,7 @@ from torch.autograd import DeviceType
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from benchmarks.common import standard_mix  # noqa: E402
+from docodo_tpu_torch.mix import standard_mix  # noqa: E402
 from docodo_tpu_torch.ops import device_index as tdi  # noqa: E402
 from docodo_tpu_torch.synthetic import build_index, zipf_documents  # noqa: E402
 
@@ -47,6 +47,10 @@ HIT_CAP = 1024
 N_QUERIES = 10_000
 RUNS = 5
 ROUTES = {"kernel": True, "plain": False}
+# the CUDA kernels' function names, less their _kernel suffix
+KERNEL_NAMES = ("sorted_and_locate_full", "single_locate_full",
+                "union_locate_full", "merge_and_locate_topk", "merge_tagged",
+                "and_keep", "locate_runs")
 
 
 def card() -> str:
@@ -90,26 +94,36 @@ def bucket_times(dix, queries, use_kernels: bool) -> list:
     """Each bucket of one batch with a synchronise before and after."""
     rows = []
     inner = tdi._bucket_full
+    chunked_inner = tdi._chunked_bucket_full
+    chunked = []
+
+    def chunk_seen(*a, **k):
+        out = chunked_inner(*a, **k)
+        chunked.append(out is not None)
+        return out
 
     def timed(*a, **k):
+        chunked.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = inner(*a, **k)
         torch.cuda.synchronize()
         tq = a[5]
+        route = ("plain" if not isinstance(out, tdi.PreFull)
+                 else "chunked" if any(chunked) else "slot")
         rows.append({"cap": k["cap"], "words": int(tq.shape[1]),
-                     "rows": int(tq.shape[0]),
-                     "route": "kernel" if isinstance(out, tdi.PreFull)
-                     else "plain",
+                     "rows": int(tq.shape[0]), "route": route,
                      "ms": (time.perf_counter() - t0) * 1e3})
         return out
 
     tdi._bucket_full = timed
+    tdi._chunked_bucket_full = chunk_seen
     try:
         dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
                               use_kernels=use_kernels)
     finally:
         tdi._bucket_full = inner
+        tdi._chunked_bucket_full = chunked_inner
     return rows
 
 
@@ -135,10 +149,13 @@ def profiled_batch(dix, queries, use_kernels: bool, top: int = 8) -> dict:
                     if e.device_type != DeviceType.CPU and dev_us(e) > 0),
                    reverse=True)
     device_ms = sum(us for us, _, _ in items) / 1e3
+    kernels = {name: sum(us for us, _, k in items if f"{name}_kernel" in k)
+               / 1e3 for name in KERNEL_NAMES}
     return {"device_ms": device_ms, "wall_ms": wall,
             "busy_share": device_ms / wall,
             "top": [{"name": k[:80], "calls": n, "ms": us / 1e3}
-                    for us, n, k in items[:top]]}
+                    for us, n, k in items[:top]],
+            "kernels_ms": kernels}
 
 
 def summarize(runs: list) -> dict:
@@ -159,9 +176,7 @@ def main() -> None:
     smi = card()
 
     docs = zipf_documents(int(args.corpus_mb * 1e6), seed=args.seed)
-    with tempfile.TemporaryDirectory(prefix="docodo_profile_") as work:
-        ind = build_index(docs, work)
-    dix = tdi.DeviceIndex.from_index(ind, device="cuda")
+    dix = tdi.DeviceIndex.from_index(build_index(docs))
     counts = np.diff(dix.offsets_np)
     terms, rs = standard_mix(counts, dix.terms, N_QUERIES)
     queries = [[(dix.terms[t[j]], int(r[j])) for j in range(2) if t[j] >= 0]
@@ -191,13 +206,15 @@ def main() -> None:
                   f"(min {v['min']:.3f}, max {v['max']:.3f})")
         for b in rep["buckets"]:
             print(f"  bucket cap {b['cap']:8d} W={b['words']} rows "
-                  f"{b['rows']:5d} {b['route']:6s} {b['ms']:9.3f} ms")
+                  f"{b['rows']:5d} {b['route']:7s} {b['ms']:9.3f} ms")
         p = rep["profile"]
         print(f"  profiler: device {p['device_ms']:.3f} ms of "
               f"{p['wall_ms']:.3f} ms wall, busy share "
               f"{p['busy_share']:.3f}")
         for t in p["top"]:
             print(f"    {t['ms']:9.3f} ms {t['calls']:6d}x {t['name']}")
+        for k, ms in p["kernels_ms"].items():
+            print(f"    kernel {k}: {ms:.3f} ms of device time")
     line = json.dumps(report)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
