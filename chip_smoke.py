@@ -1,9 +1,11 @@
 """Smoke run of docodo_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from the checkout, holds each against its plain PyTorch version,
 builds a seeded 64 MB Zipf corpus index with the port's host build,
-serves the standard 10k query mix through the kernel route and the plain
-route, times every kernel on the calls that batch makes, and checks
-sampled results against an independent numpy oracle.
+serves the standard 10k query mix and the wide 10k mix (3-4-word
+phrases, variant ORs, wildcard unions, field rows) plus 1,000 `a|b`
+alternations through the kernel route and the plain route, times every
+kernel on the calls those batches make, and checks sampled results
+against an independent numpy oracle.
 
     python3 chip_smoke.py [--corpus-mb 64] [--seed 0]
 
@@ -26,33 +28,51 @@ import torch
 
 TOPK = 64
 HIT_CAP = 1024
-N_QUERIES = 10_000  # the standard mix's batch
+N_QUERIES = 10_000  # the standard and the wide mix's batch
+N_ALTERNATIONS = 1_000
+WIDE_SEED = 77      # bench.py:353
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, at 700 W
 INT_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, at 700 W
 OPS_PER_LANE = 32          # integer operations per lane that holds data
+OPS_PER_STEP = 4           # integer operations per binary-search step
 
 LOCATE_FULL = "docodo_tpu_torch/csrc/locate_full.cu"
 CHUNKED = "docodo_tpu_torch/csrc/chunked.cu"
+VARIANTS = "docodo_tpu_torch/csrc/variants.cu"
 PQ = "docodo_tpu/ops/pallas_query.py"
-# name -> (source, TPU kernel replaced, kernel core, plain core); the
-# cores are the query_kernels functions a wrapper hands its inputs to
+# name -> (source, TPU kernel replaced, [(kernel core, plain core), ...]);
+# the cores are the query_kernels functions a wrapper hands its inputs to
 KERNELS = {
     "sorted_and_locate_full": (LOCATE_FULL, f"{PQ}:617",
-                               "_sorted_and_kernel", "_sorted_and_plain"),
-    "single_locate_full": (LOCATE_FULL, f"{PQ}:723", "_single_kernel",
-                           "_single_plain"),
-    "union_locate_full": (LOCATE_FULL, f"{PQ}:660", "_union_kernel",
-                          "_union_plain"),
+                               [("_sorted_and_kernel", "_sorted_and_plain")]),
+    "single_locate_full": (LOCATE_FULL, f"{PQ}:723",
+                           [("_single_kernel", "_single_plain")]),
+    "union_locate_full": (LOCATE_FULL, f"{PQ}:660",
+                          [("_union_kernel", "_union_plain")]),
     "merge_and_locate_topk": (LOCATE_FULL, f"{PQ}:2623",
-                              "_merge_and_locate_kernel",
-                              "_sorted_and_plain"),
-    "merge_tagged": (CHUNKED, f"{PQ}:2290", "_merge_tagged_kernel",
-                     "_merge_tagged_plain"),
-    "and_keep": (CHUNKED, f"{PQ}:1935", "_and_keep_kernel",
-                 "_and_keep_plain"),
-    "locate_runs": (CHUNKED, f"{PQ}:1480", "_locate_runs_kernel",
-                    "_locate_runs_plain"),
+                              [("_merge_and_locate_kernel",
+                                "_sorted_and_plain")]),
+    "merge_tagged": (CHUNKED, f"{PQ}:2290",
+                     [("_merge_tagged_kernel", "_merge_tagged_plain")]),
+    "and_keep": (CHUNKED, f"{PQ}:1935",
+                 [("_and_keep_kernel", "_and_keep_plain"),
+                  ("_and_keep_compact_kernel", "_and_keep_compact_plain")]),
+    "locate_runs": (CHUNKED, f"{PQ}:1480",
+                    [("_locate_runs_kernel", "_locate_runs_plain")]),
+    "variants_and_locate_full": (VARIANTS, f"{PQ}:638",
+                                 [("_variants_and_kernel",
+                                   "_variants_and_plain")]),
+    "union_merge_locate_full": (VARIANTS, f"{PQ}:681",
+                                [("_union_merge_kernel",
+                                  "_union_merge_plain")]),
+    "variants_keep": (CHUNKED, f"{PQ}:2071",
+                      [("_variants_keep_kernel", "_variants_keep_plain")]),
 }
+STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
+                    "union_locate_full", "merge_and_locate_topk",
+                    "merge_tagged", "and_keep", "locate_runs")
+WIDE_KERNELS = ("variants_and_locate_full", "union_merge_locate_full",
+                "variants_keep", "merge_tagged", "and_keep", "locate_runs")
 SLOT_CAPS = {
     "sorted_and_locate_full": (64, 128, 256, 512),
     "single_locate_full": (64, 128),
@@ -92,6 +112,29 @@ def same_outputs(got, want, what: str) -> float:
             require(bad.numel() == 0, f"{what}: {field} differs at "
                     f"{bad[:4].tolist()}")
     return float((got[1] - want[1]).abs().max()) if got[1].numel() else 0.0
+
+
+def same_result(name: str, got, want, what: str) -> float:
+    """A kernel core's outputs against its plain version's: a kept
+    stream, a merge (pages compared at live lanes, where they are
+    defined), a compacted fold operand, or the six full-result fields.
+    Returns the largest absolute rank difference."""
+    if isinstance(got, torch.Tensor):
+        require(torch.equal(got, want), f"{what} differs")
+    elif name == "merge_tagged":
+        live = want[0] < 2**31 - 1
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and (got[2] is None) == (want[2] is None)
+                and (got[2] is None or torch.equal(got[2][live],
+                                                   want[2][live])),
+                f"{what} differs")
+    elif len(got) == 3:  # and_keep's compacted fold operand
+        require(all((g is None and w is None)
+                    or (g is not None and w is not None and torch.equal(g, w))
+                    for g, w in zip(got, want)), f"{what} differs")
+    else:
+        return same_outputs(got, want, what)
+    return 0.0
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -169,6 +212,44 @@ def _parity_inputs(rng, rows: int, cap: int, dev):
                 bounds=t(bounds), a_pg=t(pages(a)), b_pg=t(pages(b)))
 
 
+def _variant_inputs(rng, rows: int, va: int, vb: int, cap: int, dev,
+                    spacing: int = 12):
+    """Seeded variant blocks of two words at a bucket's shape, all drawn
+    from one per-row pool, so variants and words share coordinates
+    (runs of up to va + vb lanes): ragged lengths with empty variants
+    and full blocks, word B empty and flagged bpad on every fifth row,
+    ordered windows on every second row, and 256-char pages."""
+    pool = np.cumsum(rng.integers(1, spacing, size=(rows, 2 * cap)), axis=1)
+    pool += rng.integers(0, 1 << 20, size=(rows, 1))
+
+    def blocks(v):
+        pick = np.sort(np.argsort(rng.random((rows, v, 2 * cap)), axis=2)
+                       [:, :, :cap], axis=2)
+        x = np.take_along_axis(pool[:, None, :], pick, axis=2)
+        n = rng.integers(0, cap + 1, (rows, v)).astype(np.int32)
+        n[0::7, 0] = 0
+        n[2::5] = cap
+        return x.astype(np.int32), n
+
+    a, na = blocks(va)
+    b, nb = blocks(vb)
+    bpad = np.arange(rows) % 5 == 3
+    nb[bpad] = 0
+    ra = np.where(np.arange(rows) % 2 == 0, 260, -12).astype(np.int32)
+    rb = np.where(np.arange(rows) % 2 == 0, 263, -10).astype(np.int32)
+    top = int(pool.max()) + 1
+    bounds = np.arange(256, top + 256, 256, dtype=np.int64).astype(np.int32)
+
+    def pages(x):
+        return np.minimum(np.searchsorted(bounds, x, side="right"),
+                          bounds.size - 1).astype(np.int32)
+
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    return dict(a=t(a), na=t(na), ra=t(ra), b=t(b), nb=t(nb), rb=t(rb),
+                bpad=t(bpad), bounds=t(bounds), a_pg=t(pages(a)),
+                b_pg=t(pages(b)))
+
+
 def phase_parity(rng) -> dict:
     """Each kernel against its plain version on seeded inputs at the
     main path's shapes and wider: ints exact, ranks within 1 ulp.
@@ -238,7 +319,12 @@ def phase_parity(rng) -> dict:
                     f"and_keep n {n} differs")
             kept = int((hv < INF32).sum())
             require(kept > 0, f"and_keep n {n} kept nothing")
-            say(f"parity: and_keep n {n} B {rows}: equal ({kept} kept)")
+            got = qk.and_keep_compact(vals, tag, x["ra"], x["rb"], pg)
+            torch.cuda.synchronize()
+            same_result("and_keep", got, qk.and_keep_compact_plain(
+                vals, tag, x["ra"], x["rb"], pg), f"and_keep compact n {n}")
+            say(f"parity: and_keep n {n} B {rows}: equal, and its compacted "
+                f"fold operand ({kept} kept)")
             if n < 8192:
                 continue
             for carried in (True, False):
@@ -248,6 +334,51 @@ def phase_parity(rng) -> dict:
                       "locate_runs", "locate_runs_plain", hv, x["bounds"],
                       topk=TOPK, hit_cap=HIT_CAP,
                       pg=pg if carried else None)
+
+    for va, vb, cap in ((2, 2, 128), (4, 4, 128)):
+        x = _variant_inputs(rng, SLOT_ROWS, va, vb, cap, dev)
+        for carried in (True, False):
+            pgs = dict(a_pg=x["a_pg"], b_pg=x["b_pg"]) if carried else {}
+            check("variants_and_locate_full",
+                  f"variants_and_locate_full V {va}+{vb} n {(va + vb) * cap}"
+                  f" B {SLOT_ROWS} {'carried' if carried else 'shared'} "
+                  f"pages", "variants_and_locate_full",
+                  "variants_and_locate_full_plain", x["a"], x["na"], x["ra"],
+                  x["b"], x["nb"], x["rb"], x["bpad"], x["bounds"], topk=TOPK,
+                  hit_cap=HIT_CAP, tail=False, **pgs)
+    for v, cap in ((2, 512), (4, 256), (8, 128)):
+        x = _variant_inputs(rng, SLOT_ROWS, v, 1, cap, dev)
+        for carried in (True, False):
+            check("union_merge_locate_full",
+                  f"union_merge_locate_full V {v} cap {cap} B {SLOT_ROWS} "
+                  f"{'carried' if carried else 'shared'} pages",
+                  "union_merge_locate_full", "union_merge_locate_full_plain",
+                  x["a"], x["na"], x["bounds"], topk=TOPK, hit_cap=HIT_CAP,
+                  tail=False, a_pg=x["a_pg"] if carried else None)
+    for va, vb, cap, rows in ((2, 2, 512, 1024), (2, 2, 1024, 1024),
+                              (4, 4, 4096, 128), (4, 4, 32768, 16)):
+        x = _variant_inputs(rng, rows, va, vb, cap, dev, spacing=4)
+        vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"],
+                                        x["a_pg"], x["b_pg"])
+        torch.cuda.synchronize()
+        n = vals.shape[1]
+        same_result("merge_tagged", (vals, tag, pg), qk.merge_tagged_plain(
+            x["a"], x["na"], x["b"], x["nb"], x["a_pg"], x["b_pg"]),
+            f"merge_tagged of {va}+{vb} variant blocks n {n}")
+        hv = qk.variants_keep(vals, tag, x["ra"], x["rb"], x["bpad"])
+        torch.cuda.synchronize()
+        same_result("variants_keep", hv, qk.variants_keep_plain(
+            vals, tag, x["ra"], x["rb"], x["bpad"]), f"variants_keep n {n}")
+        edge = torch.arange(1024, n, 1024, device=dev)
+        crossing = int(((vals[:, edge] == vals[:, edge - 1])
+                        & (vals[:, edge] < INF32)).sum())
+        require(n <= 1024 or crossing > 0, f"variants_keep n {n}: no run "
+                "crosses a chunk")
+        kept = int((hv < INF32).sum())
+        require(kept > 0, f"variants_keep n {n} kept nothing")
+        say(f"parity: merge_tagged of {va}+{vb} variant blocks and "
+            f"variants_keep n {n} B {rows}: equal ({kept} kept, {crossing} "
+            f"runs across chunk edges, {int(x['bpad'].sum())} bpad rows)")
     return err
 
 
@@ -301,18 +432,46 @@ def phase_index(corpus_mb: float, seed: int):
 
 
 def _queries(dix, n: int):
-    from docodo_tpu_torch.mix import standard_mix
+    from docodo_tpu_torch.mix import mix_queries, standard_mix
+
+    terms, rs = standard_mix(np.diff(dix.offsets_np), dix.terms, n)
+    return mix_queries(terms, rs, dix.terms)
+
+
+def _alternations(counts, n: int, seed: int):
+    """`a|b` alternations (ref Search.cs:351) and two-code words: one word
+    of two variants, or two such words, ordered on every third query.
+    Returns (terms int32[n, 2, 2], rs int32[n, 2])."""
+    rng = np.random.default_rng(seed)
+    eligible = np.flatnonzero(counts >= 2)
+    terms = np.full((n, 2, 2), -1, np.int32)
+    rs = np.ones((n, 2), np.int32)
+    for i in range(n):
+        picks = rng.choice(eligible, size=4, replace=False)
+        w = 1 + i % 2
+        terms[i, :w] = picks[: 2 * w].reshape(w, 2)
+        rs[i, :w] = -9 if i % 3 == 0 else 262
+    return terms, rs
+
+
+def _wide_queries(dix, n: int, n_alt: int):
+    """The wide mix's rows (bench.py:353: seed 77) as queries, a field
+    query's two rows each a query of its own, then the alternations."""
+    from docodo_tpu_torch.mix import mix_queries, wide_mix
 
     counts = np.diff(dix.offsets_np)
-    terms, rs = standard_mix(counts, dix.terms, n)
-    return [[(dix.terms[t[j]], int(r[j])) for j in range(2) if t[j] >= 0]
-            for t, r in zip(terms, rs)]
+    terms, rs, _ = wide_mix(counts, dix.terms, n, seed=WIDE_SEED)
+    at, ar = _alternations(counts, n_alt, WIDE_SEED)
+    return (mix_queries(terms, rs, dix.terms)
+            + mix_queries(at, ar, dix.terms))
 
 
-def phase_main(dix, queries, card: str):
-    """The main path: the 10k batch on the kernel route with every launch
-    count zeroed just before and read just after, the bucket routes
-    counted, then the plain route, field for field."""
+def phase_main(dix, queries, card: str, label: str, required):
+    """One mix on the main path: the batch on the kernel route with every
+    launch count zeroed just before and read just after, the bucket
+    routes counted, then the plain route, field for field. Every kernel
+    in `required` must have launched and no bucket may take the plain
+    route. Returns (results, launches)."""
     from docodo_tpu_torch.ops import _cuda
     from docodo_tpu_torch.ops import device_index as tdi
 
@@ -346,13 +505,20 @@ def phase_main(dix, queries, card: str):
         for name, fn in routes.items():
             setattr(tdi, fn, saved[name])
     launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
-    say(f"main path: {len(queries)} queries, kernel route {secs * 1e3:.1f} "
-        f"ms warm ({len(queries) / secs:.0f} QPS) on {card}; buckets per "
-        f"route {served}; launches {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    shapes = {}
+    for q in queries:
+        cg = dix.compile_group_query(q)
+        if cg is not None:
+            key = f"W{cg[2]}V{tdi._bucket(cg[3], lo=1)}"
+            shapes[key] = shapes.get(key, 0) + 1
+    say(f"main path, {label}: {len(queries)} queries {shapes}, kernel route "
+        f"{secs * 1e3:.1f} ms warm ({len(queries) / secs:.0f} QPS) on "
+        f"{card}; buckets per route {served}; launches {launches}")
+    for name in required:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the {label} main path")
     require(served["plain"] == 0,
-            f"{served['plain']} buckets took query_step_full")
+            f"{served['plain']} {label} buckets took query_step_full")
     run(False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -361,153 +527,211 @@ def phase_main(dix, queries, card: str):
     for f, v in out.items():
         if v.dtype == np.float32:
             u = ulps(torch.from_numpy(v), torch.from_numpy(plain[f]))
-            require(u <= 1, f"{f}: kernel and plain routes {u} ulp apart")
+            require(u <= 1, f"{label} {f}: kernel and plain routes {u} ulp "
+                    f"apart")
         else:
-            require(np.array_equal(v, plain[f]), f"{f}: routes differ")
-    say(f"plain route: {psecs * 1e3:.1f} ms warm "
+            require(np.array_equal(v, plain[f]),
+                    f"{label} {f}: routes differ")
+    say(f"plain route, {label}: {psecs * 1e3:.1f} ms warm "
         f"({len(queries) / psecs:.0f} QPS); every field equal to the "
         f"kernel route (ranks within 1 ulp)")
     return out, launches
 
 
-def _bytes_moved(name: str, args) -> int:
-    """Bytes a kernel's function must move for these inputs: each input
-    lane it needs read once (only the valid lanes of a posting block or
-    stream), each output written once."""
-    from docodo_tpu_torch.ops.seqops import INF32
+def _valid(n, cap: int) -> int:
+    return int(n.clamp(0, cap).sum())
 
-    def valid(n, cap):
-        return int(n.clamp(0, cap).sum())
+
+def _bytes_moved(name: str, args) -> int:
+    """Bytes a kernel core's function must move for these inputs: each
+    input lane it needs read once (only the valid lanes of a posting
+    block or stream), each output written once."""
+    from docodo_tpu_torch.ops.seqops import INF32
 
     if name in ("sorted_and_locate_full", "merge_and_locate_topk"):
         a, _, na, _, b, _, nb, _, kpad, hpad = args
         rows, cap = a.shape
-        return (8 * (valid(na, cap) + valid(nb, cap)) + 16 * rows
+        return (8 * (_valid(na, cap) + _valid(nb, cap)) + 16 * rows
                 + rows * (12 * kpad + 4 * hpad + 8))
     if name in ("single_locate_full", "union_locate_full"):
         a, _, na, kpad, hpad = args
         rows, cap = a.shape
-        return 8 * valid(na, cap) + 4 * rows + rows * (12 * kpad + 4 * hpad
-                                                       + 8)
+        return 8 * _valid(na, cap) + 4 * rows + rows * (12 * kpad + 4 * hpad
+                                                        + 8)
+    if name == "variants_and_locate_full":
+        a, _, na, _, b, _, nb, _, _, kpad, hpad = args
+        rows, cap = a.shape[0], a.shape[2]
+        return (8 * (_valid(na, cap) + _valid(nb, cap))
+                + 4 * (na.numel() + nb.numel()) + 12 * rows
+                + rows * (12 * kpad + 4 * hpad + 8))
+    if name == "union_merge_locate_full":
+        a, _, na, kpad, hpad = args
+        rows, cap = a.shape[0], a.shape[2]
+        return (8 * _valid(na, cap) + 4 * na.numel()
+                + rows * (12 * kpad + 4 * hpad + 8))
     if name == "merge_tagged":
         a, a_pg, na, b, _, nb = args
-        rows, cap = a.shape
         per = 4 if a_pg is None else 8
-        return (per * (valid(na, cap) + valid(nb, cap)) + 8 * rows
-                + rows * 2 * cap * (per + 4))
-    if name == "and_keep":
-        vals, _, _, _ = args
-        return 8 * int((vals < INF32).sum()) + 8 * vals.shape[0] \
-            + 4 * vals.numel()
+        width = a.shape[1] * a.shape[2] + b.shape[1] * b.shape[2]
+        return (per * (_valid(na, a.shape[2]) + _valid(nb, b.shape[2]))
+                + 4 * (na.numel() + nb.numel())
+                + a.shape[0] * width * (per + 4))
+    if name in ("and_keep", "variants_keep"):
+        vals, rows = args[0], args[0].shape[0]
+        valid = int((vals < INF32).sum())
+        if name == "and_keep" and len(args) == 5:  # a fold step's operand
+            per = 8 if args[4] is None else 12     # vals, tag (, pages)
+            return per * valid + (per - 4) * vals.numel() + 12 * rows
+        return 8 * valid + 4 * vals.numel() + 12 * rows
     hv, pg, bounds, kpad, hpad = args  # locate_runs
     kept = int((hv < INF32).sum())
     read = 8 * kept if pg is not None else 4 * kept + 4 * bounds.numel()
     return read + hv.shape[0] * (12 * kpad + 4 * hpad + 8)
 
 
-def _lanes(name: str, args) -> int:
-    """Lanes that carry data in a call's input: the valid lanes of the
-    posting blocks, or of the merged and kept streams."""
+def _ops(name: str, args) -> int:
+    """Integer operations a kernel core does on these inputs:
+    OPS_PER_LANE for every lane that holds data, and for the merges
+    OPS_PER_STEP for each binary-search step that ranks an element in
+    another block."""
     from docodo_tpu_torch.ops.seqops import INF32
 
-    if name in ("and_keep", "locate_runs"):
-        return int((args[0] < INF32).sum())
-    if len(args) == 5:     # (a, a_pg, na, kpad, hpad)
-        lengths = (args[2],)
-    elif len(args) == 6:   # (a, a_pg, na, b, b_pg, nb)
-        lengths = (args[2], args[5])
-    else:                  # (a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad)
-        lengths = (args[2], args[6])
+    if name in ("and_keep", "variants_keep", "locate_runs"):
+        return OPS_PER_LANE * int((args[0] < INF32).sum())
+    if name in ("merge_tagged", "variants_and_locate_full",
+                "union_merge_locate_full"):
+        if name == "merge_tagged":
+            blocks = [(args[0], args[2]), (args[3], args[5])]
+        elif name == "variants_and_locate_full":
+            blocks = [(args[0], args[2]), (args[4], args[6])]
+        else:
+            blocks = [(args[0], args[2])]
+        k = sum(x.shape[1] for x, _ in blocks)
+        cap = max(x.shape[2] for x, _ in blocks)
+        lanes = sum(_valid(n, x.shape[2]) for x, n in blocks)
+        steps = (k - 1) * max(1, int(np.ceil(np.log2(cap + 1))))
+        return lanes * (OPS_PER_LANE + OPS_PER_STEP * steps)
+    lengths = (args[2], args[6]) if len(args) == 10 else (args[2],)
     cap = args[0].shape[1]
-    return sum(int(n.clamp(0, cap).sum()) for n in lengths)
+    return OPS_PER_LANE * sum(_valid(n, cap) for n in lengths)
 
 
-def phase_kernel_times(dix, queries) -> dict:
-    """Every kernel on the calls one kernel-route batch makes: the calls'
-    inputs are recorded, then each kernel's launches for the batch and
-    its plain version's run back to back between CUDA events (median of
-    10), are checked equal, and give the bound and, for merge_tagged,
-    the one PyTorch call that computes the same function (a stable sort
-    of the packed coord << 2 | tag key)."""
+def _library_call(name: str, calls):
+    """The one PyTorch call that computes a core's function, where there
+    is one: for the merges, a stable sort of the packed key
+    coord << 2 | tag over the blocks' concatenation."""
+    from docodo_tpu_torch.ops.seqops import INF32, variant_blocks
+
+    if name != "merge_tagged":
+        return None
+    keys = []
+    for a, _, na, b, _, nb in calls:
+        av, bv = variant_blocks(a, na), variant_blocks(b, nb)
+        vals = torch.cat([av, bv], dim=1)
+        tag = torch.cat([torch.where(av < INF32, 0, 2),
+                         torch.where(bv < INF32, 1, 2)], dim=1)
+        keys.append((vals.long() << 2) | tag)
+    return lambda: [torch.sort(k, dim=1, stable=True) for k in keys]
+
+
+def phase_kernel_times(dix, batches) -> dict:
+    """Every kernel on the calls the kernel-route batches make: the
+    calls' inputs are recorded, then each kernel's launches for the
+    batches and its plain version's run back to back between CUDA events
+    (median of 10), are checked equal, and give the bound and, for
+    merge_tagged, the one PyTorch call that computes the same function
+    (a stable sort of the packed coord << 2 | tag key)."""
     from docodo_tpu_torch.ops import query_kernels as qk
 
-    calls = {name: [] for name in KERNELS}
+    calls = {core: [] for _, _, cores in KERNELS.values()
+             for core, _ in cores}
     saved = {}
-    for name, (_, _, core, _) in KERNELS.items():
+    for core in calls:
         saved[core] = getattr(qk, core)
 
-        def rec(*args, _fn=saved[core], _name=name):
-            calls[_name].append(args)
+        def rec(*args, _fn=saved[core], _core=core):
+            calls[_core].append(args)
             return _fn(*args)
         setattr(qk, core, rec)
     try:
-        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
-                              use_kernels=True)
+        for queries in batches:
+            dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                  use_kernels=True)
     finally:
         for core, fn in saved.items():
             setattr(qk, core, fn)
     torch.cuda.synchronize()
 
     res = {}
-    for name, (_, _, core, plain_core) in KERNELS.items():
-        kern, plain = getattr(qk, core), getattr(qk, plain_core)
-        cs = calls[name]
+    for name, (_, _, cores) in KERNELS.items():
+        runs = [(getattr(qk, core), getattr(qk, plain), calls[core])
+                for core, plain in cores]
         err = 0.0
-        for args in cs:
-            got, want = kern(*args), plain(*args)
-            if name == "merge_tagged":
-                live = want[0] < 2**31 - 1
-                require(torch.equal(got[0], want[0])
-                        and torch.equal(got[1], want[1])
-                        and (got[2] is None
-                             or torch.equal(got[2][live], want[2][live])),
-                        "merge_tagged differs on the main path")
-            elif name == "and_keep":
-                require(torch.equal(got, want),
-                        "and_keep differs on the main path")
-            else:
-                err = max(err, same_outputs(got, want,
-                                            f"{name} on the main path"))
-        ms = cuda_ms(lambda: [kern(*a) for a in cs])
-        plain_ms = cuda_ms(lambda: [plain(*a) for a in cs])
-        library_ms = None
-        if name == "merge_tagged":
-            keys = []
-            for a, _, na, b, _, nb in cs:
-                lane = torch.arange(a.shape[1], device=a.device)[None, :]
-                ia, ib = lane < na[:, None], lane < nb[:, None]
-                vals = torch.cat([torch.where(ia, a, 2**31 - 1),
-                                  torch.where(ib, b, 2**31 - 1)], dim=1)
-                tag = torch.cat([torch.where(ia, 0, 2),
-                                 torch.where(ib, 1, 2)], dim=1)
-                keys.append((vals.long() << 2) | tag)
-            library_ms = cuda_ms(lambda: [torch.sort(k, dim=1, stable=True)
-                                          for k in keys])
-        nbytes = sum(_bytes_moved(name, a) for a in cs)
-        ops = OPS_PER_LANE * sum(_lanes(name, a) for a in cs)
+        for kern, plain, cs in runs:
+            for args in cs:
+                err = max(err, same_result(name, kern(*args), plain(*args),
+                                           f"{name} on the main path"))
+        ms = cuda_ms(lambda: [kern(*a) for kern, _, cs in runs for a in cs])
+        plain_ms = cuda_ms(lambda: [plain(*a) for _, plain, cs in runs
+                                    for a in cs])
+        lib = _library_call(name, calls[cores[0][0]])
+        library_ms = None if lib is None else cuda_ms(lib)
+        nbytes = sum(_bytes_moved(name, a) for _, _, cs in runs for a in cs)
+        ops = sum(_ops(name, a) for _, _, cs in runs for a in cs)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = ops / INT_OPS_PER_S * 1e3
+        n_calls = sum(len(cs) for _, _, cs in runs)
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=max(byte_ms, op_ms),
                          bound_by="bytes" if byte_ms >= op_ms
                          else "operations",
                          library_ms=library_ms)
-        shapes = sorted({tuple(a[0].shape) for a in cs})
-        say(f"kernel time: {name}: {len(cs)} calls of the batch "
+        shapes = sorted({tuple(a[0].shape) for _, _, cs in runs for a in cs})
+        say(f"kernel time: {name}: {n_calls} calls of the batches "
             f"(shapes {shapes[:3]}{'...' if len(shapes) > 3 else ''}), "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{res[name]['bound_ms']:.4f} ms ({nbytes} bytes), library "
+            f"{res[name]['bound_ms']:.4f} ms ({nbytes} bytes, {ops} ops), "
+            f"library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
             f"equal to the plain version")
+        for label, keep in SPLITS.get(name, ()):
+            part = [(kern, plain, [a for a in cs if keep(a)])
+                    for kern, plain, cs in runs]
+            n_part = sum(len(cs) for _, _, cs in part)
+            if not n_part:
+                continue
+            pms = cuda_ms(lambda: [k(*a) for k, _, cs in part for a in cs])
+            pplain = cuda_ms(lambda: [p(*a) for _, p, cs in part
+                                      for a in cs])
+            pbytes = sum(_bytes_moved(name, a) for _, _, cs in part
+                         for a in cs)
+            say(f"kernel time: {name} {label}: {n_part} calls, "
+                f"kernel {pms:.4f} ms, plain {pplain:.4f} ms, bound "
+                f"{pbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({pbytes} bytes)")
     return res
 
 
-def phase_oracle(dix, queries, out, rng, n: int = 512) -> None:
-    """Served rows against numpy: group_and over the host postings, the
-    page bounds and the rank formula (as benchmarks/common.py:306-338)."""
-    from docodo_tpu_torch.oracle import group_and
+# the TPU kernels a port covers in parts: its calls split by width or V
+# (PERF.md's rows 8 / 9, 11 / 12 and 3 / 5)
+SPLITS = {
+    "and_keep": (("n = 2048", lambda a: a[0].shape[1] == 2048),
+                 ("n = 4096", lambda a: a[0].shape[1] == 4096),
+                 ("n <= 4096", lambda a: a[0].shape[1] <= 4096),
+                 ("n > 4096", lambda a: a[0].shape[1] > 4096)),
+    "variants_keep": (("n <= 4096", lambda a: a[0].shape[1] <= 4096),
+                      ("n > 4096", lambda a: a[0].shape[1] > 4096)),
+    "union_merge_locate_full": (("V = 2", lambda a: a[0].shape[1] == 2),
+                                ("V > 2", lambda a: a[0].shape[1] > 2)),
+}
 
-    coords = dix.coords.cpu().numpy().astype(np.uint64)
+
+def phase_oracle(dix, queries, out, rng, label: str, n: int = 512) -> None:
+    """Served rows against numpy: each word's variants OR-merged and the
+    words' proximity-AND fold over the host postings (fold_row), the
+    page bounds and the rank formula (as benchmarks/common.py:306-338)."""
+    from docodo_tpu_torch.oracle import fold_row
+
+    coords = dix.coords.cpu().numpy()
     off = dix.offsets_np
     bounds = dix.bounds_np
     checked = mismatches = 0
@@ -516,15 +740,15 @@ def phase_oracle(dix, queries, out, rng, n: int = 512) -> None:
         npg, nht = int(out["n_pages"][qi]), int(out["n_hits"][qi])
         if npg > TOPK or nht > HIT_CAP:
             continue  # truncated: re-served on the host by the caller
-        acc = r_acc = None
-        for word, r in queries[qi]:
-            t = dix.term_id(word)
-            lst = coords[off[t]: off[t + 1]]
-            if acc is None:
-                acc, r_acc = lst, r
-            else:
-                acc, r_acc = group_and(acc, lst, r_acc, r)
-        acc = np.asarray(acc, dtype=np.int64)
+        words, rs = [], []
+        for codes, r in queries[qi]:
+            keys = (codes,) if isinstance(codes, str) else codes
+            ids = [dix.term_id(c) for c in keys]
+            words.append([coords[off[t]: off[t + 1]] for t in ids if t >= 0])
+            rs.append(r)
+        acc = np.zeros(0, np.int64)
+        if all(words):  # a word with no known variant serves nothing
+            acc = np.asarray(fold_row(words, rs), dtype=np.int64)
         page = np.minimum(np.searchsorted(bounds, acc, side="right"),
                           bounds.size - 1)
         first = np.concatenate([[True], page[1:] != page[:-1]])[:acc.size]
@@ -547,9 +771,10 @@ def phase_oracle(dix, queries, out, rng, n: int = 512) -> None:
                       for p, rk in zip(page[first].tolist(), rank)))
         checked += 1
         mismatches += not ok
-    say(f"oracle: {checked} served rows of {n} sampled checked against "
-        f"numpy group_and + rank formula; mismatches {mismatches}")
-    require(checked > 0 and mismatches == 0, "oracle mismatches")
+    say(f"oracle, {label}: {checked} served rows of {n} sampled checked "
+        f"against the numpy variant-OR and AND fold + rank formula; "
+        f"mismatches {mismatches}")
+    require(checked > 0 and mismatches == 0, f"{label} oracle mismatches")
 
 
 def main() -> None:
@@ -564,15 +789,20 @@ def main() -> None:
     err = phase_parity(rng)
     dix = phase_index(args.corpus_mb, args.seed)
     queries = _queries(dix, N_QUERIES)
-    out, launches = phase_main(dix, queries, f"{card} ({smi})")
-    times = phase_kernel_times(dix, queries)
-    phase_oracle(dix, queries, out, rng)
+    wide = _wide_queries(dix, N_QUERIES, N_ALTERNATIONS)
+    out, launches = phase_main(dix, queries, f"{card} ({smi})",
+                               "standard mix", STANDARD_KERNELS)
+    wout, wlaunches = phase_main(dix, wide, f"{card} ({smi})",
+                                 "wide mix + alternations", WIDE_KERNELS)
+    times = phase_kernel_times(dix, (queries, wide))
+    phase_oracle(dix, queries, out, rng, "standard mix")
+    phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
-             launches=launches[name],
+             launches=launches[name] + wlaunches[name],
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
-        for name, (src, replaces, _, _) in KERNELS.items()]}))
+        for name, (src, replaces, _) in KERNELS.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

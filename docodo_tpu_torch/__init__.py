@@ -7,7 +7,7 @@ full-result query path are CUDA kernels for Hopper (csrc/*.cu).
 
   index.py             host index build over paged documents
   lang/, constants.py  tokenizer, stemmers, word coder (no vocabularies)
-  mix.py, oracle.py    the standard query mix and the numpy AND oracle
+  mix.py, oracle.py    the standard and wide query mixes, the numpy oracle
   synthetic.py         seeded Zipf corpora
   ops/seqops.py        posting algebra on batched tensors
   ops/device_index.py  the device index and full-result query routing

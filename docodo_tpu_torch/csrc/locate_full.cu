@@ -39,22 +39,11 @@
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
-#include "common.cuh"
+#include "slot_row.cuh"
 
 namespace {
 
 using namespace docodo;
-
-template <int N>
-struct RowSmem {
-  int val[N];
-  int page[N];
-  int tmp[N];
-  int run_bonus[N];
-  int run_count[N];
-  int run_page[N];
-  int warp[32];
-};
 
 // Shared memory of the W = 2 kernels: the row, both operands, the tags.
 template <int N>
@@ -64,86 +53,6 @@ struct AndSmem {
   int b[N / 2];
   unsigned char tag[N];
 };
-
-// Locate, rank and both compactions over the row held in s.val / s.page,
-// given the keep mask of this thread's lanes. Called by every thread.
-template <int T, int L, int N>
-__device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
-                            int ipt, int kpad, int hpad, const Outputs& out) {
-  const int tid = threadIdx.x;
-  const int base = tid * ipt;
-  const size_t row = blockIdx.x;
-  for (int r = tid; r < kpad; r += T) {
-    s.run_bonus[r] = 0;
-    s.run_count[r] = 0;
-  }
-  // the previous kept lane of every lane: an exclusive max-scan
-  int prev[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int l = base + k;
-    prev[k] = (k < ipt && l < n && keep[k]) ? l : -1;
-  }
-  scan_lanes<T>(prev, ipt, -1, Max(), false, s.warp);
-
-  int rid[L], slot[L], bonus[L];
-  bool first[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int l = base + k;
-    first[k] = false;
-    bonus[k] = 0;
-    const bool kept = k < ipt && l < n && keep[k];
-    if (kept) {
-      const int p = prev[k];
-      const int prev_page = p >= 0 ? s.page[p] : -1;
-      first[k] = s.page[l] != prev_page;
-      if (!first[k]) {
-        const int gap = s.val[l] - s.val[p];
-        bonus[k] = 30 / (gap > 5 ? gap : 5);
-      }
-    }
-    rid[k] = first[k] ? 1 : 0;
-    slot[k] = kept ? 1 : 0;
-  }
-  // run ordinal + 1 of every kept lane, and each kept lane's hit slot
-  const int total_pages = scan_lanes<T>(rid, ipt, 0, Sum(), true, s.warp);
-  const int total_hits = scan_lanes<T>(slot, ipt, 0, Sum(), false, s.warp);
-
-  int* hits = out.hits + row * hpad;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int l = base + k;
-    if (k < ipt && l < n && keep[k]) {
-      const int r = rid[k] - 1;
-      if (r < kpad) {
-        atomicAdd(&s.run_count[r], 1);
-        if (bonus[k]) atomicAdd(&s.run_bonus[r], bonus[k]);
-        if (first[k]) s.run_page[r] = s.page[l];
-      }
-      if (slot[k] < hpad) hits[slot[k]] = s.val[l];
-    }
-  }
-  __syncthreads();
-  for (int r = tid; r < kpad; r += T) {
-    const size_t o = row * kpad + r;
-    if (r < total_pages) {
-      const int c = s.run_count[r];
-      out.pg_c[o] = s.run_page[r];
-      out.rk_c[o] = run_rank(s.run_bonus[r], c);
-      out.ct_c[o] = (float)c;
-    } else {
-      out.pg_c[o] = -1;
-      out.rk_c[o] = 0.0f;
-      out.ct_c[o] = 0.0f;
-    }
-  }
-  for (int r = total_hits + tid; r < hpad; r += T) hits[r] = kInf;
-  if (tid == 0) {
-    out.n_pages[row] = total_pages;
-    out.n_hits[row] = total_hits;
-  }
-}
 
 // W = 2 proximity/phrase AND (pallas_query._sorted_and_keep): the two
 // posting blocks merge by rank into (coord, tag) order (word A first on
@@ -225,46 +134,10 @@ __device__ void sorted_and_body(
       seg[k] = l == 0 || (abs_r != 0 && gap > abs_r && val);
     }
   }
-  if (ordered) {  // uniform over the block, so the scans inside are safe
-    int before[L], start[L];
+  bool eff[L], keep[L];
 #pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const int l = base + k;
-      before[k] = isa[k] ? 1 : 0;
-      start[k] = (k < ipt && l < n && seg[k]) ? l : -1;
-    }
-    scan_lanes<T>(before, ipt, 0, Sum(), false, s.warp);
-    scan_lanes<T>(start, ipt, -1, Max(), true, s.warp);
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const int l = base + k;
-      if (k < ipt && l < n) s.tmp[l] = before[k];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const int l = base + k;
-      if (k < ipt && l < n && isa[k] && l != start[k] &&
-          before[k] == s.tmp[start[k]])
-        seg[k] = true;
-    }
-    __syncthreads();
-  }
-  int sid[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) sid[k] = seg[k] ? 1 : 0;
-  scan_lanes<T>(sid, ipt, 0, Sum(), true, s.warp);
-  for (int l = tid; l < n; l += T) s.tmp[l] = 0;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < L; ++k)
-    if (isa[k] || isb[k])
-      atomicOr(&s.tmp[sid[k] - 1], (isa[k] ? 1 : 0) | (isb[k] ? 2 : 0));
-  __syncthreads();
-  bool keep[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k)
-    keep[k] = valid[k] && !ghost[k] && s.tmp[sid[k] - 1] == 3;
+  for (int k = 0; k < L; ++k) eff[k] = valid[k] && !ghost[k];
+  segment_keep<T, L, N>(s, isa, isb, eff, seg, ordered, n, ipt, keep);
   locate_tail<T, L, N>(s, keep, n, ipt, kpad, hpad, out);
 }
 

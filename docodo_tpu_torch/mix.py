@@ -1,6 +1,6 @@
-"""The standard 10k query mix of the benchmarks: a copy of
-benchmarks/common.standard_mix for the port, which imports nothing of the
-benchmarks or the JAX package."""
+"""The query mixes of the benchmarks: copies of
+benchmarks/common.standard_mix and wide_mix for the port, which imports
+nothing of the benchmarks or the JAX package."""
 
 from __future__ import annotations
 
@@ -29,3 +29,78 @@ def standard_mix(counts: np.ndarray, id_to_term, n_queries: int,
             terms[i] = (a, b)
             rs[i] = (255 + len(id_to_term[a]), 255 + len(id_to_term[b]))
     return terms, rs
+
+
+W_WIDE = 4
+V_WIDE = 8
+
+
+def wide_mix(counts: np.ndarray, id_to_term, n_queries: int,
+             seed: int = 77):
+    """The second recorded mix, the reference's own request surface
+    (ref XUnitDocodoTest/IndexTest.cs:164-226): 3-4-word phrases, nested
+    OR variant groups, wildcard-style variant unions and field rows.
+
+    Returns (terms int32[R, 4, 8], rs int32[R, 4], qid int32[R]): row r
+    belongs to logical query qid[r]. A field query emits two rows (the
+    main pair and the field row), so R >= n_queries."""
+    rng = np.random.default_rng(seed)
+    eligible = np.flatnonzero(counts >= 2)
+    by_freq = eligible[np.argsort(counts[eligible])]
+    # wildcard expansions hit mostly rare terms plus a few frequent ones
+    rare = by_freq[: max(8, int(by_freq.size * 0.8))]
+    rows_t, rows_r, rows_q = [], [], []
+
+    def wlen(t):
+        return len(id_to_term[int(t)])
+
+    def emit(words, ordered, qid):
+        """words: list of per-word variant lists."""
+        t = np.full((W_WIDE, V_WIDE), -1, np.int32)
+        r = np.ones(W_WIDE, np.int32)
+        for w, vs in enumerate(words):
+            t[w, : len(vs)] = vs
+            ml = max(wlen(v) for v in vs)
+            r[w] = -(ml + 4) if ordered else 255 + ml
+        rows_t.append(t)
+        rows_r.append(r)
+        rows_q.append(qid)
+
+    for i in range(n_queries):
+        kind = i % 7
+        picks = rng.choice(eligible, size=4, replace=False)
+        if kind == 0:    # single word
+            emit([[picks[0]]], False, i)
+        elif kind == 1:  # 2-word proximity (continuity with standard)
+            emit([[picks[0]], [picks[1]]], False, i)
+        elif kind == 2:  # 3-word exact phrase
+            emit([[p] for p in picks[:3]], True, i)
+        elif kind == 3:  # 4-word proximity AND
+            emit([[p] for p in picks], False, i)
+        elif kind == 4:  # nested OR: w1 (a|b|c), ref "old (lady|ladies)"
+            emit([[picks[0]], list(picks[1:4])], False, i)
+        elif kind == 5:  # wildcard-style union: one word, 8 variants
+            vs = rng.choice(rare, size=V_WIDE, replace=False)
+            emit([list(vs)], False, i)
+        else:            # field query: main pair + separate field row
+            emit([[picks[0]], [picks[1]]], False, i)
+            emit([[picks[2]]], False, i)
+    return (np.stack(rows_t), np.stack(rows_r),
+            np.asarray(rows_q, np.int32))
+
+
+def mix_queries(terms: np.ndarray, rs: np.ndarray, id_to_term):
+    """Mix rows (term ids [R, W, V] or [R, W], -1 padded; windows
+    [R, W]) as search_batch_full's queries: per row a list of (codes, r)
+    groups, codes a term key or a tuple of variant keys."""
+    if terms.ndim == 2:
+        terms = terms[:, :, None]
+    out = []
+    for trow, rrow in zip(terms, rs):
+        groups = []
+        for vs, r in zip(trow, rrow):
+            keys = tuple(id_to_term[int(t)] for t in vs if t >= 0)
+            if keys:
+                groups.append((keys[0] if len(keys) == 1 else keys, int(r)))
+        out.append(groups)
+    return out

@@ -26,8 +26,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu")
-HEADERS = (CSRC / "common.cuh",)
+SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu",
+           CSRC / "variants.cu")
+HEADERS = (CSRC / "common.cuh", CSRC / "slot_row.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "docodo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -194,14 +195,22 @@ SORTED_AND = Kernel("docodo_sorted_and_locate_full", _FULL)
 SINGLE = Kernel("docodo_single_locate_full", _W1)
 UNION = Kernel("docodo_union_locate_full", _W1)
 MERGE_AND_LOCATE = Kernel("docodo_merge_and_locate_topk", _FULL)
-MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "ii" + "ppp")
-AND_KEEP = Kernel("docodo_and_keep", "pppp" + "ii" + "pp")
+MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "iiiii" + "ppp")
+AND_KEEP = Kernel("docodo_and_keep", "ppppp" + "ii" + "ppppp")
 LOCATE_RUNS = Kernel("docodo_locate_runs",
                      "ppp" + "i" + "iiii" + "pppppp")
+VARIANTS_AND = Kernel("docodo_variants_and_locate_full",
+                      "ppppppppp" + "iiiiii" + "pppppp")
+UNION_MERGE = Kernel("docodo_union_merge_locate_full",
+                     "ppp" + "iiiii" + "pppppp")
+VARIANTS_KEEP = Kernel("docodo_variants_keep", "pppppp" + "ii" + "ppppp")
 KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "single_locate_full": SINGLE,
            "union_locate_full": UNION,
            "merge_and_locate_topk": MERGE_AND_LOCATE,
            "merge_tagged": MERGE_TAGGED,
            "and_keep": AND_KEEP,
-           "locate_runs": LOCATE_RUNS}
+           "locate_runs": LOCATE_RUNS,
+           "variants_and_locate_full": VARIANTS_AND,
+           "union_merge_locate_full": UNION_MERGE,
+           "variants_keep": VARIANTS_KEEP}

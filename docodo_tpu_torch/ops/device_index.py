@@ -1,5 +1,5 @@
 """Device-resident index and full-result query evaluation on torch:
-twin of docodo_tpu/ops/device_index.py for the full-result slice.
+twin of docodo_tpu/ops/device_index.py for the full-result path.
 
 The index lives on the device as a structure of arrays (int32, INF32
 padding):
@@ -12,12 +12,13 @@ padding):
   page_of      : int32[N]    page index of every posting
   small        : SmallTabs   padded per-term rows (coords || page_of)
 
-The slice serves W <= 2 words with one variant each: with the kernels,
-each bucket of queries goes through a slot kernel when its shape is
-admitted, else through the chunked kernels (query_kernels); the kernel
-buckets share one rank top-k and one doc grouping at the end, as in the
-JAX package. Without the kernels every bucket takes the plain route
-below (query_step_full).
+Queries are AND folds of W words, each word an OR of V variants. With
+the kernels, each bucket of queries goes through a slot kernel when its
+shape is admitted, else through the chunked kernels (query_kernels); the
+kernel buckets share one rank top-k and one doc grouping at the end, as
+in the JAX package. W >= 3 with variants, which no kernel takes (nor
+does the JAX package's), and every bucket without the kernels take the
+plain route below (query_step_full).
 """
 
 from __future__ import annotations
@@ -32,7 +33,12 @@ from docodo_tpu_torch.ops import query_kernels as qk
 from docodo_tpu_torch.ops.seqops import (
     INF32,
     and_masked,
+    and_variants_sorted,
+    combine_r,
+    compact,
     locate_compact,
+    or_masked,
+    or_variants_sorted,
     rank_in_sorted,
 )
 
@@ -282,27 +288,109 @@ def _fold_select(skip, acc, keep_acc, n_acc, vals, keep):
             torch.where(skip, n_acc, keep.sum(dim=1, dtype=torch.int32)))
 
 
+def _live(acc, n_acc):
+    return torch.arange(acc.shape[1], device=acc.device)[None, :] \
+        < n_acc[:, None]
+
+
 def eval_and_query(coords, term_offsets, terms, rs, cap: int, small=None):
-    """Proximity-AND fold over each row's terms [B, W <= 2], one variant
-    per word, -1 padded (device_index.py:548, and the V = 1 branch of
-    eval_query_masked, :942): a padded word is the identity. Returns the
-    masked stream (vals ascending incl. dropped slots, keep, r)."""
-    w = terms.shape[1]
-    if w > 2:
-        raise NotImplementedError(
-            "W >= 3 folds are ROADMAP Queue B (b), the wide surface")
+    """Proximity-AND left fold over each row's terms [B, W], one variant
+    per word, -1 padded (device_index.py:548): a padded word is the
+    identity, and each step past the first compacts the running stream
+    back into a sorted operand. Returns the masked stream (vals
+    ascending incl. dropped slots, keep, r)."""
     acc, n_acc = gather_term(coords, term_offsets, terms[:, 0], cap, small)
-    keep_acc = (torch.arange(cap, device=acc.device)[None, :]
-                < n_acc[:, None])
+    keep_acc = _live(acc, n_acc)
     r_acc = rs[:, 0]
-    if w == 2:
-        b, nb = gather_term(coords, term_offsets, terms[:, 1], cap, small)
-        vals, keep, r_out = and_masked(acc, n_acc, r_acc, b, nb, rs[:, 1])
-        skip = terms[:, 1] < 0
+    for q in range(1, terms.shape[1]):
+        if q > 1:
+            acc, n_acc = compact(acc, keep_acc)
+            keep_acc = _live(acc, n_acc)
+        b, nb = gather_term(coords, term_offsets, terms[:, q], cap, small)
+        vals, keep, r_out = and_masked(acc, n_acc, r_acc, b, nb, rs[:, q])
+        skip = terms[:, q] < 0
         acc, keep_acc, n_acc = _fold_select(skip, acc, keep_acc, n_acc,
                                             vals, keep)
         r_acc = torch.where(skip, r_acc, r_out)
     return acc, keep_acc, r_acc
+
+
+def gather_variants(coords, term_offsets, terms, cap: int, small=None):
+    """gather_term of every variant of terms [B, V]: (vals [B, V, cap],
+    n [B, V])."""
+    bsz, v = terms.shape
+    vals, n = gather_term(coords, term_offsets, terms.reshape(-1), cap, small)
+    return vals.reshape(bsz, v, cap), n.reshape(bsz, v)
+
+
+def gather_word_variants(coords, term_offsets, variants, cap: int,
+                         small=None):
+    """One word's variants [B, V] (-1 padded) OR-folded into one dense
+    ascending operand (device_index.py:588): (vals [B, V cap], n)."""
+    acc, n_acc = gather_term(coords, term_offsets, variants[:, 0], cap,
+                             small)
+    if variants.shape[1] == 1:
+        return acc, n_acc
+    keep_acc = _live(acc, n_acc)
+    for q in range(1, variants.shape[1]):
+        if q > 1:
+            acc, n_acc = compact(acc, keep_acc)
+            keep_acc = _live(acc, n_acc)
+        b, nb = gather_term(coords, term_offsets, variants[:, q], cap, small)
+        vals, keep = or_masked(acc, n_acc, b, nb)
+        acc, keep_acc, n_acc = _fold_select(variants[:, q] < 0, acc,
+                                            keep_acc, n_acc, vals, keep)
+    return compact(acc, keep_acc)
+
+
+def eval_and_query_variants(coords, term_offsets, terms, rs, cap: int,
+                            small=None):
+    """AND fold where each word is an OR of variants (device_index.py
+    :616): terms [B, W, V] (-1 padded both ways), rs [B, W]."""
+    acc, n_acc = gather_word_variants(coords, term_offsets, terms[:, 0],
+                                      cap, small)
+    keep_acc = _live(acc, n_acc)
+    r_acc = rs[:, 0]
+    w = terms.shape[1]
+    for q in range(1, w):
+        b, nb = gather_word_variants(coords, term_offsets, terms[:, q], cap,
+                                     small)
+        vals, keep, r_out = and_masked(acc, n_acc, r_acc, b, nb, rs[:, q])
+        skip = terms[:, q, 0] < 0
+        acc, keep_acc, n_acc = _fold_select(skip, acc, keep_acc, n_acc,
+                                            vals, keep)
+        r_acc = torch.where(skip, r_acc, r_out)
+        if q < w - 1:
+            acc, n_acc = compact(acc, keep_acc)
+            keep_acc = _live(acc, n_acc)
+    return acc, keep_acc, r_acc
+
+
+def eval_query_masked(coords, term_offsets, terms, rs, cap: int,
+                      small=None):
+    """One bucket of queries to masked streams (device_index.py:942):
+    terms [B, W] is the plain AND fold; [B, W, V] is the AND fold of
+    per-word variant ORs, one merge for W <= 2. Returns (vals, keep)."""
+    if terms.dim() == 2 or terms.shape[2] == 1:
+        t = terms if terms.dim() == 2 else terms[:, :, 0]
+        vals, keep, _ = eval_and_query(coords, term_offsets, t, rs, cap,
+                                       small)
+        return vals, keep
+    w = terms.shape[1]
+    if w == 1:
+        return or_variants_sorted(*gather_variants(
+            coords, term_offsets, terms[:, 0], cap, small))
+    if w == 2:
+        sa, na = gather_variants(coords, term_offsets, terms[:, 0], cap,
+                                 small)
+        sb, nb = gather_variants(coords, term_offsets, terms[:, 1], cap,
+                                 small)
+        vals, keep, _ = and_variants_sorted(sa, na, rs[:, 0], sb, nb,
+                                            rs[:, 1], terms[:, 1, 0] < 0)
+        return vals, keep
+    vals, keep, _ = eval_and_query_variants(coords, term_offsets, terms, rs,
+                                            cap, small)
+    return vals, keep
 
 
 class LocateFull(NamedTuple):
@@ -404,8 +492,8 @@ def query_step_full(term_offsets, coords, bounds, page_doc, is_header,
                     terms, rs, cap: int, topk: int, hit_cap: int,
                     with_docs: bool = True, small=None) -> LocateFull:
     """A batch of queries end to end on the plain route
-    (device_index.py:981)."""
-    vals, keep, _ = eval_and_query(coords, term_offsets, terms, rs, cap,
+    (device_index.py:981); terms [B, W] or [B, W, V]."""
+    vals, keep = eval_query_masked(coords, term_offsets, terms, rs, cap,
                                    small)
     return locate_full(vals, keep, bounds, page_doc, is_header, topk,
                        hit_cap, with_docs=with_docs)
@@ -415,35 +503,67 @@ def query_step_full(term_offsets, coords, bounds, page_doc, is_header,
 # kernel routing and the multi-bucket dispatcher
 # ---------------------------------------------------------------------------
 
+def _fetcher(coords, term_offsets, small, page_of, cap: int, carried: bool):
+    """The posting fetch of a kernel bucket: terms [B] -> (vals [B, cap],
+    pages or None, n [B]), or terms [B, V] -> ([B, V, cap], pages or
+    None, [B, V]). Pages ride the fetch when the bucket is carried."""
+
+    def fetch(terms):
+        flat = terms.reshape(-1)
+        if carried:
+            vals, pgs, ln = gather_term_paged(coords, page_of, term_offsets,
+                                              flat, cap, small)
+        else:
+            vals, ln = gather_term(coords, term_offsets, flat, cap, small)
+            pgs = None
+        shape = tuple(terms.shape)
+        return (vals.reshape(shape + (cap,)),
+                None if pgs is None else pgs.reshape(shape + (cap,)),
+                ln.reshape(shape))
+    return fetch
+
+
+def _variants(tq):
+    """V of a bucket's terms: [B, W] or [B, W, V]."""
+    return tq.shape[2] if tq.dim() == 3 else 1
+
+
 def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
                         topk: int, hit_cap: int, small=None, page_of=None):
-    """One bucket [B, W] through the slice's kernels (the V = 1 branch of
-    device_index._pallas_bucket_full, :1706-1800) up to its PreFull, or
-    None when its shape is not admitted: W > 2, a W = 2 cap past 512, a
-    W = 1 cap past 1024 (256 without carried pages), or W = 1 with
-    topk > cap.
+    """One bucket [B, W] or [B, W, V] through the slot kernels (device_
+    index._pallas_bucket_full, :1618-1800) up to its PreFull, or None
+    when its shape is not admitted: W > 2; with variants (V > 1) a
+    stream W V cap past 1024 lanes; else a W = 2 cap past 512, a W = 1
+    cap past 1024 (256 without carried pages), or W = 1 with topk > cap.
 
     Pages ride the fetch when combined small tables serve the cap
     (carried); otherwise the wrappers look them up (shared)."""
-    w = tq.shape[1]
+    w, v = tq.shape[1], _variants(tq)
     if w > 2:
         return None
-    single = w == 1
     carried = page_of is not None and _tab_serves(small, cap)
+    fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
+    kw = dict(topk=topk, hit_cap=hit_cap, tail=False)
+    if v > 1:
+        if w * v * cap > qk.MAX_STREAM_WIDTH:
+            return None
+        a, apg, na = fetch(tq[:, 0])
+        if w == 1:
+            return PreFull(*qk.union_locate_full(a, na, bounds, a_pg=apg,
+                                                 **kw))
+        b, bpg, nb = fetch(tq[:, 1])
+        return PreFull(*qk.variants_and_locate_full(
+            a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
+            tq[:, 1, 0] < 0, bounds, a_pg=apg, b_pg=bpg, **kw))
+    if tq.dim() == 3:
+        tq = tq[:, :, 0]
+    single = w == 1
     w1_limit = qk.MAX_STREAM_WIDTH if carried else qk.W1_FULL_STREAM_MAX
     limit = w1_limit if single else qk.MAX_SORTED_PALLAS_CAP
     if cap > limit or (single and topk > cap):
         return None
-
-    def fetch(terms):
-        if carried:
-            return gather_term_paged(coords, page_of, term_offsets, terms,
-                                     cap, small)
-        vals, ln = gather_term(coords, term_offsets, terms, cap, small)
-        return vals, None, ln
-
     a, apg, na = fetch(tq[:, 0])
-    kw = dict(topk=topk, hit_cap=hit_cap, a_pg=apg, tail=False)
+    kw["a_pg"] = apg
     if single and cap > qk.MAX_PALLAS_CAP:
         outs = qk.union_locate_full(
             a[:, None, :], na[:, None], bounds,
@@ -465,49 +585,72 @@ CHUNK_MIN_B = 1
 
 def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
                          topk: int, hit_cap: int, small=None, page_of=None):
-    """One W <= 2 bucket past slot admission through the chunked kernels
-    (the V = 1 chunked branches of device_index._bucket_full,
-    :1329-1405, as a TPU takes them) up to its PreFull, or None for W > 2
-    or fewer than CHUNK_MIN_B rows.
+    """One bucket past slot admission through the chunked kernels (the
+    chunked branches of device_index._bucket_full, :1329-1398, as a TPU
+    takes them) up to its PreFull, or None for W >= 3 with variants or
+    fewer than CHUNK_MIN_B rows. Pages ride the fetch and the merges
+    when the small tables carry them; otherwise the locate kernel looks
+    them up. Where the JAX package sorts blocks that are already sorted,
+    the merge kernel gives the same (coord, tag) stream.
 
     W = 2 (caps past slot admission, so 2 cap >= 2048, the JAX
     package's condition): with carried pages and 2 cap <= 4096 the
     fused merge + AND + locate kernel (:1124-1167); otherwise the merge,
-    the AND keep and the locate kernels (:1168-1196), the pages carried
-    through the merge or, past the page-carrying tables, looked up by the
-    locate kernel. The JAX package sorts the uncarried concatenation; the
-    merge kernel gives the same (coord, tag) stream from the two sorted
-    blocks.
+    the AND keep and the locate kernels (:1168-1196).
 
     W = 1: the gathered block is the kept stream, and the locate kernel
-    takes it with its carried pages (:1371-1386) or looks them up
-    (:1387-1398). The JAX package gives W = 1 streams narrower than 2048
-    lanes to its XLA locate instead; the results are the same."""
-    w = tq.shape[1]
-    if w > 2 or tq.shape[0] < CHUNK_MIN_B:
+    takes it (:1371-1398). The JAX package gives W = 1 streams narrower
+    than 2048 lanes to its XLA locate instead; the results are the same.
+
+    W >= 3: the carried left fold (_chunked_and_full_multi, :1199-1249):
+    each step merges the running stream with the next word's block and
+    keeps the AND, and every step but the last compacts its kept stream
+    into the next step's operand.
+
+    Variants (V > 1), W = 2: every variant block of both words merges
+    into one stream for the variants AND kernel (_chunked_variants_full,
+    :1252-1299); W = 1: the merged blocks with word B empty and every row
+    flagged bpad, so the same kernel keeps the union's run starts. The
+    JAX package takes uncarried W = 2 and every W = 1 variant bucket past
+    slot admission, and the uncarried W >= 3 fold, on its XLA program
+    instead; the results are the same."""
+    w, v = tq.shape[1], _variants(tq)
+    if (w > 2 and v > 1) or tq.shape[0] < CHUNK_MIN_B:
         return None
     carried = page_of is not None and _tab_serves(small, cap)
-
-    def fetch(terms):
-        if carried:
-            return gather_term_paged(coords, page_of, term_offsets, terms,
-                                     cap, small)
-        vals, ln = gather_term(coords, term_offsets, terms, cap, small)
-        return vals, None, ln
-
+    fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
+    kw = dict(topk=topk, hit_cap=hit_cap)
+    if v > 1:
+        a, apg, na = fetch(tq[:, 0])
+        if w == 1:
+            vals, tag, pg = qk.merge_tagged(a, na, None, None, apg)
+            ones = torch.ones_like(na[:, 0])
+            hv = qk.variants_keep(vals, tag, ones, ones, ones)
+        else:
+            b, bpg, nb = fetch(tq[:, 1])
+            vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
+            hv = qk.variants_keep(vals, tag, rq[:, 0].contiguous(),
+                                  rq[:, 1].contiguous(), tq[:, 1, 0] < 0)
+        return PreFull(*qk.locate_runs(hv, bounds, pg=pg, **kw))
+    if tq.dim() == 3:
+        tq = tq[:, :, 0]
     a, apg, na = fetch(tq[:, 0])
     if w == 1:
-        return PreFull(*qk.locate_runs(a, bounds, topk=topk,
-                                       hit_cap=hit_cap, pg=apg))
-    b, bpg, nb = fetch(tq[:, 1])
-    ra, rb = rq[:, 0].contiguous(), rq[:, 1].contiguous()
-    if carried and 2 * cap <= qk.FUSED_AND_MAX:
+        return PreFull(*qk.locate_runs(a, bounds, pg=apg, **kw))
+    ra = rq[:, 0].contiguous()
+    if w == 2 and carried and 2 * cap <= qk.FUSED_AND_MAX:
+        b, bpg, nb = fetch(tq[:, 1])
         return PreFull(*qk.merge_and_locate_topk(
-            a, na, ra, b, nb, rb, apg, bpg, topk=topk, hit_cap=hit_cap))
-    vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
+            a, na, ra, b, nb, rq[:, 1].contiguous(), apg, bpg, **kw))
+    for q in range(1, w):
+        b, bpg, nb = fetch(tq[:, q])
+        rb = rq[:, q].contiguous()
+        vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
+        if q < w - 1:
+            a, apg, na = qk.and_keep_compact(vals, tag, ra, rb, pg)
+            ra = combine_r(ra, rb)
     hv = qk.and_keep(vals, tag, ra, rb)
-    return PreFull(*qk.locate_runs(hv, bounds, topk=topk, hit_cap=hit_cap,
-                                   pg=pg))
+    return PreFull(*qk.locate_runs(hv, bounds, pg=pg, **kw))
 
 
 def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
@@ -741,9 +884,12 @@ class DeviceIndex:
     def search_batch_full(self, queries, topk: int = 64,
                           hit_cap: int = 512, want_docs: bool = True,
                           use_kernels: Optional[bool] = None):
-        """Full-result batch evaluation (device_index.py:2170, the fused
-        path). queries: per query a list of (codes, r) groups, codes a
-        term key (one variant per word; at most two words).
+        """Full-result batch evaluation with per-word variant ORs
+        (device_index.py:2170, the fused path). queries: per query a
+        list of (codes, r) groups; codes is a term key or a sequence of
+        OR'd variant keys (the reference's code sets and `a|b`
+        alternations). Buckets group queries by (cap, W, V rounded up to
+        a power of two, hit tier).
 
         Returns a dict of numpy arrays: pages / ranks / counts [B, topk],
         n_pages / n_hits [B], hits [B, hit_cap] (ascending kept
@@ -789,27 +935,25 @@ class DeviceIndex:
             if cg is None:
                 continue
             _rows, _rvals, w, v, need, min_need = cg
-            if w > 2 or v > 1:
-                raise NotImplementedError(
-                    f"query {i} has {w} words and {v} variants: W >= 3 "
-                    f"and variant ORs are ROADMAP Queue B (b), the wide "
-                    f"surface")
             buckets.setdefault(
-                (_bucket(need), w, 1, hit_tier(min_need)), []).append(i)
+                (_bucket(need), w, _bucket(v, lo=1), hit_tier(min_need)),
+                []).append(i)
 
         terms_list, rs_list, caps_list, hcaps_list, idx_list = (
             [], [], [], [], [])
         dev = self.device
-        for (qcap, w, _vb, hb), idxs in sorted(buckets.items(),
-                                                key=_bucket_sort_key):
+        for (qcap, w, vb, hb), idxs in sorted(buckets.items(),
+                                               key=_bucket_sort_key):
             brows = _bucket(len(idxs), lo=8)
-            terms = np.full((brows, w), -1, dtype=np.int32)
+            terms = np.full((brows, w, vb), -1, dtype=np.int32)
             rs = np.ones((brows, w), dtype=np.int32)
             for row, i in enumerate(idxs):
                 rows_i, rvals_i = compiled[i][0], compiled[i][1]
                 for j, (ids, r) in enumerate(zip(rows_i, rvals_i)):
-                    terms[row, j] = ids[0]
+                    terms[row, j, : len(ids)] = ids
                     rs[row, j] = r
+            if vb == 1:
+                terms = terms[:, :, 0]
             terms_list.append(torch.as_tensor(terms, device=dev))
             rs_list.append(torch.as_tensor(rs, device=dev))
             caps_list.append(qcap)

@@ -1,18 +1,24 @@
-"""The slice's full-result kernels: twin of docodo_tpu/ops/pallas_query.py.
+"""The full-result kernels: twin of docodo_tpu/ops/pallas_query.py.
 
-Seven wrappers, one per hand-written CUDA kernel (csrc/locate_full.cu,
-csrc/chunked.cu), each with its plain PyTorch version beside it:
+Ten wrappers, one per hand-written CUDA kernel (csrc/locate_full.cu,
+csrc/variants.cu, csrc/chunked.cu), each with its plain PyTorch version
+beside it:
 
   sorted_and_locate_full  W = 2, cap <= 512   (pallas_query.py:1164)
   single_locate_full      W = 1, cap <= 128   (pallas_query.py:1243)
   union_locate_full       W = 1, V = 1, cap <= 1024 (pallas_query.py:977)
   merge_and_locate_topk   W = 2, 2 cap <= 4096 (pallas_query.py:2739)
-  merge_tagged            two sorted blocks -> one (coord, tag) stream
+  merge_tagged            sorted blocks -> one (coord, tag) stream
                           (pallas_query.py:2332)
-  and_keep                the AND's kept stream, any width
-                          (pallas_query.py:2810)
+  and_keep                the AND's kept stream, any width, or a fold
+                          step's compacted operand (pallas_query.py:2810)
   locate_runs             page runs of a kept stream, any width
                           (pallas_query.py:1769)
+  variants_and_locate_full  W = 2 variant ORs, (Va + Vb) cap <= 1024
+                          (pallas_query.py:904)
+  union_merge_locate_full W = 1, V > 1, V cap <= 1024 (pallas_query.py:977)
+  variants_keep           the variants AND's kept stream, any width
+                          (pallas_query.py:2880)
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors only; any other device raises. The plain
@@ -38,7 +44,10 @@ from docodo_tpu_torch.ops.seqops import (
     locate_compact,
     segment_and,
     select_slots,
+    sort_tagged,
     topk_nonneg,
+    variant_blocks,
+    variants_keep_mask,
 )
 
 # kernel admission, as in the JAX package (pallas_query.py:61, 780, 786,
@@ -113,23 +122,12 @@ def _on_device(kernel, plain, *args):
 # ---------------------------------------------------------------------------
 
 def _sorted_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad):
-    """Plain version of docodo_sorted_and_locate_full: a stable sort on
-    coord << 2 | tag merges the operands (tag 0 = word A, 1 = word B,
-    2 = padding), then the AND keep and the locate tail."""
-    lane = torch.arange(a.shape[1], device=a.device)[None, :]
-    ia = lane < na[:, None]
-    ib = lane < nb[:, None]
-    vals = torch.cat([torch.where(ia, a, INF32), torch.where(ib, b, INF32)],
-                     dim=1)
-    tag = torch.cat([torch.where(ia, 0, 2), torch.where(ib, 1, 2)], dim=1)
-    order = torch.sort((vals.long() << 2) | tag, dim=1, stable=True).indices
-    vals = torch.gather(vals, 1, order)
-    tag = torch.gather(tag, 1, order)
-    page = torch.gather(torch.cat([a_pg, b_pg], dim=1), 1, order)
-    valid = vals < INF32
-    isa, isb, ghost = fold_dups(vals, (tag == 0) & valid, (tag == 1) & valid,
-                                valid)
-    keep = segment_and(vals, isa, isb, ghost, valid, combine_r(ra, rb))
+    """Plain version of docodo_sorted_and_locate_full: the plain merge
+    (a stable sort on coord << 2 | tag), the plain AND keep, the locate
+    tail."""
+    vals, tag, page = _merge_tagged_plain(
+        *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
+    keep = _and_keep_plain(vals, tag, ra, rb) < INF32
     return locate_compact(vals, keep, page, kpad, hpad)
 
 
@@ -238,18 +236,17 @@ def single_locate_full_plain(a, na, bounds, *, topk: int, hit_cap: int,
 
 
 def _v1(a, na, a_pg):
-    if a.dim() != 3 or a.shape[1] != 1:
-        raise NotImplementedError(
-            "union_locate_full takes one variant ([B, 1, cap]); V > 1 is "
-            "ROADMAP Queue B (b), the wide surface")
     return a[:, 0], na[:, 0], None if a_pg is None else a_pg[:, 0]
 
 
 def union_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
                       a_pg=None, tail: bool = True):
-    """W = 1 full-result locate of one word's variant union, V = 1:
-    a [B, 1, cap <= 1024], na [B, 1]; outputs as
-    sorted_and_locate_full."""
+    """W = 1 full-result locate of one word's variant union: a [B, V, cap]
+    with V cap <= 1024, na [B, V]; outputs as sorted_and_locate_full.
+    V = 1 takes the union kernel, V > 1 union_merge_locate_full."""
+    if a.shape[1] > 1:
+        return union_merge_locate_full(a, na, bounds, topk=topk,
+                                       hit_cap=hit_cap, a_pg=a_pg, tail=tail)
     a, na, a_pg = _v1(a, na, a_pg)
     return _w1_call(
         lambda *x: _on_device(_union_kernel, _union_plain, *x),
@@ -258,14 +255,167 @@ def union_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
 
 def union_locate_full_plain(a, na, bounds, *, topk: int, hit_cap: int,
                             a_pg=None, tail: bool = True):
-    """union_locate_full through its plain version, on any device."""
+    """union_locate_full through its plain versions, on any device."""
+    if a.shape[1] > 1:
+        return union_merge_locate_full_plain(a, na, bounds, topk=topk,
+                                             hit_cap=hit_cap, a_pg=a_pg,
+                                             tail=tail)
     a, na, a_pg = _v1(a, na, a_pg)
     return _w1_call(_union_plain, MAX_STREAM_WIDTH, a, na, bounds, topk,
                     hit_cap, a_pg, tail)
 
 
 # ---------------------------------------------------------------------------
-# the chunked family: W <= 2 buckets past slot admission
+# variant ORs within a slot: kernels E (W = 2) and F (W = 1)
+# ---------------------------------------------------------------------------
+
+MAX_BLOCKS = 32  # variant blocks a slot kernel merges (csrc kMaxBlocks)
+
+
+def _block_pages(a, na, a_pg, bounds):
+    """The page streams of [B, V, cap] blocks: carried, or looked up in
+    bounds (pages at padding lanes are never read)."""
+    if a_pg is not None:
+        return a_pg
+    return shared_pg(variant_blocks(a, na), bounds).reshape(a.shape)
+
+
+def _variants_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, kpad, hpad):
+    """Plain version of docodo_variants_and_locate_full: the variant
+    blocks merge by one stable sort on coord << 2 | tag, then
+    and_variants_sorted's run-dedupe and segmentation and the locate
+    tail."""
+    vals, tag, pg = _merge_tagged_plain(a, a_pg, na, b, b_pg, nb)
+    keep = variants_keep_mask(vals, tag, ra, rb, bpad != 0)
+    return locate_compact(vals, keep, pg, kpad, hpad)
+
+
+def _check_blocks(rows, blocks):
+    for name, t, v, cap in blocks:
+        if t is not None:
+            _cuda.check(t, name, torch.int32, (rows, v, cap))
+
+
+def _variants_and_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, kpad,
+                         hpad):
+    rows, va, cap = a.shape
+    vb = b.shape[1]
+    n = (va + vb) * cap
+    if not 0 < n <= MAX_STREAM_WIDTH or va + vb > MAX_BLOCKS:
+        raise ValueError(f"docodo_variants_and_locate_full: {va} + {vb} "
+                         f"blocks of {cap} lanes")
+    if not (0 < kpad <= n and 0 < hpad <= n):
+        raise ValueError(f"kpad {kpad} / hpad {hpad} outside (0, {n}]")
+    _check_blocks(rows, [("a", a, va, cap), ("a_pg", a_pg, va, cap),
+                         ("b", b, vb, cap), ("b_pg", b_pg, vb, cap)])
+    _cuda.check(na, "na", torch.int32, (rows, va))
+    _cuda.check(nb, "nb", torch.int32, (rows, vb))
+    for name, t in (("ra", ra), ("rb", rb), ("bpad", bpad)):
+        _cuda.check(t, name, torch.int32, (rows,))
+    outs = _cuda.full_result_outputs(rows, kpad, hpad, a.device)
+    _cuda.VARIANTS_AND.launch(a.device, a, a_pg, na, ra, b, b_pg, nb, rb,
+                              bpad, rows, va, vb, cap, kpad, hpad, *outs)
+    return outs
+
+
+def _variants_and_call(core, a, na, ra, b, nb, rb, bpad, bounds, topk,
+                       hit_cap, a_pg, b_pg, tail):
+    cap = a.shape[2]
+    n = (a.shape[1] + b.shape[1]) * cap
+    if n > MAX_STREAM_WIDTH or b.shape[2] != cap:
+        raise ValueError(f"W=2 variant kernel takes equal caps with "
+                         f"(Va + Vb) cap <= {MAX_STREAM_WIDTH}, got "
+                         f"{tuple(a.shape)} / {tuple(b.shape)}")
+    a_pg = _block_pages(a, na, a_pg, bounds)
+    b_pg = _block_pages(b, nb, b_pg, bounds)
+    outs = core(a, a_pg, na, ra, b, b_pg, nb, rb, bpad.to(torch.int32),
+                min(topk, n), min(hit_cap, n))
+    return _slots_glue(outs, topk, hit_cap, tail)
+
+
+def variants_and_locate_full(a, na, ra, b, nb, rb, bpad, bounds, *,
+                             topk: int, hit_cap: int, a_pg=None, b_pg=None,
+                             tail: bool = True):
+    """W = 2 full-result AND of two variant ORs
+    (pallas_variants_and_locate_full): a [B, Va, cap] / b [B, Vb, cap]
+    variant blocks with lengths na / nb, windows ra / rb [B], bpad [B]
+    (word B is query padding: the result is word A's union),
+    (Va + Vb) cap <= 1024. Pages carried in a_pg / b_pg or looked up.
+    Outputs as sorted_and_locate_full."""
+    return _variants_and_call(
+        lambda *x: _on_device(_variants_and_kernel, _variants_and_plain, *x),
+        a, na, ra, b, nb, rb, bpad, bounds, topk, hit_cap, a_pg, b_pg, tail)
+
+
+def variants_and_locate_full_plain(a, na, ra, b, nb, rb, bpad, bounds, *,
+                                   topk: int, hit_cap: int, a_pg=None,
+                                   b_pg=None, tail: bool = True):
+    """variants_and_locate_full through its plain version, on any
+    device."""
+    return _variants_and_call(_variants_and_plain, a, na, ra, b, nb, rb,
+                              bpad, bounds, topk, hit_cap, a_pg, b_pg, tail)
+
+
+def _union_merge_plain(a, a_pg, na, kpad, hpad):
+    """Plain version of docodo_union_merge_locate_full: one stable sort
+    of the variant blocks (pages riding along), then the V = 1 union's
+    plain version over the merged stream."""
+    vals = variant_blocks(a, na)
+    order = torch.sort(vals, dim=1, stable=True).indices
+    return _union_plain(torch.gather(vals, 1, order),
+                        torch.gather(a_pg.reshape(vals.shape), 1, order),
+                        (vals < INF32).sum(dim=1, dtype=torch.int32), kpad,
+                        hpad)
+
+
+def _union_merge_kernel(a, a_pg, na, kpad, hpad):
+    rows, v, cap = a.shape
+    n = v * cap
+    if not 0 < n <= MAX_STREAM_WIDTH or v > MAX_BLOCKS:
+        raise ValueError(f"docodo_union_merge_locate_full: {v} blocks of "
+                         f"{cap} lanes")
+    if not (0 < kpad <= n and 0 < hpad <= n):
+        raise ValueError(f"kpad {kpad} / hpad {hpad} outside (0, {n}]")
+    _check_blocks(rows, [("a", a, v, cap), ("a_pg", a_pg, v, cap)])
+    _cuda.check(na, "na", torch.int32, (rows, v))
+    outs = _cuda.full_result_outputs(rows, kpad, hpad, a.device)
+    _cuda.UNION_MERGE.launch(a.device, a, a_pg, na, rows, v, cap, kpad, hpad,
+                             *outs)
+    return outs
+
+
+def _union_merge_call(core, a, na, bounds, topk, hit_cap, a_pg, tail):
+    n = a.shape[1] * a.shape[2]
+    if n > MAX_STREAM_WIDTH:
+        raise ValueError(f"W=1 variant kernel takes V cap <= "
+                         f"{MAX_STREAM_WIDTH}, got {tuple(a.shape)}")
+    outs = core(a, _block_pages(a, na, a_pg, bounds), na, min(topk, n),
+                min(hit_cap, n))
+    return _slots_glue(outs, topk, hit_cap, tail)
+
+
+def union_merge_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
+                            a_pg=None, tail: bool = True):
+    """W = 1 full-result locate of one word's variant union
+    (pallas_union_locate_full at V > 1): a [B, V, cap], na [B, V],
+    V cap <= 1024, the blocks merged in the kernel. Outputs as
+    sorted_and_locate_full."""
+    return _union_merge_call(
+        lambda *x: _on_device(_union_merge_kernel, _union_merge_plain, *x),
+        a, na, bounds, topk, hit_cap, a_pg, tail)
+
+
+def union_merge_locate_full_plain(a, na, bounds, *, topk: int,
+                                  hit_cap: int, a_pg=None,
+                                  tail: bool = True):
+    """union_merge_locate_full through its plain version, on any
+    device."""
+    return _union_merge_call(_union_merge_plain, a, na, bounds, topk,
+                             hit_cap, a_pg, tail)
+
+
+# ---------------------------------------------------------------------------
+# the chunked family: buckets past slot admission
 # ---------------------------------------------------------------------------
 
 def _fused_hpad(hit_cap: int, n: int) -> int:
@@ -316,48 +466,64 @@ def _merge_tagged_plain(a, a_pg, na, b, b_pg, nb):
     """Plain version of docodo_merge_tagged: one stable sort on the
     packed key coord << 2 | tag (tag 0 = word A, 1 = word B, 2 =
     padding), the pages riding along."""
-    lane = torch.arange(a.shape[1], device=a.device)[None, :]
-    ia = lane < na[:, None]
-    ib = lane < nb[:, None]
-    vals = torch.cat([torch.where(ia, a, INF32), torch.where(ib, b, INF32)],
-                     dim=1)
-    tag = torch.cat([torch.where(ia, 0, 2), torch.where(ib, 1, 2)],
-                    dim=1).to(torch.int32)
-    order = torch.sort((vals.long() << 2) | tag, dim=1, stable=True).indices
+    av, bv = variant_blocks(a, na), variant_blocks(b, nb)
+    vals = torch.cat([av, bv], dim=1)
+    tag = torch.cat([torch.where(av < INF32, 0, 2),
+                     torch.where(bv < INF32, 1, 2)], dim=1).to(torch.int32)
     pg = None
     if a_pg is not None:
-        pg = torch.gather(torch.cat([a_pg, b_pg], dim=1), 1, order)
-    return torch.gather(vals, 1, order), torch.gather(tag, 1, order), pg
+        pg = torch.cat([a_pg.reshape(av.shape), b_pg.reshape(bv.shape)],
+                       dim=1)
+    return sort_tagged(vals, tag, pg)
 
 
 def _merge_tagged_kernel(a, a_pg, na, b, b_pg, nb):
-    rows, cap = a.shape
-    for name, t in (("a", a), ("b", b), ("a_pg", a_pg), ("b_pg", b_pg)):
-        if t is not None:
-            _cuda.check(t, name, torch.int32, (rows, cap))
-    _cuda.check(na, "na", torch.int32, (rows,))
-    _cuda.check(nb, "nb", torch.int32, (rows,))
+    rows, va, cap_a = a.shape
+    _, vb, cap_b = b.shape
+    if va + vb > 65535:
+        raise ValueError(f"docodo_merge_tagged: {va} + {vb} blocks")
+    _check_blocks(rows, [("a", a, va, cap_a), ("a_pg", a_pg, va, cap_a),
+                         ("b", b, vb, cap_b), ("b_pg", b_pg, vb, cap_b)])
+    _cuda.check(na, "na", torch.int32, (rows, va))
+    _cuda.check(nb, "nb", torch.int32, (rows, vb))
     dev = a.device
-    vals = torch.empty((rows, 2 * cap), dtype=torch.int32, device=dev)
+    vals = torch.empty((rows, va * cap_a + vb * cap_b), dtype=torch.int32,
+                       device=dev)
     tag = torch.empty_like(vals)
     pg = None if a_pg is None else torch.empty_like(vals)
-    _cuda.MERGE_TAGGED.launch(dev, a, a_pg, na, b, b_pg, nb, rows, cap,
-                              vals, tag, pg)
+    _cuda.MERGE_TAGGED.launch(dev, a, a_pg, na, b, b_pg, nb, rows, va, cap_a,
+                              vb, cap_b, vals, tag, pg)
     return vals, tag, pg
 
 
+def _as_blocks(x):
+    """A [B, cap] block (or [B] lengths) as one variant block."""
+    return None if x is None else x.unsqueeze(1)
+
+
 def _merge_tagged_call(core, a, na, b, nb, a_pg, b_pg):
-    if b.shape != a.shape or (a_pg is None) != (b_pg is None):
-        raise ValueError("merge_tagged takes equal-shape blocks and both "
+    if a.dim() == 2:
+        a, na, a_pg = _as_blocks(a), _as_blocks(na), _as_blocks(a_pg)
+    if b is None:
+        b = a.new_empty((a.shape[0], 0, 1))
+        nb = na.new_empty((a.shape[0], 0))
+        b_pg = None if a_pg is None else b
+    elif b.dim() == 2:
+        b, nb, b_pg = _as_blocks(b), _as_blocks(nb), _as_blocks(b_pg)
+    if (a_pg is None) != (b_pg is None) or a.shape[0] != b.shape[0]:
+        raise ValueError("merge_tagged takes blocks of one batch and both "
                          "page streams or neither")
     return core(a, a_pg, na, b, b_pg, nb)
 
 
 def merge_tagged(a, na, b, nb, a_pg=None, b_pg=None):
-    """Merge two [B, cap] ascending posting blocks (lengths na / nb) into
-    one [B, 2 cap] stream in (coord, tag) order: (vals INF32-padded,
-    tag 0 / 1 / 2 for word A / word B / padding, pages or None). Pages
-    at padding lanes are unspecified."""
+    """Merge ascending posting blocks into one stream in (coord, tag)
+    order: word A's blocks a [B, Va, cap_a] (lengths na [B, Va]), or one
+    block a [B, cap_a] (na [B]), and word B's likewise, or None for no
+    word B. Equal (coord, tag) lanes keep block order. Returns (vals
+    [B, Va cap_a + Vb cap_b] INF32-padded, tag 0 / 1 / 2 for word A /
+    word B / padding, pages or None). Pages at padding lanes are
+    unspecified."""
     return _merge_tagged_call(
         lambda *x: _on_device(_merge_tagged_kernel, _merge_tagged_plain, *x),
         a, na, b, nb, a_pg, b_pg)
@@ -378,28 +544,117 @@ def _and_keep_plain(vals, tag, ra, rb):
     return torch.where(keep, vals, INF32)
 
 
-def _and_keep_kernel(vals, tag, ra, rb):
+def _compact_kept(hv, pg):
+    """A kept stream's values (and pages) moved to the front in order,
+    INF32 after them, and their count."""
+    keep = hv < INF32
+    n = hv.shape[1]
+    slot = torch.where(keep, torch.cumsum(keep, dim=1) - 1, n)
+
+    def put(x):
+        out = torch.full((hv.shape[0], n + 1), INF32, dtype=torch.int32,
+                         device=hv.device)
+        return out.scatter(1, slot, x)[:, :n]
+    return (put(hv), None if pg is None else put(pg),
+            keep.sum(dim=1, dtype=torch.int32))
+
+
+def _keep_launch(kernel, vals, tag, ra, rb, bpad, pg, compact: bool):
+    """Launch docodo_and_keep or docodo_variants_keep: the kept stream
+    hv, or with `compact` (cvals, cpages or None, count)."""
     rows, n = vals.shape
     _cuda.check(vals, "vals", torch.int32, (rows, n))
     _cuda.check(tag, "tag", torch.int32, (rows, n))
-    _cuda.check(ra, "ra", torch.int32, (rows,))
-    _cuda.check(rb, "rb", torch.int32, (rows,))
+    for name, t in (("ra", ra), ("rb", rb), ("bpad", bpad)):
+        if t is not None:
+            _cuda.check(t, name, torch.int32, (rows,))
+    if pg is not None:
+        _cuda.check(pg, "pg", torch.int32, (rows, n))
+    dev = vals.device
     hv = torch.empty_like(vals)
-    seg = torch.empty((rows, n + 1, 2), dtype=torch.int32, device=vals.device)
-    _cuda.AND_KEEP.launch(vals.device, vals, tag, ra, rb, rows, n, hv, seg)
-    return hv
+    seg = torch.empty((rows, n + 1, 2), dtype=torch.int32, device=dev)
+    cvals = cpg = count = None
+    if compact:
+        cvals = torch.empty_like(vals)
+        cpg = None if pg is None else torch.empty_like(vals)
+        count = torch.empty((rows,), dtype=torch.int32, device=dev)
+    args = (vals, tag, ra, rb) + ((bpad,) if kernel is _cuda.VARIANTS_KEEP
+                                  else ())
+    kernel.launch(dev, *args, pg, rows, n, hv, seg, cvals, cpg, count)
+    return (cvals, cpg, count) if compact else hv
+
+
+def _and_keep_kernel(vals, tag, ra, rb):
+    return _keep_launch(_cuda.AND_KEEP, vals, tag, ra, rb, None, None, False)
 
 
 def and_keep(vals, tag, ra, rb):
     """Proximity-AND over a merged tagged stream [B, n] of any width with
     the words' windows ra / rb [B] (pallas_chunked_and): the kept stream,
-    the value at kept lanes and INF32 elsewhere."""
+    the value at kept lanes and INF32 elsewhere. Runs of equal
+    coordinates must be at most two lanes long (one lane of each
+    word)."""
     return _on_device(_and_keep_kernel, _and_keep_plain, vals, tag, ra, rb)
 
 
 def and_keep_plain(vals, tag, ra, rb):
     """and_keep through its plain version, on any device."""
     return _and_keep_plain(vals, tag, ra, rb)
+
+
+def _and_keep_compact_plain(vals, tag, ra, rb, pg):
+    """Plain version of and_keep_compact."""
+    return _compact_kept(_and_keep_plain(vals, tag, ra, rb), pg)
+
+
+def _and_keep_compact_kernel(vals, tag, ra, rb, pg):
+    return _keep_launch(_cuda.AND_KEEP, vals, tag, ra, rb, None, pg, True)
+
+
+def and_keep_compact(vals, tag, ra, rb, pg=None):
+    """and_keep with its kept values compacted, as a step of a W >= 3
+    fold feeds them to the next merge: (cvals [B, n] ascending, INF32
+    after the kept ones; their pages from pg [B, n] or None; count [B]).
+    The same kernel as and_keep, writing the compacted stream in its
+    second sweep."""
+    return _on_device(_and_keep_compact_kernel, _and_keep_compact_plain,
+                      vals, tag, ra, rb, pg)
+
+
+def and_keep_compact_plain(vals, tag, ra, rb, pg=None):
+    """and_keep_compact through its plain version, on any device."""
+    return _and_keep_compact_plain(vals, tag, ra, rb, pg)
+
+
+# ---------------------------------------------------------------------------
+# kernel G: the variants AND's kept stream, any width
+# ---------------------------------------------------------------------------
+
+def _variants_keep_plain(vals, tag, ra, rb, bpad):
+    """Plain version of docodo_variants_keep: and_variants_sorted's keep
+    over the already merged stream."""
+    keep = variants_keep_mask(vals, tag, ra, rb, bpad != 0)
+    return torch.where(keep, vals, INF32)
+
+
+def _variants_keep_kernel(vals, tag, ra, rb, bpad):
+    return _keep_launch(_cuda.VARIANTS_KEEP, vals, tag, ra, rb, bpad, None,
+                        False)
+
+
+def variants_keep(vals, tag, ra, rb, bpad):
+    """Proximity-AND of two variant ORs over their merged (coord, tag)
+    stream [B, n] of any width (pallas_chunked_variants_and): each run
+    of equal coordinates folds onto its first lane with every word of
+    the run; rows with bpad [B] keep the run starts (word A's union).
+    Returns the kept stream, INF32 at dropped lanes."""
+    return _on_device(_variants_keep_kernel, _variants_keep_plain, vals, tag,
+                      ra, rb, bpad.to(torch.int32))
+
+
+def variants_keep_plain(vals, tag, ra, rb, bpad):
+    """variants_keep through its plain version, on any device."""
+    return _variants_keep_plain(vals, tag, ra, rb, bpad.to(torch.int32))
 
 
 def _locate_runs_plain(hv, pg, bounds, kpad, hpad):

@@ -1,5 +1,6 @@
 """Posting algebra on batched torch tensors: the twin of
-docodo_tpu/ops/seqops.py for the full-result slice (W <= 2, V = 1).
+docodo_tpu/ops/seqops.py for the full-result path (AND folds of any
+width, variant ORs).
 
 Every function takes a batch of rows written out as the leading
 dimension (the JAX package vmaps the same functions over one row).
@@ -140,6 +141,82 @@ def and_masked(a, na, ra, b, nb, rb):
     r = combine_r(ra, rb)
     vals, isa, isb, ghost, valid = merge_sorted_tagged(a, na, b, nb)
     return vals, segment_and(vals, isa, isb, ghost, valid, r), r
+
+
+def or_masked(a, na, b, nb):
+    """OR-merge without compaction (seqops.py:421): (vals ascending,
+    keep), cross-operand duplicates kept once."""
+    vals, _, _, ghost, valid = merge_sorted_tagged(a, na, b, nb)
+    return vals, valid & ~ghost
+
+
+def compact(vals, keep):
+    """Kept values to the front, ascending, INF32 after them, and their
+    count (seqops._compact without out_cap)."""
+    out = torch.sort(torch.where(keep, vals, INF32), dim=1).values
+    return out, keep.sum(dim=1, dtype=torch.int32)
+
+
+def sort_tagged(vals, tag, page=None):
+    """A stable sort of [B, n] lanes on the packed key coord << 2 | tag
+    (tag 0 = word A, 1 = word B, 2 = padding): the (coord, tag) order
+    of the JAX package's two-key lax.sort, pages riding along."""
+    order = torch.sort((vals.long() << 2) | tag, dim=1, stable=True).indices
+    page = None if page is None else torch.gather(page, 1, order)
+    return torch.gather(vals, 1, order), torch.gather(tag, 1, order), page
+
+
+def variant_blocks(a, na):
+    """[B, V, cap] variant posting blocks, INF32 past their lengths
+    na [B, V], flattened to [B, V cap]."""
+    lane = torch.arange(a.shape[2], device=a.device)
+    live = lane[None, None, :] < na[:, :, None]
+    return torch.where(live, a, INF32).reshape(a.shape[0], -1)
+
+
+def run_marks(vals, tag):
+    """Run-dedupe of a (coord, tag)-ordered variant stream
+    (seqops.py:376-386): each run of equal valid coordinates folds onto
+    its first lane, which carries every word tag of the run. Returns
+    (isa, isb, ghost, valid, run_start)."""
+    valid = vals < INF32
+    run_start = valid & (vals != _shift_right(vals, -1))
+    terminal = _shift_left(run_start | ~valid, True)
+    isa = run_start & span_contains((tag == 0) & valid, run_start, terminal)
+    isb = run_start & span_contains((tag == 1) & valid, run_start, terminal)
+    return isa, isb, valid & ~run_start, valid, run_start
+
+
+def variants_keep_mask(vals, tag, ra, rb, bpad):
+    """The keep mask of and_variants_sorted over an already merged
+    stream (seqops.py:342): run-dedupe, then the AND's segmentation;
+    rows with bpad (word B is query padding) keep word A's union, the
+    run starts."""
+    isa, isb, ghost, valid, run_start = run_marks(vals, tag)
+    keep = segment_and(vals, isa, isb, ghost, valid, combine_r(ra, rb))
+    return torch.where(bpad[:, None], run_start, keep)
+
+
+def and_variants_sorted(sa, na, ra, sb, nb, rb, bpad):
+    """Proximity-AND of two variant-OR words in one merge
+    (seqops.py:342): sa [B, Va, cap] / sb [B, Vb, cap] variant blocks
+    with lengths na / nb, windows ra / rb [B], bpad [B] bool. Returns
+    (vals [B, (Va + Vb) cap] ascending, keep, r)."""
+    av, bv = variant_blocks(sa, na), variant_blocks(sb, nb)
+    vals = torch.cat([av, bv], dim=1)
+    tag = torch.cat([torch.where(av < INF32, 0, 2),
+                     torch.where(bv < INF32, 1, 2)], dim=1)
+    vals, tag, _ = sort_tagged(vals, tag)
+    keep = variants_keep_mask(vals, tag, ra, rb, bpad)
+    return vals, keep, torch.where(bpad, ra, combine_r(ra, rb))
+
+
+def or_variants_sorted(streams, ns):
+    """Union of one word's V variant blocks [B, V, cap] (seqops.py:395):
+    (vals [B, V cap] ascending, keep = each run's first lane)."""
+    vals = torch.sort(variant_blocks(streams, ns), dim=1).values
+    keep = (vals < INF32) & (vals != _shift_right(vals, -1))
+    return vals, keep
 
 
 def locate_compact(vals, keep, page, kpad: int, hpad: int):

@@ -1,6 +1,7 @@
-"""The host proximity-AND oracle: a copy of docodo_tpu/core/postings.py's
-group_and and its helpers (ref Docodo.NET/IndexSequence.cs:205-322), for
-checking the port's results without the JAX package.
+"""The host posting oracle: copies of docodo_tpu/core/postings.py's
+group_and, or_merge and their helpers (ref Docodo.NET/IndexSequence.cs
+:205-322), and the wide-row fold of tests/test_wide_mix.py, for checking
+the port's results without the JAX package.
 
 AND (proximity with grouping window): the window is max(|R1|, |R2|),
 ordered (R < 0) iff both operands are; the merged coordinates cut into
@@ -98,3 +99,39 @@ def group_and(a: np.ndarray, b: np.ndarray, r1: int, r2: int):
     keep = (seg_a & seg_b)[seg_id]
     out = np.repeat(vals[keep], mult[keep])
     return out.astype(np.uint64), r
+
+
+def or_merge(a: np.ndarray, b: np.ndarray, r1: int, r2: int):
+    """OR-merge of two ascending coordinate arrays (dedupe across operands)."""
+    r = _combine_r(r1, r2)
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    if a.size == 0:
+        return b.copy(), r
+    if b.size == 0:
+        return a.copy(), r
+    av, ac = _rle(a)
+    bv, bc = _rle(b)
+    vals = np.unique(np.concatenate([av, bv]))
+    ca = _aligned_counts(vals, av, ac)
+    cb = _aligned_counts(vals, bv, bc)
+    out = np.repeat(vals, np.maximum(ca, cb))
+    return out.astype(np.uint64), r
+
+
+def fold_row(words, rs):
+    """One query row on the host (tests/test_wide_mix.py:51-70): each
+    word's variants OR-merged in order, then the proximity-AND left fold
+    of the words (ref Search.cs:501). words: per word the list of its
+    variants' ascending coordinate arrays; rs: the words' windows.
+    Returns the kept coordinates, ascending."""
+    acc, r_acc = None, 0
+    for variants, r in zip(words, rs):
+        b = np.asarray(variants[0], dtype=np.uint64)
+        for nxt in variants[1:]:
+            b, _ = or_merge(b, nxt, 1, 1)
+        if acc is None:
+            acc, r_acc = b, int(r)
+        else:
+            acc, r_acc = group_and(acc, b, r_acc, int(r))
+    return acc

@@ -148,3 +148,100 @@ def test_chunked_kernels_match_plain_on_card(cuda_device, cap, paged):
     torch.cuda.synchronize()
     _assert_fields_equal(got, qk.locate_runs_plain(hv, x["bounds"], **kw))
     assert int(got[3].max()) > 16
+
+
+def _variant_blocks(rng, bsz, va, vb, cap, dev, spacing=12):
+    """Two words' variant blocks per row from one per-row pool (shared
+    coordinates within and across words), ragged lengths, word B empty
+    and flagged bpad on every fifth row, both window signs, pages."""
+    pool = np.cumsum(rng.integers(1, spacing, size=(bsz, 2 * cap)), axis=1)
+
+    def blocks(v):
+        pick = np.sort(np.argsort(rng.random((bsz, v, 2 * cap)), axis=2)
+                       [:, :, :cap], axis=2)
+        x = np.take_along_axis(pool[:, None, :], pick, axis=2)
+        n = rng.integers(0, cap + 1, (bsz, v)).astype(np.int32)
+        n[::3] = cap
+        return x.astype(np.int32), n
+
+    a, na = blocks(va)
+    b, nb = blocks(vb)
+    bpad = np.arange(bsz) % 5 == 3
+    nb[bpad] = 0
+    c = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    ra = np.where(np.arange(bsz) % 2 == 0, 60, -9).astype(np.int32)
+    rb = np.where(np.arange(bsz) % 2 == 0, 45, -10).astype(np.int32)
+    bounds = np.arange(37, int(pool.max()) + 38, 37, dtype=np.int32)
+    pg = lambda x: np.minimum(np.searchsorted(bounds, x, side="right"),
+                              bounds.size - 1).astype(np.int32)
+    return dict(a=c(a), na=c(na), b=c(b), nb=c(nb), ra=c(ra), rb=c(rb),
+                bpad=c(bpad), bounds=c(bounds), a_pg=c(pg(a)),
+                b_pg=c(pg(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("va,vb,cap,carried", [
+    (2, 2, 128, True), (4, 4, 128, False), (1, 4, 64, True)])
+def test_variants_and_locate_full_matches_plain_on_card(cuda_device, va, vb,
+                                                        cap, carried):
+    x = _variant_blocks(np.random.default_rng(cap + va), 512, va, vb, cap,
+                        cuda_device)
+    args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bpad"],
+            x["bounds"])
+    kw = dict(topk=16, hit_cap=1024, tail=False)
+    if carried:
+        kw.update(a_pg=x["a_pg"], b_pg=x["b_pg"])
+    got = qk.variants_and_locate_full(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_fields_equal(got, qk.variants_and_locate_full_plain(*args, **kw))
+    assert int(got[3].max()) > 16 and int(got[4].min()) >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,cap", [(2, 512), (4, 256), (8, 128)])
+def test_union_merge_locate_full_matches_plain_on_card(cuda_device, v, cap):
+    x = _variant_blocks(np.random.default_rng(v), 512, v, 1, cap,
+                        cuda_device)
+    kw = dict(topk=16, hit_cap=1024, tail=False, a_pg=x["a_pg"])
+    got = qk.union_merge_locate_full(x["a"], x["na"], x["bounds"], **kw)
+    torch.cuda.synchronize()
+    _assert_fields_equal(got, qk.union_merge_locate_full_plain(
+        x["a"], x["na"], x["bounds"], **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("va,vb,cap", [(2, 2, 512), (4, 4, 4096),
+                                       (8, 0, 256)])
+def test_variants_merge_and_keep_match_plain_on_card(cuda_device, va, vb,
+                                                     cap):
+    """merge_tagged over variant blocks, then variants_keep, each
+    against its plain version; vb = 0 is a word's union alone."""
+    x = _variant_blocks(np.random.default_rng(va * cap), 64, va, max(vb, 1),
+                        cap, cuda_device, spacing=4)
+    b, nb, b_pg = ((x["b"], x["nb"], x["b_pg"]) if vb
+                   else (None, None, None))
+    vals, tag, pg = qk.merge_tagged(x["a"], x["na"], b, nb, x["a_pg"], b_pg)
+    torch.cuda.synchronize()
+    wv, wt, wp = qk.merge_tagged_plain(x["a"], x["na"], b, nb, x["a_pg"],
+                                       b_pg)
+    live = wv < INF32
+    assert torch.equal(vals, wv) and torch.equal(tag, wt)
+    assert torch.equal(pg[live], wp[live])
+    bpad = x["bpad"] if vb else torch.ones_like(x["bpad"])
+    hv = qk.variants_keep(vals, tag, x["ra"], x["rb"], bpad)
+    torch.cuda.synchronize()
+    assert torch.equal(hv, qk.variants_keep_plain(vals, tag, x["ra"],
+                                                  x["rb"], bpad))
+    assert int((hv < INF32).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_and_keep_compact_matches_plain_on_card(cuda_device):
+    x = _merged(np.random.default_rng(5), 128, 2048, cuda_device)
+    vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"],
+                                    x["a_pg"], x["b_pg"])
+    got = qk.and_keep_compact(vals, tag, x["ra"], x["rb"], pg)
+    torch.cuda.synchronize()
+    want = qk.and_keep_compact_plain(vals, tag, x["ra"], x["rb"], pg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(got[2].max()) > 0

@@ -202,9 +202,46 @@ def test_kernel_admission_matches_the_jax_rules(indexes):
 
 
 def test_wide_queries_raise_not_implemented(indexes):
-    _, _, tdx = indexes
-    words = tdx.terms[100:103]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdx.search_batch_full([[(w, 260) for w in words]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdx.search_batch_full([[(tuple(words[:2]), 260)]])
+    """The two shapes the port once refused, three words and a word of
+    two variants, now equal the JAX package's search_batch_full on the
+    kernel route (the kernels' plain versions here) and the plain
+    route."""
+    _, jdx, tdx = indexes
+    counts = np.diff(tdx.offsets_np)
+    words = [tdx.terms[t] for t in np.argsort(-counts, kind="stable")[:3]]
+    queries = [[(w, 260) for w in words], [(tuple(words[:2]), 260)]]
+    want = jdx.search_batch_full(queries, use_pallas=False)
+    for use_kernels in (True, False):
+        got = tdx.search_batch_full(queries, use_kernels=use_kernels)
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            if k in ("ranks", "doc_ranks"):
+                assert f32_ulps(got[k], w) <= 2, k
+            else:
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert (want["n_hits"] > 0).all()
+
+
+def test_multiword_variant_folds_match_jax(indexes):
+    """W >= 3 with variant ORs, which no kernel takes in either package:
+    the plain route's fold of per-word variant unions against the JAX
+    package's, on both of the port's routes."""
+    _, jdx, tdx = indexes
+    counts = np.diff(tdx.offsets_np)
+    top = [tdx.terms[t] for t in np.argsort(-counts, kind="stable")[:10]]
+    queries = [
+        [(tuple(top[:2]), 262), (top[2], 260), (tuple(top[3:6]), 263)],
+        [(top[0], 280), (tuple(top[6:8]), 290), (top[8], 280),
+         (tuple(top[1:3]), 300)],
+        [(top[0], -9), (tuple(top[6:8]), -10), (top[8], -9)],
+        [(tuple(top[4:6]), 300), ("nosuchword", 300), (top[9], 300)],
+    ]
+    want = jdx.search_batch_full(queries, use_pallas=False)
+    for use_kernels in (True, False):
+        got = tdx.search_batch_full(queries, use_kernels=use_kernels)
+        for k, w in want.items():
+            if k in ("ranks", "doc_ranks"):
+                assert f32_ulps(got[k], w) <= 2, k
+            else:
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert (want["n_hits"][:2] > 0).all()

@@ -1,15 +1,17 @@
 """The port's host build and its copies of the JAX package's host modules
 against their originals: the index build against docodo_tpu.Index
 (staged state array for array), the tokenizer, the stemmers and the word
-coder, the standard query mix and the group_and oracle. Every input is
-seeded; every comparison is exact."""
+coder, the standard and wide query mixes and the group_and / or_merge
+oracle. Every input is seeded; every comparison is exact."""
 
 import numpy as np
 import pytest
 
 import docodo_tpu
 from benchmarks.common import standard_mix as jax_standard_mix
+from benchmarks.common import wide_mix as jax_wide_mix
 from docodo_tpu.core.postings import group_and as jax_group_and
+from docodo_tpu.core.postings import or_merge as jax_or_merge
 from docodo_tpu.lang import stemmers as jax_stemmers
 from docodo_tpu.lang import tokenizer as jax_tokenizer
 from docodo_tpu.lang.wordcodes import WordCoder as JaxWordCoder
@@ -17,9 +19,9 @@ from docodo_tpu.native import pipeline as npipe
 from docodo_tpu.sources.base import ListDataSource as JaxListDataSource
 from docodo_tpu_torch.index import IndexPage, ListDataSource, build_index
 from docodo_tpu_torch.lang import stemmers, tokenizer, wordcodes
-from docodo_tpu_torch.mix import standard_mix
+from docodo_tpu_torch.mix import standard_mix, wide_mix
 from docodo_tpu_torch.ops.device_index import DeviceIndex
-from docodo_tpu_torch.oracle import group_and
+from docodo_tpu_torch.oracle import fold_row, group_and, or_merge
 from docodo_tpu_torch.synthetic import zipf_documents
 
 ALPHABETS = {
@@ -181,3 +183,45 @@ def test_group_and_copy_matches(rng, r1, r2):
         want, want_r = jax_group_and(a, b, r1, r2)
         assert got_r == want_r and got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,seed", [(300, 77), (40, 5)])
+def test_wide_mix_copy_matches(rng, n, seed):
+    counts = rng.integers(0, 50, 2000)
+    names = [f"w{i:04d}" + "x" * int(rng.integers(0, 6))
+             for i in range(2000)]
+    got = wide_mix(counts, names, n, seed=seed)
+    want = jax_wide_mix(counts, names, n, seed=seed)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_or_merge_copy_matches(rng):
+    for _ in range(40):
+        a = np.sort(rng.integers(0, 3000, int(rng.integers(0, 200))))
+        b = np.sort(rng.integers(0, 3000, int(rng.integers(0, 200))))
+        got, got_r = or_merge(a, b, 1, -4)
+        want, want_r = jax_or_merge(a, b, 1, -4)
+        assert got_r == want_r and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_fold_row_matches_the_wide_row_fold(rng):
+    """fold_row against tests/test_wide_mix.py's host fold, written out
+    with the JAX package's or_merge and group_and."""
+    for _ in range(30):
+        w = int(rng.integers(1, 5))
+        words = [[np.sort(rng.integers(0, 4000, int(rng.integers(0, 300))))
+                  for _ in range(int(rng.integers(1, 4)))] for _ in range(w)]
+        rs = rng.choice([-9, 12, 40, 260], w)
+        acc, r_acc = None, 0
+        for variants, r in zip(words, rs):
+            b = variants[0].astype(np.uint64)
+            for nxt in variants[1:]:
+                b, _ = jax_or_merge(b, nxt, 1, 1)
+            if acc is None:
+                acc, r_acc = b, int(r)
+            else:
+                acc, r_acc = jax_group_and(acc, b, r_acc, int(r))
+        np.testing.assert_array_equal(fold_row(words, rs), acc)

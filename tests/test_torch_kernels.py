@@ -139,11 +139,23 @@ def test_union_locate_full_matches_pallas(rng, cap, hit_cap, tail, pages):
     assert_outputs_equal(got, want, f"cap {cap}")
 
 
-def test_union_rejects_variants():
-    a = torch.zeros((8, 2, 256), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qk.union_locate_full(a, torch.zeros((8, 2), dtype=torch.int32),
-                             T(BOUNDS), topk=8, hit_cap=64)
+def test_union_rejects_variants(rng):
+    """union_locate_full once refused V > 1; it now serves V = 2 (the
+    carried in-kernel merge route of pallas_union_locate_full) and V = 4
+    (its sort route) equal to the Pallas function."""
+    bsz, topk, hit_cap = 16, 8, 200
+    for v, cap in ((2, 256), (4, 128)):
+        pairs = [_random_batch(rng, bsz, cap) for _ in range(v // 2)]
+        a = np.stack([x for p in pairs for x in (p[0], p[3])], axis=1)
+        na = np.stack([x for p in pairs for x in (p[1], p[4])], axis=1)
+        apg = _pages(a, BOUNDS)
+        want = pq.pallas_union_locate_full(
+            J(a), J(na), J(BOUNDS), topk=topk, hit_cap=hit_cap,
+            interpret=True, sort_topk=True, a_pg=J(apg), tail=False)
+        got = qk.union_locate_full(T(a), T(na), T(BOUNDS), topk=topk,
+                                   hit_cap=hit_cap, a_pg=T(apg), tail=False)
+        assert_outputs_equal(got, want, f"V {v}")
+        assert (np.asarray(got[3]) > topk).any()
 
 
 def test_wrappers_refuse_other_devices():

@@ -181,16 +181,16 @@ def test_plain_route_equals_jax(corpus):
 
 
 def test_port_imports_no_jax():
-    """The port's host build, the search, and chip_smoke's CPU-runnable
-    helpers (the mix, the oracle) run without loading jax, the JAX
-    package or the benchmarks."""
+    """The port's host build, the search (standard and wide rows), and
+    chip_smoke's CPU-runnable helpers (the mixes, the oracles) run
+    without loading jax, the JAX package or the benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import chip_smoke
         from docodo_tpu_torch import DeviceIndex
-        from docodo_tpu_torch.mix import standard_mix
-        from docodo_tpu_torch.oracle import group_and
+        from docodo_tpu_torch.mix import mix_queries, standard_mix, wide_mix
+        from docodo_tpu_torch.oracle import fold_row, group_and
         from docodo_tpu_torch.synthetic import build_index, zipf_documents
         ind = build_index(zipf_documents(60_000, seed=1, vocab=800))
         dix = DeviceIndex.from_index(ind, device="cpu")
@@ -203,6 +203,14 @@ def test_port_imports_no_jax():
         assert terms.shape == (30, 2)
         a = dix.coords[dix.offsets_np[10]:dix.offsets_np[11]].numpy()
         group_and(a, a, 5, 5)
+        wt, wr, _ = wide_mix(np.diff(dix.offsets_np), dix.terms, 21)
+        wide = mix_queries(wt, wr, dix.terms)
+        out = dix.search_batch_full(wide, use_kernels=True)
+        c, off = dix.coords.numpy(), dix.offsets_np
+        for i in (0, 4, 5):
+            words = [[c[off[t]:off[t + 1]] for t in vs if t >= 0]
+                     for vs in wt[i] if vs[0] >= 0]
+            assert out["n_hits"][i] == fold_row(words, wr[i]).size
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
         assert not loaded, loaded

@@ -1,9 +1,11 @@
 """Where the time of one full-result batch goes: docodo_tpu_torch's
-search_batch_full over the standard 10k mix on a seeded Zipf corpus (the
-corpus and mix of chip_smoke.py), on the kernel route and the plain
-route.
+search_batch_full over the standard 10k mix or the wide 10k mix
+(benchmarks/common.wide_mix, seed 77, as bench.py serves it) on a seeded
+Zipf corpus (the corpus and mixes of chip_smoke.py), on the kernel route
+and the plain route.
 
-    python3 tools/profile_batch.py [--corpus-mb 64] [--seed 0] [--out FILE]
+    python3 tools/profile_batch.py [--mix standard|wide] [--corpus-mb 64]
+                                   [--seed 0] [--out FILE]
 
 Prints, per route:
   - the whole batch and its phases over RUNS warm runs, the routes
@@ -11,9 +13,9 @@ Prints, per route:
     (query compile and bucket arrays), dispatch (every bucket enqueued),
     drain (the device finishing after dispatch), readback (device to
     numpy and the scatter into the result);
-  - each bucket alone with a synchronise around it: cap, words, rows,
-    the route that served it (a slot kernel, the chunked kernels or the
-    plain route), ms;
+  - each bucket alone with a synchronise around it: cap, words,
+    variants, rows, the route that served it (a slot kernel, the chunked
+    kernels or the plain route), ms;
   - one batch under torch.profiler: device time, profiled wall, busy
     share, the largest device items and each CUDA kernel's device time.
 The phase split synchronises once, after dispatch, so a batch reads a
@@ -38,7 +40,11 @@ from torch.autograd import DeviceType
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from docodo_tpu_torch.mix import standard_mix  # noqa: E402
+from docodo_tpu_torch.mix import (  # noqa: E402
+    mix_queries,
+    standard_mix,
+    wide_mix,
+)
 from docodo_tpu_torch.ops import device_index as tdi  # noqa: E402
 from docodo_tpu_torch.synthetic import build_index, zipf_documents  # noqa: E402
 
@@ -47,10 +53,18 @@ HIT_CAP = 1024
 N_QUERIES = 10_000
 RUNS = 5
 ROUTES = {"kernel": True, "plain": False}
-# the CUDA kernels' function names, less their _kernel suffix
-KERNEL_NAMES = ("sorted_and_locate_full", "single_locate_full",
-                "union_locate_full", "merge_and_locate_topk", "merge_tagged",
-                "and_keep", "locate_runs")
+# each CUDA kernel's name in the profiler's device events
+KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
+                "single_locate_full": "single_locate_full_kernel",
+                "union_locate_full": "union_locate_full_kernel",
+                "merge_and_locate_topk": "merge_and_locate_topk_kernel",
+                "merge_tagged": "merge_tagged_kernel",
+                "and_keep": "keep_kernel<false>",
+                "locate_runs": "locate_runs_kernel",
+                "variants_and_locate_full": "variants_and_locate_full_kernel",
+                "union_merge_locate_full": "union_merge_locate_full_kernel",
+                "variants_keep": "keep_kernel<true>"}
+WIDE_SEED = 77  # bench.py:353
 
 
 def card() -> str:
@@ -112,6 +126,7 @@ def bucket_times(dix, queries, use_kernels: bool) -> list:
         route = ("plain" if not isinstance(out, tdi.PreFull)
                  else "chunked" if any(chunked) else "slot")
         rows.append({"cap": k["cap"], "words": int(tq.shape[1]),
+                     "variants": int(tq.shape[2]) if tq.dim() == 3 else 1,
                      "rows": int(tq.shape[0]), "route": route,
                      "ms": (time.perf_counter() - t0) * 1e3})
         return out
@@ -149,8 +164,8 @@ def profiled_batch(dix, queries, use_kernels: bool, top: int = 8) -> dict:
                     if e.device_type != DeviceType.CPU and dev_us(e) > 0),
                    reverse=True)
     device_ms = sum(us for us, _, _ in items) / 1e3
-    kernels = {name: sum(us for us, _, k in items if f"{name}_kernel" in k)
-               / 1e3 for name in KERNEL_NAMES}
+    kernels = {name: sum(us for us, _, k in items if fn in k) / 1e3
+               for name, fn in KERNEL_NAMES.items()}
     return {"device_ms": device_ms, "wall_ms": wall,
             "busy_share": device_ms / wall,
             "top": [{"name": k[:80], "calls": n, "ms": us / 1e3}
@@ -167,6 +182,8 @@ def summarize(runs: list) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mix", choices=("standard", "wide"),
+                    default="standard")
     ap.add_argument("--corpus-mb", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
@@ -178,15 +195,17 @@ def main() -> None:
     docs = zipf_documents(int(args.corpus_mb * 1e6), seed=args.seed)
     dix = tdi.DeviceIndex.from_index(build_index(docs))
     counts = np.diff(dix.offsets_np)
-    terms, rs = standard_mix(counts, dix.terms, N_QUERIES)
-    queries = [[(dix.terms[t[j]], int(r[j])) for j in range(2) if t[j] >= 0]
-               for t, r in zip(terms, rs)]
+    if args.mix == "wide":
+        terms, rs, _ = wide_mix(counts, dix.terms, N_QUERIES, seed=WIDE_SEED)
+    else:
+        terms, rs = standard_mix(counts, dix.terms, N_QUERIES)
+    queries = mix_queries(terms, rs, dix.terms)
     print(f"{args.corpus_mb:g} MB seed {args.seed}: {dix.bounds.numel()} "
-          f"pages, {dix.coords.numel()} postings, {len(queries)} queries; "
-          f"{smi}", flush=True)
+          f"pages, {dix.coords.numel()} postings, {args.mix} mix of "
+          f"{len(queries)} queries; {smi}", flush=True)
 
-    report = {"card": smi, "corpus_mb": args.corpus_mb, "seed": args.seed,
-              "runs": RUNS, "routes": {}}
+    report = {"card": smi, "mix": args.mix, "corpus_mb": args.corpus_mb,
+              "seed": args.seed, "runs": RUNS, "routes": {}}
     for use in ROUTES.values():  # warm both routes
         dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
                               use_kernels=use)
@@ -205,7 +224,8 @@ def main() -> None:
             print(f"  {key:9s} median {v['median']:9.3f} ms "
                   f"(min {v['min']:.3f}, max {v['max']:.3f})")
         for b in rep["buckets"]:
-            print(f"  bucket cap {b['cap']:8d} W={b['words']} rows "
+            print(f"  bucket cap {b['cap']:8d} W={b['words']} "
+                  f"V={b['variants']} rows "
                   f"{b['rows']:5d} {b['route']:7s} {b['ms']:9.3f} ms")
         p = rep["profile"]
         print(f"  profiler: device {p['device_ms']:.3f} ms of "
