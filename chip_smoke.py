@@ -3,9 +3,12 @@ kernels from the checkout, holds each against its plain PyTorch version,
 builds a seeded 64 MB Zipf corpus index with the port's host build,
 serves the standard 10k query mix and the wide 10k mix (3-4-word
 phrases, variant ORs, wildcard unions, field rows) plus 1,000 `a|b`
-alternations through the kernel route and the plain route, times every
-kernel on the calls those batches make, and checks sampled results
-against an independent numpy oracle.
+alternations through the kernel route and the plain route of the
+full-result path (search_batch_full), the standard mix through both
+routes of the page-level path (search_batch, topk 16), times every
+kernel on the calls those batches make, checks sampled results against
+an independent numpy oracle, and serves words of a small Russian corpus
+built with Dict/ru.voc through their vocabulary keys.
 
     python3 chip_smoke.py [--corpus-mb 64] [--seed 0]
 
@@ -22,12 +25,14 @@ import argparse
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 TOPK = 64
 HIT_CAP = 1024
+PAGE_TOPK = 16      # bench.py:41, the page-level leg's budget
 N_QUERIES = 10_000  # the standard and the wide mix's batch
 N_ALTERNATIONS = 1_000
 WIDE_SEED = 77      # bench.py:353
@@ -39,7 +44,9 @@ OPS_PER_STEP = 4           # integer operations per binary-search step
 LOCATE_FULL = "docodo_tpu_torch/csrc/locate_full.cu"
 CHUNKED = "docodo_tpu_torch/csrc/chunked.cu"
 VARIANTS = "docodo_tpu_torch/csrc/variants.cu"
+LOCATE_TOPK = "docodo_tpu_torch/csrc/locate_topk.cu"
 PQ = "docodo_tpu/ops/pallas_query.py"
+RU_VOC = Path(__file__).resolve().parent / "Dict" / "ru.voc"
 # name -> (source, TPU kernel replaced, [(kernel core, plain core), ...]);
 # the cores are the query_kernels functions a wrapper hands its inputs to
 KERNELS = {
@@ -67,19 +74,30 @@ KERNELS = {
                                   "_union_merge_plain")]),
     "variants_keep": (CHUNKED, f"{PQ}:2071",
                       [("_variants_keep_kernel", "_variants_keep_plain")]),
+    # also the counterpart of _and_locate_kernel (pallas_query.py:133)
+    "and_locate_topk": (LOCATE_TOPK, f"{PQ}:477",
+                        [("_and_topk_kernel", "_and_topk_plain")]),
+    "single_locate_topk": (LOCATE_TOPK, f"{PQ}:200",
+                           [("_single_topk_kernel", "_single_topk_plain")]),
 }
 STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
                     "union_locate_full", "merge_and_locate_topk",
                     "merge_tagged", "and_keep", "locate_runs")
 WIDE_KERNELS = ("variants_and_locate_full", "union_merge_locate_full",
                 "variants_keep", "merge_tagged", "and_keep", "locate_runs")
+PAGE_KERNELS = ("and_locate_topk", "single_locate_topk")
+PAGE_CAPS = {"and_locate_topk": (64, 128, 256, 512),
+             "single_locate_topk": (64, 128)}
 SLOT_CAPS = {
     "sorted_and_locate_full": (64, 128, 256, 512),
     "single_locate_full": (64, 128),
     "union_locate_full": (256, 512, 1024),
 }
 SLOT_ROWS = 4096
+PAGE_WRAPPERS = {"and_locate_topk": "sorted_and_locate",
+                 "single_locate_topk": "batched_single_locate"}
 FIELDS = ("pg_c", "rk_c", "ct_c", "n_pages", "n_hits", "hits")
+PAGE_FIELDS = ("pages", "ranks", "counts")
 
 
 def say(*parts) -> None:
@@ -100,18 +118,23 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
-def same_outputs(got, want, what: str) -> float:
-    """Six-field full-result outputs: ints exact, ranks within 1 ulp.
-    Returns the largest absolute rank difference."""
-    for field, g, w in zip(FIELDS, got, want):
-        if field == "rk_c":
+def same_outputs(got, want, what: str, fields=FIELDS) -> float:
+    """A kernel's output fields (the six full-result ones, or
+    PAGE_FIELDS): shapes and dtypes equal, ints exact, ranks within
+    1 ulp. Returns the largest absolute rank difference."""
+    diff = 0.0
+    for field, g, w in zip(fields, got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what}: {field} {tuple(g.shape)} {g.dtype}")
+        if field in ("rk_c", "ranks"):
             u = ulps(g, w)
             require(u <= 1, f"{what}: ranks {u} ulp apart")
+            diff = float((g - w).abs().max()) if g.numel() else 0.0
         else:
             bad = (g != w).nonzero()
             require(bad.numel() == 0, f"{what}: {field} differs at "
                     f"{bad[:4].tolist()}")
-    return float((got[1] - want[1]).abs().max()) if got[1].numel() else 0.0
+    return diff
 
 
 def same_result(name: str, got, want, what: str) -> float:
@@ -119,6 +142,8 @@ def same_result(name: str, got, want, what: str) -> float:
     stream, a merge (pages compared at live lanes, where they are
     defined), a compacted fold operand, or the six full-result fields.
     Returns the largest absolute rank difference."""
+    if name in PAGE_KERNELS:
+        return same_outputs(got, want, what, PAGE_FIELDS)
     if isinstance(got, torch.Tensor):
         require(torch.equal(got, want), f"{what} differs")
     elif name == "merge_tagged":
@@ -180,12 +205,20 @@ def phase_build() -> None:
         say(f"  ptxas {ln}")
 
 
-def _parity_inputs(rng, rows: int, cap: int, dev):
+def _parity_inputs(rng, rows: int, cap: int, dev, spread: bool = False):
     """Seeded posting blocks at a bucket's shape: two ascending subsets
     of one per-row pool (so the operands share coordinates), lengths
     0..cap with empty and full rows, both window signs, and the pages of
-    256-char pages, so that long rows hold more runs than topk."""
-    pool = np.cumsum(rng.integers(1, 40, size=(rows, 2 * cap)), axis=1)
+    256-char pages, so that long rows hold more runs than topk. With
+    `spread`, every third row steps 200-300 chars (one hit on most
+    pages: its runs tie at rank 1.0) and every third 40-120 (runs of a
+    few hits, tying in groups)."""
+    lo, hi = 1, 40
+    if spread:
+        kind = np.arange(rows)[:, None] % 3
+        lo = np.choose(kind, [1, 200, 40])
+        hi = np.choose(kind, [40, 300, 120])
+    pool = np.cumsum(rng.integers(lo, hi, size=(rows, 2 * cap)), axis=1)
     pool += rng.integers(0, 1 << 20, size=(rows, 1))
 
     def subset():
@@ -379,6 +412,59 @@ def phase_parity(rng) -> dict:
         say(f"parity: merge_tagged of {va}+{vb} variant blocks and "
             f"variants_keep n {n} B {rows}: equal ({kept} kept, {crossing} "
             f"runs across chunk edges, {int(x['bpad'].sum())} bpad rows)")
+
+    def check_topk(name, what, *args, **kw):
+        # the bounds form of the W = 2 kernel goes through its own
+        # wrapper, batched_and_locate (pallas_batched_and_locate)
+        wrapper = ("batched_and_locate"
+                   if name == "and_locate_topk" and "a_pg" not in kw
+                   else PAGE_WRAPPERS[name])
+        got = getattr(qk, wrapper)(*args, **kw)
+        torch.cuda.synchronize()
+        want = getattr(qk, wrapper + "_plain")(*args, **kw)
+        err[name] = max(err[name], same_outputs(got, want, what, PAGE_FIELDS))
+        return want
+
+    for name, caps in PAGE_CAPS.items():
+        for cap in caps:
+            x = _parity_inputs(rng, SLOT_ROWS, cap, dev, spread=True)
+            if name == "and_locate_topk":
+                args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"],
+                        x["bounds"])
+                pgs = dict(a_pg=x["a_pg"], b_pg=x["b_pg"])
+                at = torch.searchsorted(x["b"], x["a"])
+                lane = torch.arange(cap, device=dev)[None, :]
+                dups = int(((at < x["nb"][:, None])
+                            & (lane < x["na"][:, None])
+                            & (torch.gather(x["b"], 1,
+                                            at.clamp_max(cap - 1))
+                               == x["a"])).sum())
+                require(dups > 0, f"{name} cap {cap}: no shared coordinate")
+            else:
+                args = (x["a"], x["na"], x["bounds"])
+                pgs = dict(a_pg=x["a_pg"])
+                dups = 0
+            for topk in (PAGE_TOPK, 64):
+                for carried in (True, False):
+                    want = check_topk(
+                        name, f"{name} cap {cap} topk {topk} "
+                        f"{'carried' if carried else 'bounds'}", *args,
+                        topk=topk, **(pgs if carried else {}))
+            # rows whose best 2 topk runs all tie: more than topk tied
+            # runs at the cut
+            wide = check_topk(name, f"{name} cap {cap} topk {2 * PAGE_TOPK}",
+                              *args, topk=2 * PAGE_TOPK, **pgs)
+            tied = int(((wide[1][:, 0] == wide[1][:, -1])
+                        & (wide[0][:, -1] >= 0)).sum())
+            empty = int((want[0][:, 0] < 0).sum())
+            require(tied > 0 and empty > 0,
+                    f"{name} cap {cap}: {tied} tied rows, {empty} empty")
+            say(f"parity: {name} cap {cap} B {SLOT_ROWS} topk {PAGE_TOPK} / "
+                f"64, carried pages / bounds: equal ({tied} rows with more "
+                f"than {PAGE_TOPK} runs tied at the cut, {empty} rows "
+                f"serving nothing"
+                + (f", ordered windows on every second row, {dups} "
+                   f"coordinates in both words)" if dups else ")"))
     return err
 
 
@@ -538,6 +624,71 @@ def phase_main(dix, queries, card: str, label: str, required):
     return out, launches
 
 
+def _profile_batch():
+    """tools/profile_batch.py as a module, loaded by its path: its
+    per-bucket timer of the page-level leg is the one this script uses."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "profile_batch.py"
+    spec = importlib.util.spec_from_file_location("profile_batch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_page(dix, queries, card: str):
+    """The page-level main path: the standard mix through search_batch
+    (topk 16) on the kernel route with every launch count zeroed just
+    before and read just after, each bucket alone with a synchronise
+    around it (buckets, rows and ms per route), then the torch route,
+    field for field. Both page-level kernels must have launched.
+    Returns (results, launches)."""
+    from docodo_tpu_torch.ops import _cuda
+
+    def run(use_kernels: bool):
+        return dix.search_batch(queries, topk=PAGE_TOPK,
+                                use_kernels=use_kernels)
+
+    run(True)  # warm
+    torch.cuda.synchronize()
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run(True)
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+
+    served = {name: dict(buckets=0, rows=0, ms=0.0)
+              for name in ("kernel", "torch")}
+    for b in _profile_batch().page_bucket_times(dix, queries, True):
+        served[b["route"]]["buckets"] += 1
+        served[b["route"]]["rows"] += b["rows"]
+        served[b["route"]]["ms"] += b["ms"]
+    per_route = {name: f"{v['buckets']} buckets, {v['rows']} rows, "
+                 f"{v['ms']:.1f} ms" for name, v in served.items()}
+    say(f"main path, page level: {len(queries)} queries topk {PAGE_TOPK}, "
+        f"kernel route {secs * 1e3:.1f} ms warm ({len(queries) / secs:.0f} "
+        f"QPS) on {card}; each bucket alone, synchronised: {per_route}; "
+        f"launches {({n: launches[n] for n in PAGE_KERNELS})}")
+    for name in PAGE_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the page-level path")
+    require(all(launches[n] == 0 for n in launches if n not in PAGE_KERNELS),
+            "a full-result kernel launched on the page-level path")
+    run(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = run(False)
+    psecs = time.perf_counter() - t0
+    same_outputs([torch.from_numpy(x) for x in out],
+                 [torch.from_numpy(x) for x in plain], "page-level routes",
+                 PAGE_FIELDS)
+    say(f"torch route, page level: {psecs * 1e3:.1f} ms warm "
+        f"({len(queries) / psecs:.0f} QPS); pages and counts equal to the "
+        f"kernel route, ranks within 1 ulp")
+    return out, launches
+
+
 def _valid(n, cap: int) -> int:
     return int(n.clamp(0, cap).sum())
 
@@ -558,6 +709,20 @@ def _bytes_moved(name: str, args) -> int:
         rows, cap = a.shape
         return 8 * _valid(na, cap) + 4 * rows + rows * (12 * kpad + 4 * hpad
                                                         + 8)
+    if name == "and_locate_topk":
+        a, a_pg, na, _, b, _, nb, _, bounds, topk = args
+        rows, cap = a.shape
+        per = 8 if a_pg is not None else 4
+        return (per * (_valid(na, cap) + _valid(nb, cap)) + 16 * rows
+                + (0 if a_pg is not None else 4 * bounds.numel())
+                + 12 * rows * topk)
+    if name == "single_locate_topk":
+        a, a_pg, na, bounds, topk = args
+        rows, cap = a.shape
+        per = 8 if a_pg is not None else 4
+        return (per * _valid(na, cap) + 4 * rows
+                + (0 if a_pg is not None else 4 * bounds.numel())
+                + 12 * rows * topk)
     if name == "variants_and_locate_full":
         a, _, na, _, b, _, nb, _, _, kpad, hpad = args
         rows, cap = a.shape[0], a.shape[2]
@@ -611,7 +776,11 @@ def _ops(name: str, args) -> int:
         lanes = sum(_valid(n, x.shape[2]) for x, n in blocks)
         steps = (k - 1) * max(1, int(np.ceil(np.log2(cap + 1))))
         return lanes * (OPS_PER_LANE + OPS_PER_STEP * steps)
-    lengths = (args[2], args[6]) if len(args) == 10 else (args[2],)
+    # the W = 2 cores carry (a, a_pg, na, ra, b, b_pg, nb, rb, ...), the
+    # W = 1 cores (a, a_pg, na, ...)
+    two = name in ("sorted_and_locate_full", "merge_and_locate_topk",
+                   "and_locate_topk")
+    lengths = (args[2], args[6]) if two else (args[2],)
     cap = args[0].shape[1]
     return OPS_PER_LANE * sum(_valid(n, cap) for n in lengths)
 
@@ -634,8 +803,9 @@ def _library_call(name: str, calls):
     return lambda: [torch.sort(k, dim=1, stable=True) for k in keys]
 
 
-def phase_kernel_times(dix, batches) -> dict:
-    """Every kernel on the calls the kernel-route batches make: the
+def phase_kernel_times(batches) -> dict:
+    """Every kernel on the calls the kernel-route batches (callables
+    that run one batch each) make: the
     calls' inputs are recorded, then each kernel's launches for the
     batches and its plain version's run back to back between CUDA events
     (median of 10), are checked equal, and give the bound and, for
@@ -654,9 +824,8 @@ def phase_kernel_times(dix, batches) -> dict:
             return _fn(*args)
         setattr(qk, core, rec)
     try:
-        for queries in batches:
-            dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
-                                  use_kernels=True)
+        for batch in batches:
+            batch()
     finally:
         for core, fn in saved.items():
             setattr(qk, core, fn)
@@ -694,6 +863,20 @@ def phase_kernel_times(dix, batches) -> dict:
             f"library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
             f"equal to the plain version")
+        if name in FORMS:
+            # the same launches in the kernel's other input form
+            label, form = FORMS[name]
+            (kern, plain, cs), = runs
+            other = [form(a) for a in cs]
+            for a in other:
+                same_result(name, kern(*a), plain(*a), f"{name} {label}")
+            fms = cuda_ms(lambda: [kern(*a) for a in other])
+            fplain = cuda_ms(lambda: [plain(*a) for a in other])
+            fbytes = sum(_bytes_moved(name, a) for a in other)
+            say(f"kernel time: {name} {label}: {len(other)} calls, kernel "
+                f"{fms:.4f} ms, plain {fplain:.4f} ms, bound "
+                f"{fbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({fbytes} bytes); "
+                f"equal to the plain version")
         for label, keep in SPLITS.get(name, ()):
             part = [(kern, plain, [a for a in cs if keep(a)])
                     for kern, plain, cs in runs]
@@ -711,6 +894,14 @@ def phase_kernel_times(dix, batches) -> dict:
     return res
 
 
+# and_locate_topk without its page streams is the counterpart of
+# _and_locate_kernel (pallas_query.py:133, PERF.md's row 17): the batch's
+# calls (a, a_pg, na, ra, b, b_pg, nb, rb, bounds, topk) with the pages
+# looked up in bounds
+FORMS = {"and_locate_topk": (
+    "from bounds (pallas_query.py:133)",
+    lambda a: (a[0], None, a[2], a[3], a[4], None) + tuple(a[6:]))}
+
 # the TPU kernels a port covers in parts: its calls split by width or V
 # (PERF.md's rows 8 / 9, 11 / 12 and 3 / 5)
 SPLITS = {
@@ -725,56 +916,148 @@ SPLITS = {
 }
 
 
-def phase_oracle(dix, queries, out, rng, label: str, n: int = 512) -> None:
-    """Served rows against numpy: each word's variants OR-merged and the
+def _oracle_row(dix, coords, query):
+    """One query on the host: each word's variants OR-merged and the
     words' proximity-AND fold over the host postings (fold_row), the
-    page bounds and the rank formula (as benchmarks/common.py:306-338)."""
+    page bounds and the rank formula (as benchmarks/common.py:306-338).
+    Returns (kept coordinates, run pages, run counts, run ranks f64),
+    the runs in page order."""
     from docodo_tpu_torch.oracle import fold_row
 
-    coords = dix.coords.cpu().numpy()
     off = dix.offsets_np
     bounds = dix.bounds_np
+    words, rs = [], []
+    for codes, r in query:
+        keys = (codes,) if isinstance(codes, str) else codes
+        ids = [dix.term_id(c) for c in keys]
+        words.append([coords[off[t]: off[t + 1]] for t in ids if t >= 0])
+        rs.append(r)
+    acc = np.zeros(0, np.int64)
+    if words and all(words):  # a word with no known variant serves nothing
+        acc = np.asarray(fold_row(words, rs), dtype=np.int64)
+    page = np.minimum(np.searchsorted(bounds, acc, side="right"),
+                      bounds.size - 1)
+    first = np.concatenate([[True], page[1:] != page[:-1]])[:acc.size]
+    run = np.cumsum(first) - 1
+    gaps = np.diff(acc, prepend=0)
+    bonus = np.where(~first, 30 // np.maximum(5, gaps), 0)
+    cnt = np.bincount(run, minlength=run.max(initial=-1) + 1)
+    rank = (1.0 + np.bincount(run, weights=bonus, minlength=cnt.size)
+            + np.log(np.maximum(cnt, 1)))
+    return acc, page[first], cnt, rank
+
+
+def phase_oracle(dix, queries, out, rng, label: str, n: int = 512,
+                 topk: int = TOPK, hit_cap: int = HIT_CAP) -> None:
+    """Served full-result rows against numpy (_oracle_row); `out` was
+    served with `topk` and `hit_cap`."""
+    coords = dix.coords.cpu().numpy()
     checked = mismatches = 0
     for qi in rng.choice(len(queries), size=min(n, len(queries)),
                          replace=False):
         npg, nht = int(out["n_pages"][qi]), int(out["n_hits"][qi])
-        if npg > TOPK or nht > HIT_CAP:
+        if npg > topk or nht > hit_cap:
             continue  # truncated: re-served on the host by the caller
-        words, rs = [], []
-        for codes, r in queries[qi]:
-            keys = (codes,) if isinstance(codes, str) else codes
-            ids = [dix.term_id(c) for c in keys]
-            words.append([coords[off[t]: off[t + 1]] for t in ids if t >= 0])
-            rs.append(r)
-        acc = np.zeros(0, np.int64)
-        if all(words):  # a word with no known variant serves nothing
-            acc = np.asarray(fold_row(words, rs), dtype=np.int64)
-        page = np.minimum(np.searchsorted(bounds, acc, side="right"),
-                          bounds.size - 1)
-        first = np.concatenate([[True], page[1:] != page[:-1]])[:acc.size]
-        run = np.cumsum(first) - 1
-        gaps = np.diff(acc, prepend=0)
-        bonus = np.where(~first, 30 // np.maximum(5, gaps), 0)
-        cnt = np.bincount(run, minlength=run.max(initial=-1) + 1)
-        rank = (1.0 + np.bincount(run, weights=bonus, minlength=cnt.size)
-                + np.log(np.maximum(cnt, 1)))
-        want = sorted(zip(page[first].tolist(), cnt.tolist()))
+        acc, pages, cnt, rank = _oracle_row(dix, coords, queries[qi])
+        want = sorted(zip(pages.tolist(), cnt.tolist()))
         got_pages = out["pages"][qi][: npg]
         got = sorted(zip(got_pages.tolist(),
                          out["counts"][qi][: npg].tolist()))
         got_rank = dict(zip(got_pages.tolist(),
                             out["ranks"][qi][: npg].tolist()))
-        ok = (npg == int(first.sum()) and nht == acc.size
+        ok = (npg == pages.size and nht == acc.size
               and np.array_equal(out["hits"][qi][:nht], acc)
               and got == want
               and all(abs(got_rank[p] - rk) <= 1e-5 * rk
-                      for p, rk in zip(page[first].tolist(), rank)))
+                      for p, rk in zip(pages.tolist(), rank)))
         checked += 1
         mismatches += not ok
     say(f"oracle, {label}: {checked} served rows of {n} sampled checked "
         f"against the numpy variant-OR and AND fold + rank formula; "
         f"mismatches {mismatches}")
     require(checked > 0 and mismatches == 0, f"{label} oracle mismatches")
+
+
+def phase_page_oracle(dix, queries, out, rng, n: int = 512) -> None:
+    """Sampled page-level rows against numpy: _oracle_row's runs, the
+    top PAGE_TOPK by (rank descending, page ascending); pages and counts
+    exact, ranks within 1e-5 relative."""
+    coords = dix.coords.cpu().numpy()
+    pages_out, ranks_out, counts_out = out
+    mismatches = served = cut = 0
+    sample = rng.choice(len(queries), size=min(n, len(queries)),
+                        replace=False)
+    for qi in sample:
+        _, pages, cnt, rank = _oracle_row(dix, coords, queries[qi])
+        # ties are decided on the stored f32 rank, as the kernel does
+        order = np.lexsort((pages, -rank.astype(np.float32)))[:PAGE_TOPK]
+        k = order.size
+        ok = (np.array_equal(pages_out[qi][:k], pages[order])
+              and np.array_equal(counts_out[qi][:k], cnt[order])
+              and np.allclose(ranks_out[qi][:k], rank[order], rtol=1e-5,
+                              atol=0)
+              and (pages_out[qi][k:] == -1).all()
+              and (ranks_out[qi][k:] == 0).all()
+              and (counts_out[qi][k:] == 0).all())
+        mismatches += not ok
+        served += k > 0
+        cut += pages.size > PAGE_TOPK
+    say(f"oracle, page level: {len(sample)} sampled rows ({served} serving "
+        f"pages, {cut} with more than {PAGE_TOPK} runs) against the numpy "
+        f"AND fold, rank formula and top {PAGE_TOPK} by (rank, page); "
+        f"mismatches {mismatches}")
+    require(served > 0 and cut > 0 and mismatches == 0,
+            "page-level oracle mismatches")
+
+
+def phase_vocabulary(seed: int, rng) -> None:
+    """A Russian corpus of the forms Dict/ru.voc knows, indexed with the
+    vocabulary and stop words; words become (variant keys, R) groups by
+    word_group (vocabulary group keys, an exact upper-case form, a
+    wildcard OR), are served by search_batch_full on the card and held
+    against the numpy oracle."""
+    from docodo_tpu_torch.index import word_group
+    from docodo_tpu_torch.lang.vocab import Vocab
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+    from docodo_tpu_torch.synthetic import (
+        build_index,
+        vocabulary_documents,
+        vocabulary_forms,
+    )
+
+    voc = Vocab(RU_VOC)
+    stop = {"это", "как", "которые"}
+    docs = vocabulary_documents(voc, n_docs=40, pages=8, words=400,
+                                seed=seed, extra=("зюзюка", "бармаглот",
+                                                  "1812", *sorted(stop)))
+    ind = build_index(docs, vocs=[voc], stop_words=stop)
+    dix = DeviceIndex.from_index(ind)
+    forms = vocabulary_forms(voc)
+    words = [forms[i] for i in rng.choice(len(forms), size=48,
+                                          replace=False)]
+    groups = [word_group(ind, w) for w in words]
+    queries = [[g] for g in groups]
+    queries += [[a, b] for a, b in zip(groups[::2], groups[1::2])]
+    queries += [[word_group(ind, w.upper())] for w in words[:8]]
+    queries += [[word_group(ind, w[:3] + "_")] for w in words[:8]]
+    keys = [k for q in queries for g in q for k in g[0]]
+    require(all(g is not None for q in queries for g in q)
+            and word_group(ind, "это") is None
+            and sum(k[0] == "#" for k in keys) >= 48
+            and any(len(g[0]) > 1 for q in queries for g in q),
+            "vocabulary groups: a known form without its group key")
+    # budgets past the corpus's 360 pages: group keys gather every form
+    # of a stem, so most words hit more than 64 pages
+    topk, hit_cap = 512, 8192
+    out = dix.search_batch_full(queries, topk=topk, hit_cap=hit_cap)
+    say(f"vocabulary: {RU_VOC.name} ({len(voc)} stems, {len(forms)} known "
+        f"forms), {len(docs)} docs, {dix.bounds.numel()} pages, "
+        f"{len(dix.terms)} terms ({sum(t[0] == '#' for t in dix.terms)} "
+        f"group keys), {len(stop)} stop words unindexed; {len(queries)} "
+        f"queries of word_group groups, {int((out['n_hits'] > 0).sum())} "
+        f"with hits")
+    phase_oracle(dix, queries, out, rng, "vocabulary groups",
+                 n=len(queries), topk=topk, hit_cap=hit_cap)
 
 
 def main() -> None:
@@ -794,12 +1077,21 @@ def main() -> None:
                                "standard mix", STANDARD_KERNELS)
     wout, wlaunches = phase_main(dix, wide, f"{card} ({smi})",
                                  "wide mix + alternations", WIDE_KERNELS)
-    times = phase_kernel_times(dix, (queries, wide))
+    pout, planches = phase_page(dix, queries, f"{card} ({smi})")
+    times = phase_kernel_times([
+        lambda: dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                      use_kernels=True),
+        lambda: dix.search_batch_full(wide, topk=TOPK, hit_cap=HIT_CAP,
+                                      use_kernels=True),
+        lambda: dix.search_batch(queries, topk=PAGE_TOPK, use_kernels=True),
+    ])
     phase_oracle(dix, queries, out, rng, "standard mix")
     phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
+    phase_page_oracle(dix, queries, pout, rng)
+    phase_vocabulary(args.seed, rng)
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
-             launches=launches[name] + wlaunches[name],
+             launches=launches[name] + wlaunches[name] + planches[name],
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
         for name, (src, replaces, _) in KERNELS.items()]}))

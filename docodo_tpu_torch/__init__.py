@@ -3,14 +3,18 @@
 The JAX package (docodo_tpu) is the reference this port is held against;
 the port imports torch, never jax, and nothing of docodo_tpu: it keeps
 its own copies of the host modules it needs. The TPU kernels of the
-full-result query path are CUDA kernels for Hopper (csrc/*.cu).
+full-result and page-level query paths are CUDA kernels for Hopper
+(csrc/*.cu).
 
-  index.py             host index build over paged documents
-  lang/, constants.py  tokenizer, stemmers, word coder (no vocabularies)
+  index.py             host index build over paged documents, and the
+                       query side's word -> (variant keys, R) rule
+  lang/, constants.py  tokenizer, stemmers, vocabularies (.voc), stop
+                       words, word coder
   mix.py, oracle.py    the standard and wide query mixes, the numpy oracle
   synthetic.py         seeded Zipf corpora
   ops/seqops.py        posting algebra on batched tensors
-  ops/device_index.py  the device index and full-result query routing
+  ops/device_index.py  the device index and the routing of both query
+                       paths (search_batch_full, search_batch)
   ops/query_kernels.py the kernel wrappers and their plain versions
   ops/_cuda.py         nvcc build at first use + ctypes binding
 """

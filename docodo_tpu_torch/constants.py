@@ -3,8 +3,15 @@ docodo_tpu/constants.py, which mirrors the reference's Index.cs:96-115)."""
 
 MAX_WORD_LENGTH = 32          # maximum word length indexed (ref Index.cs:97)
 MIN_WORD_LENGTH = 3           # minimum word length indexed (ref Index.cs:113)
+MAX_LIKE_WORDS = 100          # wildcard expansion cap (ref Search.cs:158)
+DEFAULT_DIST = 255            # a plain word's window is DEFAULT_DIST + its length
 
 # key prefixes in the term dictionary (ref Index.cs:105-112)
 WORD_STEM_CHAR = "$"          # prefix of stem-fallback keys
+KNOWN_WORD_CHAR = "#"         # prefix of vocab-group keys (#HEX)
 DOC_SEP = ":"                 # document-name-from-source separator in the page list
 FIELD_NAME_CHAR = "&"         # prefix of header-field-name keys
+
+# morphological group ids of a vocabulary (ref Dict.cs)
+GROUP_NOT_EXACT_WORD_MASK = 0x01000000
+GROUP_NUMBER_MASK = 0x00FFFFFF

@@ -45,21 +45,7 @@ namespace {
 
 using namespace docodo;
 
-// Shared memory of the W = 2 kernels: the row, both operands, the tags.
-template <int N>
-struct AndSmem {
-  RowSmem<N> row;
-  int a[N / 2];
-  int b[N / 2];
-  unsigned char tag[N];
-};
-
-// W = 2 proximity/phrase AND (pallas_query._sorted_and_keep): the two
-// posting blocks merge by rank into (coord, tag) order (word A first on
-// equal coords, padding last), cross-operand duplicates fold onto their
-// first slot, gaps wider than |R| cut segments, both R < 0 adds the ordered
-// cut at each segment's first word-A slot, and a segment keeps its slots
-// only if it holds both words.
+// W = 2: merge_and_keep, then the first-kpad-runs tail.
 template <int T, int L, int N>
 __device__ void sorted_and_body(
     AndSmem<N>& sm, const int* __restrict__ a, const int* __restrict__ a_pg,
@@ -67,78 +53,11 @@ __device__ void sorted_and_body(
     const int* __restrict__ b, const int* __restrict__ b_pg,
     const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
     int kpad, int hpad, const Outputs& out) {
-  RowSmem<N>& s = sm.row;
-  int* s_a = sm.a;
-  int* s_b = sm.b;
-  unsigned char* s_tag = sm.tag;
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
   const int n = 2 * cap;
-  const int ipt = (n + T - 1) / T;
-  const int base = tid * ipt;
-  const int na = clamp_len(na_[row], cap);
-  const int nb = clamp_len(nb_[row], cap);
-  const int* arow = a + row * cap;
-  const int* brow = b + row * cap;
-  const int* apg = a_pg + row * cap;
-  const int* bpg = b_pg + row * cap;
-  for (int i = tid; i < cap; i += T) {
-    s_a[i] = i < na ? arow[i] : kInf;
-    s_b[i] = i < nb ? brow[i] : kInf;
-  }
-  __syncthreads();
-  for (int i = tid; i < cap; i += T) {
-    if (i < na) {
-      const int p = i + lower_bound(s_b, nb, s_a[i]);
-      s.val[p] = s_a[i];
-      s.page[p] = apg[i];
-      s_tag[p] = 0;
-    }
-    if (i < nb) {
-      const int p = i + upper_bound(s_a, na, s_b[i]);
-      s.val[p] = s_b[i];
-      s.page[p] = bpg[i];
-      s_tag[p] = 1;
-    }
-  }
-  for (int p = na + nb + tid; p < n; p += T) {
-    s.val[p] = kInf;
-    s.page[p] = 0;
-    s_tag[p] = 2;
-  }
-  __syncthreads();
-
-  const int r1 = ra_[row];
-  const int r2 = rb_[row];
-  const int abs_r = max(abs(r1), abs(r2));
-  const bool ordered = r1 < 0 && r2 < 0;
-  bool isa[L], isb[L], ghost[L], valid[L], seg[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int l = base + k;
-    isa[k] = isb[k] = ghost[k] = valid[k] = seg[k] = false;
-    if (k < ipt && l < n) {
-      const int v = s.val[l];
-      const bool val = v < kInf;
-      const int pv = l > 0 ? s.val[l - 1] : -1;
-      const int nv = l < n - 1 ? s.val[l + 1] : kInf;
-      const bool dup_prev = val && v == pv;
-      const bool dup_next = val && v == nv;
-      const bool a_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 0;
-      const bool b_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 1;
-      isa[k] = ((val && s_tag[l] == 0) || (dup_next && a_next)) && !dup_prev;
-      isb[k] = ((val && s_tag[l] == 1) || (dup_next && b_next)) && !dup_prev;
-      ghost[k] = dup_prev;
-      valid[k] = val;
-      const int gap = v - (l == 0 ? 0 : pv);
-      seg[k] = l == 0 || (abs_r != 0 && gap > abs_r && val);
-    }
-  }
-  bool eff[L], keep[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) eff[k] = valid[k] && !ghost[k];
-  segment_keep<T, L, N>(s, isa, isb, eff, seg, ordered, n, ipt, keep);
-  locate_tail<T, L, N>(s, keep, n, ipt, kpad, hpad, out);
+  bool keep[L];
+  merge_and_keep<T, L, N>(sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr,
+                          0, cap, keep);
+  locate_tail<T, L, N>(sm.row, keep, n, (n + T - 1) / T, kpad, hpad, out);
 }
 
 constexpr int kSlotThreads = 256;

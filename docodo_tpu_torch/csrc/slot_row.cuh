@@ -1,7 +1,8 @@
-// The row-per-block pieces shared by the slot kernels of locate_full.cu and
-// variants.cu (sm_90a): a query row held in shared memory, the AND's
-// segmentation over it, and the locate tail that writes the row's
-// full-result outputs.
+// The row-per-block pieces shared by the slot kernels of locate_full.cu,
+// variants.cu and locate_topk.cu (sm_90a): a query row held in shared
+// memory, the W = 2 merge and the AND's segmentation over it, the locate
+// tail that writes the row's full-result outputs (its first kpad runs), and
+// the page-level tail that ranks every run and writes the row's top k.
 
 #pragma once
 
@@ -72,15 +73,124 @@ __device__ void segment_keep(RowSmem<N>& s, const bool (&isa)[L],
   for (int k = 0; k < L; ++k) keep[k] = eff[k] && s.tmp[sid[k] - 1] == 3;
 }
 
-// Locate, rank and both compactions over the row held in s.val / s.page,
-// given the keep mask of this thread's lanes. Called by every thread.
+// Page of a coordinate: #bounds <= v, clamped to the last page.
+__device__ inline int page_of_coord(const int* __restrict__ bounds, int p,
+                                    int v) {
+  const int pg = upper_bound(bounds, p, v);
+  return pg < p - 1 ? pg : p - 1;
+}
+
+// Shared memory of the W = 2 kernels: the row, both operands, the tags.
+template <int N>
+struct AndSmem {
+  RowSmem<N> row;
+  int a[N / 2];
+  int b[N / 2];
+  unsigned char tag[N];
+};
+
+// W = 2 proximity/phrase AND (pallas_query._sorted_and_keep) of one row's
+// two posting blocks, into sm.row.val / sm.row.page and this thread's keep
+// flags: the blocks merge by rank into (coord, tag) order (word A first on
+// equal coords, padding last), cross-operand duplicates fold onto their
+// first slot, gaps wider than |R| cut segments, both R < 0 adds the ordered
+// cut at each segment's first word-A slot, and a segment keeps its slots
+// only if it holds both words. Pages come from the blocks' page streams
+// a_pg / b_pg, or with a_pg null from `bounds` [p]. Called by every thread.
 template <int T, int L, int N>
-__device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
-                            int ipt, int kpad, int hpad, const Outputs& out) {
+__device__ void merge_and_keep(
+    AndSmem<N>& sm, const int* __restrict__ a, const int* __restrict__ a_pg,
+    const int* __restrict__ na_, const int* __restrict__ ra_,
+    const int* __restrict__ b, const int* __restrict__ b_pg,
+    const int* __restrict__ nb_, const int* __restrict__ rb_,
+    const int* __restrict__ bounds, int p_bounds, int cap, bool (&keep)[L]) {
+  RowSmem<N>& s = sm.row;
+  int* s_a = sm.a;
+  int* s_b = sm.b;
+  unsigned char* s_tag = sm.tag;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const int n = 2 * cap;
+  const int ipt = (n + T - 1) / T;
+  const int base = tid * ipt;
+  const int na = clamp_len(na_[row], cap);
+  const int nb = clamp_len(nb_[row], cap);
+  const int* arow = a + row * cap;
+  const int* brow = b + row * cap;
+  for (int i = tid; i < cap; i += T) {
+    s_a[i] = i < na ? arow[i] : kInf;
+    s_b[i] = i < nb ? brow[i] : kInf;
+  }
+  __syncthreads();
+  for (int i = tid; i < cap; i += T) {
+    if (i < na) {
+      const int v = s_a[i];
+      const int p = i + lower_bound(s_b, nb, v);
+      s.val[p] = v;
+      s.page[p] = a_pg ? a_pg[row * cap + i]
+                       : page_of_coord(bounds, p_bounds, v);
+      s_tag[p] = 0;
+    }
+    if (i < nb) {
+      const int v = s_b[i];
+      const int p = i + upper_bound(s_a, na, v);
+      s.val[p] = v;
+      s.page[p] = b_pg ? b_pg[row * cap + i]
+                       : page_of_coord(bounds, p_bounds, v);
+      s_tag[p] = 1;
+    }
+  }
+  for (int p = na + nb + tid; p < n; p += T) {
+    s.val[p] = kInf;
+    s.page[p] = 0;
+    s_tag[p] = 2;
+  }
+  __syncthreads();
+
+  const int r1 = ra_[row];
+  const int r2 = rb_[row];
+  const int abs_r = max(abs(r1), abs(r2));
+  const bool ordered = r1 < 0 && r2 < 0;
+  bool isa[L], isb[L], ghost[L], valid[L], seg[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int l = base + k;
+    isa[k] = isb[k] = ghost[k] = valid[k] = seg[k] = false;
+    if (k < ipt && l < n) {
+      const int v = s.val[l];
+      const bool val = v < kInf;
+      const int pv = l > 0 ? s.val[l - 1] : -1;
+      const int nv = l < n - 1 ? s.val[l + 1] : kInf;
+      const bool dup_prev = val && v == pv;
+      const bool dup_next = val && v == nv;
+      const bool a_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 0;
+      const bool b_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 1;
+      isa[k] = ((val && s_tag[l] == 0) || (dup_next && a_next)) && !dup_prev;
+      isb[k] = ((val && s_tag[l] == 1) || (dup_next && b_next)) && !dup_prev;
+      ghost[k] = dup_prev;
+      valid[k] = val;
+      const int gap = v - (l == 0 ? 0 : pv);
+      seg[k] = l == 0 || (abs_r != 0 && gap > abs_r && val);
+    }
+  }
+  bool eff[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) eff[k] = valid[k] && !ghost[k];
+  segment_keep<T, L, N>(s, isa, isb, eff, seg, ordered, n, ipt, keep);
+}
+
+// The page runs of the row held in s.val / s.page, given the keep mask of
+// this thread's lanes: a run starts at a kept lane whose page differs from
+// the previous kept lane's, and each later lane of the run adds
+// 30 / max(5, gap). For every run of ordinal < limit, s.run_page,
+// s.run_count and s.run_bonus (exact integer sums) are filled. Returns the
+// row's number of runs. Called by every thread; ends synchronised.
+template <int T, int L, int N>
+__device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
+                        int limit) {
   const int tid = threadIdx.x;
   const int base = tid * ipt;
-  const size_t row = blockIdx.x;
-  for (int r = tid; r < kpad; r += T) {
+  for (int r = tid; r < limit; r += T) {
     s.run_bonus[r] = 0;
     s.run_count[r] = 0;
   }
@@ -93,15 +203,14 @@ __device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
   }
   scan_lanes<T>(prev, ipt, -1, Max(), false, s.warp);
 
-  int rid[L], slot[L], bonus[L];
+  int rid[L], bonus[L];
   bool first[L];
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     const int l = base + k;
     first[k] = false;
     bonus[k] = 0;
-    const bool kept = k < ipt && l < n && keep[k];
-    if (kept) {
+    if (k < ipt && l < n && keep[k]) {
       const int p = prev[k];
       const int prev_page = p >= 0 ? s.page[p] : -1;
       first[k] = s.page[l] != prev_page;
@@ -111,27 +220,46 @@ __device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
       }
     }
     rid[k] = first[k] ? 1 : 0;
-    slot[k] = kept ? 1 : 0;
   }
-  // run ordinal + 1 of every kept lane, and each kept lane's hit slot
-  const int total_pages = scan_lanes<T>(rid, ipt, 0, Sum(), true, s.warp);
-  const int total_hits = scan_lanes<T>(slot, ipt, 0, Sum(), false, s.warp);
+  // run ordinal + 1 of every kept lane
+  const int runs = scan_lanes<T>(rid, ipt, 0, Sum(), true, s.warp);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int l = base + k;
+    const int r = rid[k] - 1;
+    if (k < ipt && l < n && keep[k] && r < limit) {
+      atomicAdd(&s.run_count[r], 1);
+      if (bonus[k]) atomicAdd(&s.run_bonus[r], bonus[k]);
+      if (first[k]) s.run_page[r] = s.page[l];
+    }
+  }
+  __syncthreads();
+  return runs;
+}
 
+// Locate, rank and both compactions over the row held in s.val / s.page,
+// given the keep mask of this thread's lanes: the row's first kpad runs in
+// slot order and its first hpad kept values. Called by every thread.
+template <int T, int L, int N>
+__device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
+                            int ipt, int kpad, int hpad, const Outputs& out) {
+  const int tid = threadIdx.x;
+  const int base = tid * ipt;
+  const size_t row = blockIdx.x;
+  const int total_pages = sum_runs<T, L, N>(s, keep, n, ipt, kpad);
+  // each kept lane's hit slot
+  int slot[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    slot[k] = (k < ipt && base + k < n && keep[k]) ? 1 : 0;
+  const int total_hits = scan_lanes<T>(slot, ipt, 0, Sum(), false, s.warp);
   int* hits = out.hits + row * hpad;
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     const int l = base + k;
-    if (k < ipt && l < n && keep[k]) {
-      const int r = rid[k] - 1;
-      if (r < kpad) {
-        atomicAdd(&s.run_count[r], 1);
-        if (bonus[k]) atomicAdd(&s.run_bonus[r], bonus[k]);
-        if (first[k]) s.run_page[r] = s.page[l];
-      }
-      if (slot[k] < hpad) hits[slot[k]] = s.val[l];
-    }
+    if (k < ipt && l < n && keep[k] && slot[k] < hpad)
+      hits[slot[k]] = s.val[l];
   }
-  __syncthreads();
   for (int r = tid; r < kpad; r += T) {
     const size_t o = row * kpad + r;
     if (r < total_pages) {
@@ -149,6 +277,53 @@ __device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
   if (tid == 0) {
     out.n_pages[row] = total_pages;
     out.n_hits[row] = total_hits;
+  }
+}
+
+struct TopkOutputs {
+  int* pages;    // [rows, topk] run pages by rank, -1 past the row's runs
+  float* ranks;  // [rows, topk] run ranks descending, 0 past the runs
+  int* counts;   // [rows, topk] run counts, 0 past the runs
+};
+
+// The page-level tail (pallas_query._locate_rank_topk): locate and rank
+// EVERY page run of the row held in s.val / s.page, given the keep mask of
+// this thread's lanes, and write the row's top `topk` runs by (rank
+// descending, run ordinal ascending). Runs are in lane order, so the lowest
+// ordinal among equal ranks is the lowest lane. Each run's rank is computed
+// once, into s.tmp, and the selection compares those stored bits (a
+// positive f32 orders as its bit pattern): a run's output slot is the number
+// of runs that precede it in that order, counted against every run of the
+// row. Slots past the row's run count get -1 / 0 / 0. Called by every
+// thread; N lanes hold at most N runs.
+template <int T, int L, int N>
+__device__ void locate_topk_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
+                                 int ipt, int topk, const TopkOutputs& out) {
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const int runs = sum_runs<T, L, N>(s, keep, n, ipt, n);
+  for (int r = tid; r < runs; r += T)
+    s.tmp[r] = __float_as_int(run_rank(s.run_bonus[r], s.run_count[r]));
+  __syncthreads();
+  for (int r = tid; r < runs; r += T) {
+    const int mine = s.tmp[r];
+    int before = 0;
+    for (int j = 0; j < runs; ++j) {
+      const int other = s.tmp[j];
+      before += (other > mine || (other == mine && j < r)) ? 1 : 0;
+    }
+    if (before < topk) {
+      const size_t o = row * topk + before;
+      out.pages[o] = s.run_page[r];
+      out.ranks[o] = __int_as_float(mine);
+      out.counts[o] = s.run_count[r];
+    }
+  }
+  for (int k = runs + tid; k < topk; k += T) {
+    const size_t o = row * topk + k;
+    out.pages[o] = -1;
+    out.ranks[o] = 0.0f;
+    out.counts[o] = 0;
   }
 }
 

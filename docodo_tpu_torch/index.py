@@ -4,13 +4,19 @@ the page table that DeviceIndex.from_index stages.
 It follows the pure-Python page path of the JAX package's build
 (docodo_tpu/index.py: Index._index_task :436-481, _index_header_page
 :496-514, IndexBuilder._gather_sorted :1050-1080) on one thread, in
-memory, with no spills, varint or storage, and without vocabularies
-(Dict/*.voc) or stop words: every word is keyed by itself and, where
-the stemmer table covers it, by its '$stem'.
+memory, with no spills, varint or storage. Every word is keyed by
+itself and, with vocabularies (Dict/*.voc), by the '#HEX' group of its
+stem, else by its '$stem' where a stemmer covers it; stop words get no
+key (lang/wordcodes.py).
 
     from docodo_tpu_torch.index import IndexPage, ListDataSource, build_index
-    ind = build_index(ListDataSource("docs", documents))
+    from docodo_tpu_torch.lang.vocab import Vocab, load_stop_words
+    ind = build_index(ListDataSource("docs", documents),
+                      vocs=[Vocab("Dict/ru.voc")],
+                      stop_words=load_stop_words("stop.txt"))
     dix = DeviceIndex.from_index(ind)
+    group = word_group(ind, "дома")       # ((variant keys), R) or None
+    dix.search_batch_full([[group]])
 
 A document is an iterable of IndexPage(id, text) with a `name`; page
 "0" is the header page of 'name=value' lines.
@@ -20,12 +26,13 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from docodo_tpu_torch import constants as C
-from docodo_tpu_torch.lang import tokenizer, wordcodes
+from docodo_tpu_torch.lang import tokenizer
+from docodo_tpu_torch.lang.wordcodes import WordCoder
 
 
 @dataclass
@@ -86,17 +93,76 @@ class PageTable:
 @dataclass
 class HostIndex:
     """What the build returns: `arr` and `pages`, as DeviceIndex.from_index
-    reads them."""
+    reads them, and the word coder (vocabularies, stop words) the build
+    keyed its words with, which the query side must share."""
 
     arr: Postings
     pages: PageTable
+    coder: WordCoder = field(default_factory=WordCoder)
+
+    def get_like_words(self, word: str) -> List[str]:
+        """Wildcard expansion over the term dictionary: '_' matches any
+        run of characters (docodo_tpu/index.py:635, ref Search.cs:160-167);
+        at most MAX_LIKE_WORDS full-form keys, in term order."""
+        if "_" not in word:
+            return [word]
+        if len(word) < 2:
+            return []
+        pattern = re.compile(word.replace("_", ".*"))
+        out = []
+        for key in self.arr.terms:
+            if key and key[0].isalpha() and pattern.search(key):
+                out.append(key)
+                if len(out) >= C.MAX_LIKE_WORDS:
+                    break
+        return out
+
+
+def _chosen_codes(index: HostIndex, word: str,
+                  b_exact: bool) -> Tuple[str, ...]:
+    """The keys one form is searched by: exact mode takes the full form
+    only; otherwise the vocabulary and stem keys win over the full form
+    (docodo_tpu/query/batcher.py:81, ref Search.cs:226-233)."""
+    codes = index.coder.codes(word)
+    selfcodes = [c for c in codes if re.match(r"\w", c[0])]
+    known = [c for c in codes if c not in selfcodes]
+    return tuple(selfcodes[:1] if b_exact else (known or selfcodes[:1]))
+
+
+def word_group(index: HostIndex,
+               word: str) -> Optional[Tuple[Tuple[str, ...], int]]:
+    """One query word -> the (variant keys, R) group that
+    DeviceIndex.compile_group_query takes, or None when the word matches
+    nothing (a stop word, a wildcard with no expansion), by the host
+    search's preference rules (docodo_tpu/query/batcher.py:94
+    `_word_codes`, ref Search.cs:192-260): an ALL-UPPERCASE word is
+    exact (its full form alone, ordered R = -(length + 4)); a '_'
+    wildcard expands through get_like_words into an OR of up to 100
+    full forms, exact; any other word is searched by its vocabulary
+    group or stem key where it has one, with R = 255 + length."""
+    b_exact = word.upper() == word
+    lw = word.lower()
+    if "_" in lw:
+        variants: List[str] = []
+        for w in index.get_like_words(lw):
+            for c in _chosen_codes(index, w, b_exact=True):
+                if c not in variants:
+                    variants.append(c)
+        if not variants:
+            return None
+        return tuple(variants), -(len(lw) + 4)
+    chosen = _chosen_codes(index, lw, b_exact)
+    if not chosen:
+        return None
+    return chosen, -(len(lw) + 4) if b_exact else C.DEFAULT_DIST + len(lw)
 
 
 class _Stream:
     """The build's posting stream in coordinate order: (term id, coord)
     parts, plus each word's row of term ids."""
 
-    def __init__(self):
+    def __init__(self, coder: WordCoder):
+        self.coder = coder
         self.terms: List[str] = []
         self.tmap: Dict[str, int] = {}
         self.word_ids: Dict[str, int] = {}
@@ -119,7 +185,7 @@ class _Stream:
             w = len(self.word_rows)
             self.word_ids[word] = w
             self.word_rows.append([self.tid(c)
-                                   for c in wordcodes.codes(word)])
+                                   for c in self.coder.codes(word)])
         return w
 
     def add(self, code: str, coord: int) -> None:
@@ -130,7 +196,7 @@ class _Stream:
 
     def add_word(self, word: str, coord: int) -> None:
         """A word's postings at one coordinate (IndexBuilder.add_word)."""
-        for code in wordcodes.codes(word):
+        for code in self.coder.codes(word):
             self.add(code, coord)
 
     def add_tokens(self, words: List[str], coords: np.ndarray) -> None:
@@ -189,12 +255,18 @@ def _index_header_page(stream: _Stream, text: str, coord: int) -> int:
     return coord
 
 
-def build_index(source: ListDataSource) -> HostIndex:
+def build_index(source: ListDataSource, vocs: Sequence = (),
+                stop_words: Optional[set] = None) -> HostIndex:
     """Index every page of every document of `source`, in order, into one
     coordinate space: body pages by the tokenizer (tokens of 3-32
     characters at their UTF-16 offsets), header pages by their fields.
-    Empty pages are skipped, as the JAX package skips them."""
-    stream = _Stream()
+    Empty pages are skipped, as the JAX package skips them. `vocs`
+    (lang.vocab.Vocab, in the order that numbers their group keys) and
+    `stop_words` key the words as docodo_tpu.Index(vocs=...) with
+    add_stop_words does; a stop word keeps its coordinate and gets no
+    posting."""
+    coder = WordCoder(vocs=vocs, stop_words=stop_words)
+    stream = _Stream(coder)
     bounds: List[int] = []
     page_doc: List[int] = []
     page_ids: List[str] = []
@@ -226,4 +298,4 @@ def build_index(source: ListDataSource) -> HostIndex:
     pages = PageTable(np.array(bounds, dtype=np.uint64),
                       np.array(page_doc, dtype=np.int64), page_ids,
                       doc_names)
-    return HostIndex(stream.postings(), pages)
+    return HostIndex(stream.postings(), pages, coder)

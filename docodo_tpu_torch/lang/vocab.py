@@ -1,0 +1,137 @@
+"""Morphological vocabularies (.voc files) and stop-word lists: the
+loading side of docodo_tpu/lang/vocab.py (Vocab :48-145,
+load_stop_words :260). The tools that make .voc files from word lists
+run offline and stay in the JAX package.
+
+A .voc file is a flat sequence of records (ref Docodo.NET/Dict.cs:71-95):
+a .NET BinaryWriter string (7-bit-varint byte length, then UTF-8 bytes)
+followed by an int32-LE morphological group id. A group id's low 24 bits
+are the group number; GROUP_NOT_EXACT_WORD_MASK flags a stem that is no
+word of its own.
+
+A Vocab maps stem -> group id. Word coding stems the word first, then
+looks the stem up (ref Build.cs:195-198, Search.cs:226-233).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+from docodo_tpu_torch.constants import (
+    GROUP_NOT_EXACT_WORD_MASK,
+    GROUP_NUMBER_MASK,
+)
+from docodo_tpu_torch.lang import stemmers
+
+
+def _read_7bit_len(f) -> Optional[int]:
+    shift = 0
+    value = 0
+    while True:
+        b = f.read(1)
+        if not b:
+            return None
+        byte = b[0]
+        value |= (byte & 0x7F) << shift
+        if not byte & 0x80:
+            return value
+        shift += 7
+
+
+def _write_7bit_len(f, value: int) -> None:
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            f.write(bytes([b | 0x80]))
+        else:
+            f.write(bytes([b]))
+            return
+
+
+class Vocab:
+    """A loaded morphological dictionary: stem -> 24-bit group id (plus
+    flags). `source` is a path (the language is the file name up to its
+    first dot) or a binary stream with `name` given."""
+
+    GROUP_NOT_EXACT_WORD_MASK = GROUP_NOT_EXACT_WORD_MASK
+    GROUP_NUMBER_MASK = GROUP_NUMBER_MASK
+
+    def __init__(self, source=None, name: Optional[str] = None):
+        self.words: Dict[str, int] = {}
+        self.range = ("\0", "\0")  # first letters this vocabulary covers
+        self.name = name
+        self.stemmer = None
+        if source is None:
+            return
+        if isinstance(source, (str, os.PathLike)):
+            fname = os.fspath(source)
+            self.name = name or os.path.basename(fname).split(".")[0]
+            self.stemmer = stemmers.get_stemmer(self.name)
+            with open(fname, "rb") as f:
+                self.load(f)
+        else:
+            if self.name is None:
+                raise ValueError("name required when loading from stream")
+            self.stemmer = stemmers.get_stemmer(self.name.split(".")[0])
+            self.load(source)
+
+    def __contains__(self, w):
+        return w in self.words
+
+    def __getitem__(self, w):
+        return self.words[w]
+
+    def __len__(self):
+        return len(self.words)
+
+    def add(self, word: str, group: int) -> None:
+        self.words[word] = group
+
+    def stem(self, word: str) -> str:
+        return self.stemmer(word) if self.stemmer is not None else word
+
+    def search(self, word: str) -> int:
+        """Group id of `word`, or 0 if absent (ref Dict.cs:97-103)."""
+        return self.words.get(word, 0)
+
+    def load(self, f) -> None:
+        self.words.clear()
+        while True:
+            n = _read_7bit_len(f)
+            if n is None:
+                break
+            raw = f.read(n)
+            if len(raw) < n:
+                break
+            grp = f.read(4)
+            if len(grp) < 4:
+                break
+            self.words[raw.decode("utf-8")] = int.from_bytes(
+                grp, "little", signed=True)
+        # first-letter range: the first key >= 'a' through the last key,
+        # in ordinal key order (ref Dict.cs:92-94)
+        keys = sorted(self.words)
+        lo = next((k[0] for k in keys if k[0] >= "a"), "\0")
+        hi = keys[-1][0] if keys else "\0"
+        self.range = (lo, hi)
+
+    def save(self, f) -> None:
+        for word in sorted(self.words):
+            data = word.encode("utf-8")
+            _write_7bit_len(f, len(data))
+            f.write(data)
+            f.write(int(self.words[word]).to_bytes(4, "little", signed=True))
+
+
+def load_stop_words(path: str) -> set:
+    """Stop-word list: the non-empty lines that hold no ';' (ref
+    Index.cs:227-230)."""
+    out = set()
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            s = line.strip("\r\n")
+            if s.strip(" ") and ";" not in s:
+                out.add(s)
+    return out

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu",
-           CSRC / "variants.cu")
+           CSRC / "variants.cu", CSRC / "locate_topk.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "slot_row.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "docodo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -204,6 +204,10 @@ VARIANTS_AND = Kernel("docodo_variants_and_locate_full",
 UNION_MERGE = Kernel("docodo_union_merge_locate_full",
                      "ppp" + "iiiii" + "pppppp")
 VARIANTS_KEEP = Kernel("docodo_variants_keep", "pppppp" + "ii" + "ppppp")
+AND_LOCATE_TOPK = Kernel("docodo_and_locate_topk",
+                         "ppppppppp" + "iiii" + "ppp")
+SINGLE_LOCATE_TOPK = Kernel("docodo_single_locate_topk",
+                            "pppp" + "iiii" + "ppp")
 KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "single_locate_full": SINGLE,
            "union_locate_full": UNION,
@@ -213,4 +217,6 @@ KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "locate_runs": LOCATE_RUNS,
            "variants_and_locate_full": VARIANTS_AND,
            "union_merge_locate_full": UNION_MERGE,
-           "variants_keep": VARIANTS_KEEP}
+           "variants_keep": VARIANTS_KEEP,
+           "and_locate_topk": AND_LOCATE_TOPK,
+           "single_locate_topk": SINGLE_LOCATE_TOPK}

@@ -1,5 +1,6 @@
-"""Device-resident index and full-result query evaluation on torch:
-twin of docodo_tpu/ops/device_index.py for the full-result path.
+"""Device-resident index and query evaluation on torch: twin of
+docodo_tpu/ops/device_index.py for the full-result path
+(search_batch_full) and the page-level path (search_batch).
 
 The index lives on the device as a structure of arrays (int32, INF32
 padding):
@@ -19,6 +20,11 @@ kernel buckets share one rank top-k and one doc grouping at the end, as
 in the JAX package. W >= 3 with variants, which no kernel takes (nor
 does the JAX package's), and every bucket without the kernels take the
 plain route below (query_step_full).
+
+The page-level path returns each query's top-k pages only (pages, ranks,
+counts). A bucket of W = 1 (cap <= 128) or W = 2 (cap <= 512) words goes
+through a page-level kernel, which ranks every run and picks the top k
+itself; every other bucket takes the torch route (query_step).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from docodo_tpu_torch.ops.seqops import (
     locate_compact,
     or_masked,
     or_variants_sorted,
+    page_runs,
     rank_in_sorted,
 )
 
@@ -393,6 +400,44 @@ def eval_query_masked(coords, term_offsets, terms, rs, cap: int,
     return vals, keep
 
 
+def locate_topk_masked(vals, keep, bounds, topk: int):
+    """Masked coordinate streams [B, n] -> each row's top-k pages
+    (device_index.py:715): (pages int32 -1 pad, ranks f32, counts
+    int32), each [B, topk], by (rank descending, slot ascending). Every
+    page run of the row is ranked, unlike locate_full's first-topk-runs
+    cut; topk may exceed n."""
+    page = rank_in_sorted(vals, bounds, strict=False)
+    page = page.clamp_max(bounds.shape[0] - 1)
+    pg, rk, ct, _ = page_runs(vals, keep, page, vals.shape[1])
+    return qk.runs_topk(pg, rk, ct, topk)
+
+
+def locate_topk(coords, n, bounds, page_doc, topk: int):
+    """locate_topk_masked over dense streams coords [B, p] of lengths
+    n [B] (device_index.py:922; page_doc is unused, as there)."""
+    lane = torch.arange(coords.shape[1], device=coords.device)[None, :]
+    keep = (lane < n[:, None]) & (coords < INF32)
+    return locate_topk_masked(coords, keep, bounds, topk)
+
+
+def query_step(term_offsets, coords, bounds, page_doc, terms, rs, cap: int,
+               topk: int, small=None):
+    """A batch of queries terms / rs [B, W] end to end on the torch
+    route (device_index.py:931): AND fold -> top-k ranked pages."""
+    vals, keep, _ = eval_and_query(coords, term_offsets, terms, rs, cap,
+                                   small)
+    return locate_topk_masked(vals, keep, bounds, topk)
+
+
+def batched_query_step(term_offsets, coords, bounds, page_doc, terms, rs,
+                       cap: int, topk: int, small=None):
+    """device_index.py:1864, the JAX package's vmap of query_step; here
+    query_step takes the batch itself. Returns (pages int32[B, topk],
+    ranks f32[B, topk], counts int32[B, topk])."""
+    return query_step(term_offsets, coords, bounds, page_doc, terms, rs,
+                      cap, topk, small)
+
+
 class LocateFull(NamedTuple):
     """Full per-query result, batched (device_index.py:726): pages /
     ranks / counts rank-ordered [B, topk], the untruncated totals, the
@@ -713,6 +758,49 @@ def multi_bucket_query_full(term_offsets, coords, bounds, page_doc,
     return outs
 
 
+def _kernel_bucket(term_offsets, coords, bounds, tq, rq, cap: int,
+                   topk: int, small=None, page_of=None):
+    """One page-level (cap, W <= 2) bucket through the page-level kernels
+    (device_index._pallas_bucket, :1529): the posting blocks are
+    fetched, with their pages where combined small tables serve the cap
+    (carried), and the whole bucket is one launch. Without carried
+    pages the kernel looks them up in bounds, where the JAX package
+    looks them up before its kernel when it has page_of."""
+    carried = page_of is not None and _tab_serves(small, cap)
+    fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
+    a, apg, na = fetch(tq[:, 0])
+    if tq.shape[1] == 1:
+        return qk.batched_single_locate(a, na, bounds, topk=topk, a_pg=apg)
+    b, bpg, nb = fetch(tq[:, 1])
+    return qk.sorted_and_locate(a, na, rq[:, 0].contiguous(), b, nb,
+                                rq[:, 1].contiguous(), bounds, topk=topk,
+                                a_pg=apg, b_pg=bpg)
+
+
+def multi_bucket_query_step(term_offsets, coords, bounds, page_doc,
+                            terms_list, rs_list, caps, topk: int,
+                            use_kernels: bool = False, small=None,
+                            page_of=None):
+    """Every page-level bucket of a batch (device_index.py:1804):
+    terms_list / rs_list hold [Bi, Wi] tensors, caps the matching
+    posting caps. With the kernels, W = 1 buckets up to MAX_PALLAS_CAP
+    and W = 2 buckets up to MAX_SORTED_PALLAS_CAP take a page-level
+    kernel; the rest take query_step. Returns one (pages, ranks, counts)
+    triple per bucket."""
+    outs = []
+    for tq, rq, cap in zip(terms_list, rs_list, caps):
+        limit = (qk.MAX_PALLAS_CAP if tq.shape[1] == 1
+                 else qk.MAX_SORTED_PALLAS_CAP)
+        if use_kernels and cap <= limit and tq.shape[1] <= 2:
+            outs.append(_kernel_bucket(term_offsets, coords, bounds, tq, rq,
+                                       cap, topk, small=small,
+                                       page_of=page_of))
+        else:
+            outs.append(query_step(term_offsets, coords, bounds, page_doc,
+                                   tq, rq, cap, topk, small))
+    return tuple(outs)
+
+
 # ---------------------------------------------------------------------------
 # host-side wrapper
 # ---------------------------------------------------------------------------
@@ -836,6 +924,98 @@ class DeviceIndex:
         if tid < 0:
             return 0
         return int(self.offsets_np[tid + 1] - self.offsets_np[tid])
+
+    def compile_queries(self, queries, pad_w: int = 0):
+        """[(word, R), ...] per query -> padded (terms int32[B, W],
+        rs int32[B, W]) numpy arrays and the posting cap of the batch
+        (device_index.py:1998). A query with an unknown word matches
+        nothing: its row stays all -1, which evaluates empty."""
+        w = max(max((len(q) for q in queries), default=1), pad_w, 1)
+        terms = np.full((len(queries), w), -1, dtype=np.int32)
+        rs = np.ones((len(queries), w), dtype=np.int32)
+        max_len = 1
+        for i, q in enumerate(queries):
+            if any(self.term_id(word) < 0 for word, _ in q):
+                continue
+            for j, (word, r) in enumerate(q):
+                terms[i, j] = self.term_id(word)
+                rs[i, j] = r
+                max_len = max(max_len, self.posting_count(word))
+        return terms, rs, _bucket(max_len)
+
+    def search_batch(self, queries, topk: int = 16,
+                     cap: Optional[int] = None, use_kernels: bool = True,
+                     cap_ladder=None):
+        """Evaluate a batch of AND / phrase queries, each a list of
+        (word, R), to their top-k pages (device_index.py:2022): numpy
+        (pages int32 -1 pad, ranks f32, counts int32), each [B, topk],
+        in rank order.
+
+        Queries group into (posting cap, word count) buckets, the cap a
+        power of two from 64, or the first rung of `cap_ladder` that
+        holds the longest list, or `cap` for every query (longer lists
+        are then cut to their first `cap` postings). A query with an
+        unknown word matches nothing and never reaches the device.
+
+        use_kernels: the page-level CUDA kernels for the buckets they
+        admit (on the CPU their plain versions), or with False the torch
+        route for every bucket."""
+        b = len(queries)
+        pages = np.full((b, topk), -1, dtype=np.int32)
+        ranks = np.zeros((b, topk), dtype=np.float32)
+        counts = np.zeros((b, topk), dtype=np.int32)
+
+        def round_cap(need: int) -> int:
+            if cap:
+                return cap
+            for c in cap_ladder or ():
+                if need <= c:
+                    return c
+            return _bucket(need)
+
+        buckets = {}
+        for i, q in enumerate(queries):
+            if any(self.term_id(word) < 0 for word, _ in q):
+                continue
+            need = max((self.posting_count(word) for word, _ in q),
+                       default=1)
+            buckets.setdefault((round_cap(max(need, 1)), max(len(q), 1)),
+                               []).append(i)
+        terms_list, rs_list, caps_list, idx_list = [], [], [], []
+        dev = self.device
+        for (qcap, w), idxs in sorted(buckets.items()):
+            brows = _bucket(len(idxs), lo=8)
+            terms = np.full((brows, w), -1, dtype=np.int32)
+            rs = np.ones((brows, w), dtype=np.int32)
+            for row, i in enumerate(idxs):
+                for j, (word, r) in enumerate(queries[i]):
+                    terms[row, j] = self.term_id(word)
+                    rs[row, j] = r
+            terms_list.append(torch.as_tensor(terms, device=dev))
+            rs_list.append(torch.as_tensor(rs, device=dev))
+            caps_list.append(qcap)
+            idx_list.append(idxs)
+        if not idx_list:
+            return pages, ranks, counts
+        # an explicit cap may cut long lists, which the small tables
+        # cannot serve (no row for a count past the cap), and then no
+        # page stream is carried either: the kernels locate from bounds
+        outs = multi_bucket_query_step(
+            self.term_offsets, self.coords, self.bounds, self.page_doc,
+            terms_list, rs_list, caps_list, topk, use_kernels=use_kernels,
+            small=self.small if cap is None else None,
+            page_of=self.page_of if cap is None else None)
+        # one transfer per field for the whole batch
+        host = [torch.cat([o[f] for o in outs]).cpu().numpy()
+                for f in range(3)]
+        off = 0
+        for idxs, o in zip(idx_list, outs):
+            n = len(idxs)
+            pages[idxs] = host[0][off: off + n]
+            ranks[idxs] = host[1][off: off + n]
+            counts[idxs] = host[2][off: off + n]
+            off += o[0].shape[0]
+        return pages, ranks, counts
 
     def compile_group_query(self, query):
         """One group query [(codes, r), ...] -> (id rows, rs, w, v, cap

@@ -1,8 +1,8 @@
-"""The full-result kernels: twin of docodo_tpu/ops/pallas_query.py.
+"""The query kernels: twin of docodo_tpu/ops/pallas_query.py.
 
-Ten wrappers, one per hand-written CUDA kernel (csrc/locate_full.cu,
-csrc/variants.cu, csrc/chunked.cu), each with its plain PyTorch version
-beside it:
+One wrapper per hand-written CUDA kernel (csrc/locate_full.cu,
+csrc/variants.cu, csrc/chunked.cu, csrc/locate_topk.cu), each with its
+plain PyTorch version beside it. The full-result kernels:
 
   sorted_and_locate_full  W = 2, cap <= 512   (pallas_query.py:1164)
   single_locate_full      W = 1, cap <= 128   (pallas_query.py:1243)
@@ -19,6 +19,14 @@ beside it:
   union_merge_locate_full W = 1, V > 1, V cap <= 1024 (pallas_query.py:977)
   variants_keep           the variants AND's kept stream, any width
                           (pallas_query.py:2880)
+
+The page-level kernels, which rank every run of a row and pick its top
+k themselves (pages, ranks, counts int32, each [B, topk]):
+
+  sorted_and_locate       W = 2, cap <= 512   (pallas_query.py:1080)
+  batched_and_locate      the same kernel without page streams
+                          (pallas_query.py:1355)
+  batched_single_locate   W = 1, cap <= 128   (pallas_query.py:1403)
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors only; any other device raises. The plain
@@ -42,6 +50,7 @@ from docodo_tpu_torch.ops.seqops import (
     combine_r,
     fold_dups,
     locate_compact,
+    page_runs,
     segment_and,
     select_slots,
     sort_tagged,
@@ -696,3 +705,156 @@ def locate_runs_plain(hv, bounds, *, topk: int, hit_cap: int, pg=None):
     """locate_runs through its plain version, on any device."""
     return _locate_runs_call(_locate_runs_plain, hv, bounds, topk, hit_cap,
                              pg)
+
+
+# ---------------------------------------------------------------------------
+# the page-level kernels: every run ranked, the top k picked in the kernel
+# ---------------------------------------------------------------------------
+
+def runs_topk(pg, rk, ct, topk: int):
+    """The top `topk` of a row's page runs (pages, ranks, counts, each
+    [B, n] in run order, rank 0 past the runs) by (rank descending, run
+    ordinal ascending): plain version of the kernels' locate_topk_tail
+    (pallas_query._locate_rank_topk). Returns (pages -1 pad, ranks
+    0 pad, counts int32 0 pad), each [B, topk]; topk may exceed n."""
+    bsz, n = rk.shape
+    if n < topk:
+        z = topk - n
+        pg = torch.cat([pg, pg.new_full((bsz, z), -1)], dim=1)
+        rk = torch.cat([rk, rk.new_zeros((bsz, z))], dim=1)
+        ct = torch.cat([ct, ct.new_zeros((bsz, z))], dim=1)
+    top_rank, top_slot = topk_nonneg(rk, topk)
+    valid = top_rank > 0
+    return (torch.where(valid, select_slots(pg, top_slot), -1), top_rank,
+            torch.where(valid, select_slots(ct, top_slot), 0))
+
+
+def _masked_topk(vals, keep, page, topk: int):
+    pg, rk, ct, _ = page_runs(vals, keep, page, vals.shape[1])
+    return runs_topk(pg, rk, ct, topk)
+
+
+def _and_topk_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bounds, topk):
+    """Plain version of docodo_and_locate_topk: the plain merge, the
+    plain AND keep, every run ranked, the plain top-k. Without page
+    streams the merged lanes' pages are looked up in bounds."""
+    vals, tag, page = _merge_tagged_plain(
+        *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
+    if page is None:
+        page = shared_pg(vals, bounds)
+    keep = _and_keep_plain(vals, tag, ra, rb) < INF32
+    return _masked_topk(vals, keep, page, topk)
+
+
+def _topk_outputs(rows: int, topk: int, dev):
+    return (torch.empty((rows, topk), dtype=torch.int32, device=dev),
+            torch.empty((rows, topk), dtype=torch.float32, device=dev),
+            torch.empty((rows, topk), dtype=torch.int32, device=dev))
+
+
+def _and_topk_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, bounds, topk):
+    rows, cap = a.shape
+    if not 0 < cap <= MAX_SORTED_PALLAS_CAP or topk <= 0:
+        raise ValueError(f"docodo_and_locate_topk: cap {cap}, topk {topk}")
+    for name, t in (("a", a), ("a_pg", a_pg), ("b", b), ("b_pg", b_pg)):
+        if t is not None:
+            _cuda.check(t, name, torch.int32, (rows, cap))
+    for name, t in (("na", na), ("ra", ra), ("nb", nb), ("rb", rb)):
+        _cuda.check(t, name, torch.int32, (rows,))
+    _cuda.check(bounds, "bounds", torch.int32, (bounds.shape[0],))
+    outs = _topk_outputs(rows, topk, a.device)
+    _cuda.AND_LOCATE_TOPK.launch(a.device, a, a_pg, na, ra, b, b_pg, nb, rb,
+                                 bounds, bounds.shape[0], rows, cap, topk,
+                                 *outs)
+    return outs
+
+
+def _and_topk_call(core, a, na, ra, b, nb, rb, bounds, topk, a_pg, b_pg):
+    cap = a.shape[1]
+    if cap > MAX_SORTED_PALLAS_CAP or b.shape[1] != cap:
+        raise ValueError(f"page-level W=2 kernel takes equal caps <= "
+                         f"{MAX_SORTED_PALLAS_CAP}, got {cap}/{b.shape[1]}")
+    if (a_pg is None) != (b_pg is None):
+        raise ValueError("both page streams or neither")
+    return core(a, a_pg, na, ra, b, b_pg, nb, rb, bounds, topk)
+
+
+def sorted_and_locate(a, na, ra, b, nb, rb, bounds, *, topk: int,
+                      a_pg=None, b_pg=None):
+    """Page-level W = 2 AND + locate + top-k over [B, cap <= 512] posting
+    blocks a / b with lengths na / nb and windows ra / rb
+    (pallas_sorted_and_locate): every page run of the row is ranked and
+    the best topk by (rank descending, lane ascending) come back as
+    (pages int32 -1 pad, ranks f32, counts int32), each [B, topk]. Pages
+    come from the carried streams a_pg / b_pg, or are looked up in
+    bounds inside the kernel; topk may exceed 2 cap."""
+    return _and_topk_call(
+        lambda *x: _on_device(_and_topk_kernel, _and_topk_plain, *x),
+        a, na, ra, b, nb, rb, bounds, topk, a_pg, b_pg)
+
+
+def sorted_and_locate_plain(a, na, ra, b, nb, rb, bounds, *, topk: int,
+                            a_pg=None, b_pg=None):
+    """sorted_and_locate through its plain version, on any device."""
+    return _and_topk_call(_and_topk_plain, a, na, ra, b, nb, rb, bounds,
+                          topk, a_pg, b_pg)
+
+
+def batched_and_locate(a, na, ra, b, nb, rb, bounds, *, topk: int):
+    """pallas_batched_and_locate: sorted_and_locate's function with the
+    pages always looked up in bounds (the TPU kernel merges by
+    compare-all inside; here both are one kernel)."""
+    return sorted_and_locate(a, na, ra, b, nb, rb, bounds, topk=topk)
+
+
+def batched_and_locate_plain(a, na, ra, b, nb, rb, bounds, *, topk: int):
+    """batched_and_locate through its plain version, on any device."""
+    return sorted_and_locate_plain(a, na, ra, b, nb, rb, bounds, topk=topk)
+
+
+def _single_topk_plain(a, a_pg, na, bounds, topk):
+    """Plain version of docodo_single_locate_topk: the block's first na
+    slots are the kept stream."""
+    lane = torch.arange(a.shape[1], device=a.device)[None, :]
+    keep = lane < na[:, None]
+    vals = torch.where(keep, a, INF32)
+    page = a_pg if a_pg is not None else shared_pg(vals, bounds)
+    return _masked_topk(vals, keep, page, topk)
+
+
+def _single_topk_kernel(a, a_pg, na, bounds, topk):
+    rows, cap = a.shape
+    if not 0 < cap <= MAX_PALLAS_CAP or topk <= 0:
+        raise ValueError(f"docodo_single_locate_topk: cap {cap}, topk "
+                         f"{topk}")
+    _cuda.check(a, "a", torch.int32, (rows, cap))
+    if a_pg is not None:
+        _cuda.check(a_pg, "a_pg", torch.int32, (rows, cap))
+    _cuda.check(na, "na", torch.int32, (rows,))
+    _cuda.check(bounds, "bounds", torch.int32, (bounds.shape[0],))
+    outs = _topk_outputs(rows, topk, a.device)
+    _cuda.SINGLE_LOCATE_TOPK.launch(a.device, a, a_pg, na, bounds,
+                                    bounds.shape[0], rows, cap, topk, *outs)
+    return outs
+
+
+def _single_topk_call(core, a, na, bounds, topk, a_pg):
+    cap = a.shape[1]
+    if cap > MAX_PALLAS_CAP:
+        raise ValueError(f"page-level W=1 kernel takes caps <= "
+                         f"{MAX_PALLAS_CAP}, got {cap}")
+    return core(a, a_pg, na, bounds, topk)
+
+
+def batched_single_locate(a, na, bounds, *, topk: int, a_pg=None):
+    """Page-level W = 1 locate + top-k over [B, cap <= 128] posting
+    blocks (pallas_batched_single_locate); outputs and page sources as
+    sorted_and_locate."""
+    return _single_topk_call(
+        lambda *x: _on_device(_single_topk_kernel, _single_topk_plain, *x),
+        a, na, bounds, topk, a_pg)
+
+
+def batched_single_locate_plain(a, na, bounds, *, topk: int, a_pg=None):
+    """batched_single_locate through its plain version, on any device."""
+    return _single_topk_call(_single_topk_plain, a, na, bounds, topk, a_pg)

@@ -219,9 +219,9 @@ def or_variants_sorted(streams, ns):
     return vals, keep
 
 
-def locate_compact(vals, keep, page, kpad: int, hpad: int):
-    """Masked ascending stream -> the first `kpad` page runs in slot
-    order and the first `hpad` kept hits, with exact totals.
+def page_runs(vals, keep, page, kpad: int):
+    """Masked ascending stream -> its first `kpad` page runs in slot
+    order; with kpad = n, every run of the row.
 
     A run starts at a kept slot whose page differs from the previous
     kept slot's; each later slot of the run adds 30 // max(5, gap).
@@ -230,9 +230,8 @@ def locate_compact(vals, keep, page, kpad: int, hpad: int):
     any summation order gives the same f32. Page values at dropped
     slots are never read.
 
-    Returns (pg_c int32[B, kpad] (-1 pad), rk_c f32[B, kpad] (0 pad),
-    ct_c f32[B, kpad] (0 pad), n_pages int32[B], n_hits int32[B],
-    hits int32[B, hpad] (INF32 pad))."""
+    Returns (pages int32[B, kpad] (-1 pad), ranks f32[B, kpad] (0 pad),
+    counts int32[B, kpad] (0 pad), n_pages int32[B])."""
     bsz, n = vals.shape
     dev = vals.device
     lane = torch.arange(n, device=dev)[None, :]
@@ -247,7 +246,6 @@ def locate_compact(vals, keep, page, kpad: int, hpad: int):
     bonus = torch.where(keep & ~first, 30 // gap.clamp_min(5), 0)
     run_id = torch.cumsum(first, dim=1) - 1
     n_pages = first.sum(dim=1, dtype=torch.int32)
-    n_hits = keep.sum(dim=1, dtype=torch.int32)
     # runs past kpad and dropped slots land in the spare column kpad
     rsel = torch.where(keep & (run_id < kpad), run_id, kpad)
     zeros = torch.zeros((bsz, kpad + 1), dtype=torch.int32, device=dev)
@@ -255,14 +253,27 @@ def locate_compact(vals, keep, page, kpad: int, hpad: int):
     bon = zeros.scatter_add(1, rsel, bonus.to(torch.int32))[:, :kpad]
     psel = torch.where(first, rsel, kpad)
     pg = zeros.scatter(1, psel, page)[:, :kpad]
-    cnt_f = cnt.to(torch.float32)
-    rank = (1.0 + bon.to(torch.float32)) + torch.log(cnt_f.clamp_min(1.0))
+    rank = (1.0 + bon.to(torch.float32)) + torch.log(
+        cnt.to(torch.float32).clamp_min(1.0))
     served = torch.arange(kpad, device=dev)[None, :] < n_pages[:, None]
-    pg_c = torch.where(served, pg, -1)
-    rk_c = torch.where(served, rank, 0.0)
-    ct_c = torch.where(served, cnt_f, 0.0)
+    return (torch.where(served, pg, -1), torch.where(served, rank, 0.0),
+            torch.where(served, cnt, 0), n_pages)
+
+
+def locate_compact(vals, keep, page, kpad: int, hpad: int):
+    """Masked ascending stream -> the first `kpad` page runs in slot
+    order (page_runs, counts as f32) and the first `hpad` kept hits,
+    with exact totals.
+
+    Returns (pg_c int32[B, kpad] (-1 pad), rk_c f32[B, kpad] (0 pad),
+    ct_c f32[B, kpad] (0 pad), n_pages int32[B], n_hits int32[B],
+    hits int32[B, hpad] (INF32 pad))."""
+    bsz = vals.shape[0]
+    pg_c, rk_c, cnt, n_pages = page_runs(vals, keep, page, kpad)
+    n_hits = keep.sum(dim=1, dtype=torch.int32)
     slot = torch.cumsum(keep, dim=1) - 1
     hsel = torch.where(keep & (slot < hpad), slot, hpad)
-    hits = torch.full((bsz, hpad + 1), INF32, dtype=torch.int32, device=dev)
+    hits = torch.full((bsz, hpad + 1), INF32, dtype=torch.int32,
+                      device=vals.device)
     hits = hits.scatter(1, hsel, vals)[:, :hpad]
-    return pg_c, rk_c, ct_c, n_pages, n_hits, hits
+    return pg_c, rk_c, cnt.to(torch.float32), n_pages, n_hits, hits

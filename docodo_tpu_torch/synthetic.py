@@ -6,12 +6,14 @@ cut into documents of about `doc_chars` characters and those into pages
 of about 3000 characters, the page length bench.py uses (pages end at a
 word boundary). The same seed gives the same corpus on every machine, so
 the JAX package and the port can be held against each other on it.
-Imports no jax.
+
+For vocabularies, a Russian-like text of the surface forms a loaded
+.voc file knows (vocabulary_documents). Imports no jax.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -86,7 +88,50 @@ def zipf_documents(total_chars: int, seed: int = 0, vocab: int = 50_000,
             for d, pages in sorted(doc_pages.items())]
 
 
-def build_index(docs: List[PagedDocument]) -> host_index.HostIndex:
+RU_ENDINGS = ("", "а", "у", "ом", "е", "ы", "ов", "ами", "ой", "ого", "ая",
+              "ые", "ий", "ть", "ла", "ли")
+
+
+def vocabulary_forms(voc) -> List[str]:
+    """Surface forms a vocabulary knows: its stems with Russian endings,
+    kept where the form is indexable (3 letters or more) and its stem is
+    a key of the vocabulary. In stem order."""
+    forms: List[str] = []
+    seen = set()
+    for stem in sorted(voc.words):
+        for end in RU_ENDINGS:
+            w = stem + end
+            if len(w) >= 3 and w not in seen and voc.search(voc.stem(w)):
+                seen.add(w)
+                forms.append(w)
+    return forms
+
+
+def vocabulary_documents(voc, n_docs: int = 6, pages: int = 5,
+                         words: int = 260, seed: int = 0,
+                         extra: Sequence[str] = ()) -> List[PagedDocument]:
+    """Seeded paged documents over vocabulary_forms(voc) plus `extra`
+    words (unknown words, stop words, numbers), drawn with a shuffled
+    power-law weight so that some words are frequent and many rare. The
+    header values (document names) are no body tokens."""
+    rng = np.random.default_rng(seed)
+    pool = vocabulary_forms(voc) + list(extra)
+    weights = 1.0 / np.arange(1, len(pool) + 1) ** 0.7
+    weights = weights[rng.permutation(len(pool))]
+    weights /= weights.sum()
+    docs = []
+    for d in range(n_docs):
+        texts = []
+        for _ in range(pages):
+            picks = rng.choice(len(pool), size=words, p=weights)
+            texts.append(" ".join(pool[i] for i in picks).capitalize() + ".")
+        docs.append(PagedDocument(f"doc{d:05d}", texts))
+    return docs
+
+
+def build_index(docs: List[PagedDocument], vocs: Sequence = (),
+                stop_words=None) -> host_index.HostIndex:
     """Index `docs` with the port's host build (docodo_tpu_torch.index),
     as the source "synth"."""
-    return host_index.build_index(ListDataSource("synth", docs))
+    return host_index.build_index(ListDataSource("synth", docs), vocs=vocs,
+                                  stop_words=stop_words)

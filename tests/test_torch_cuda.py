@@ -245,3 +245,91 @@ def test_and_keep_compact_matches_plain_on_card(cuda_device):
     want = qk.and_keep_compact_plain(vals, tag, x["ra"], x["rb"], pg)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert int(got[2].max()) > 0
+
+
+def _spread_batch(rng, bsz, cap):
+    """_batch with the pool's steps varied by row: dense rows (runs of
+    many hits), rows with one hit on most 60-char pages (runs tied at
+    rank 1.0) and rows in between, so that more runs than topk tie."""
+    kind = np.arange(bsz)[:, None] % 3
+    pool = np.cumsum(rng.integers(np.choose(kind, [1, 50, 10]),
+                                  np.choose(kind, [30, 70, 40]),
+                                  size=(bsz, 2 * cap)), axis=1)
+    pick = lambda: np.sort(np.argsort(rng.random((bsz, 2 * cap)), axis=1)
+                           [:, :cap], axis=1)
+    a = np.take_along_axis(pool, pick(), axis=1).astype(np.int32)
+    b = np.take_along_axis(pool, pick(), axis=1).astype(np.int32)
+    na = rng.integers(0, cap + 1, bsz).astype(np.int32)
+    nb = rng.integers(0, cap + 1, bsz).astype(np.int32)
+    na[::7], nb[1::7], na[2::5], nb[2::5] = 0, 0, cap, cap
+    ra = np.where(np.arange(bsz) % 2 == 0, 75, -75).astype(np.int32)
+    rb = np.where(np.arange(bsz) % 2 == 0, 70, -70).astype(np.int32)
+    bounds = np.arange(60, int(pool.max()) + 61, 60, dtype=np.int32)
+    pg = lambda x: np.minimum(np.searchsorted(bounds, x, side="right"),
+                              bounds.size - 1).astype(np.int32)
+    return a, na, ra, b, nb, rb, bounds, pg(a), pg(b)
+
+
+def _assert_topk_equal(got, want):
+    """Page-level outputs: pages and counts exact, ranks within 1 ulp."""
+    for field, g, w in zip(("pages", "ranks", "counts"), got, want):
+        g, w = g.cpu(), w.cpu()
+        assert g.shape == w.shape and g.dtype == w.dtype, field
+        if field == "ranks":
+            d = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            assert int(d.abs().max()) <= 1, field
+        else:
+            assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,topk,carried", [
+    (64, 16, True), (512, 16, True), (256, 64, False), (32, 128, False)])
+def test_and_locate_topk_matches_plain_on_card(cuda_device, cap, topk,
+                                               carried):
+    rng = np.random.default_rng(cap + topk)
+    a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, 512, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(bounds))
+    kw = dict(topk=topk)
+    if carried:
+        kw.update(a_pg=c(apg), b_pg=c(bpg))
+    got = qk.sorted_and_locate(*args, **kw)
+    torch.cuda.synchronize()
+    want = qk.sorted_and_locate_plain(*args, **kw)
+    _assert_topk_equal(got, want)
+    if topk < 2 * cap:  # a full row whose last two served runs tie
+        full = want[0][:, -1] >= 0
+        assert bool((full & (want[1][:, -1] == want[1][:, -2])).any())
+    if not carried:  # the bounds form is batched_and_locate's
+        _assert_topk_equal(qk.batched_and_locate(*args, topk=topk), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,topk,carried", [
+    (64, 16, True), (128, 16, False), (128, 64, True), (32, 64, False)])
+def test_single_locate_topk_matches_plain_on_card(cuda_device, cap, topk,
+                                                  carried):
+    rng = np.random.default_rng(cap * topk)
+    a, na, _, _, _, _, bounds, apg, _ = _spread_batch(rng, 512, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    kw = dict(topk=topk, a_pg=c(apg) if carried else None)
+    got = qk.batched_single_locate(c(a), c(na), c(bounds), **kw)
+    torch.cuda.synchronize()
+    want = qk.batched_single_locate_plain(c(a), c(na), c(bounds), **kw)
+    _assert_topk_equal(got, want)
+    if topk < cap:
+        full = want[0][:, -1] >= 0
+        assert bool((full & (want[1][:, -1] == want[1][:, -2])).any())
+
+
+@pytest.mark.cuda
+def test_page_kernels_reject_what_they_cannot_take(cuda_device):
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="caps <= 128"):
+        qk.batched_single_locate(z(8, 256), z(8), z(4), topk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.batched_single_locate(z(8, 128)[:, ::2], z(8), z(4), topk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.sorted_and_locate(z(8, 64), z(8), z(8, 2)[:, 0], z(8, 64), z(8),
+                             z(8), z(4), topk=8)

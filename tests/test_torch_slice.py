@@ -181,9 +181,10 @@ def test_plain_route_equals_jax(corpus):
 
 
 def test_port_imports_no_jax():
-    """The port's host build, the search (standard and wide rows), and
-    chip_smoke's CPU-runnable helpers (the mixes, the oracles) run
-    without loading jax, the JAX package or the benchmarks."""
+    """The port's host build (with a vocabulary too), both searches
+    (standard and wide rows, the page level), and chip_smoke's
+    CPU-runnable helpers (the mixes, the oracles) run without loading
+    jax, the JAX package or the benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -199,6 +200,15 @@ def test_port_imports_no_jax():
             [[(words[0], 260)], [(words[0], 260), (words[1], 260)]],
             use_kernels=True)
         assert out["pages"].shape == (2, 64)
+        pages, ranks, counts = dix.search_batch(
+            [[(words[0], 260)], [(words[0], 260), (words[1], 260)]])
+        assert pages.shape == (2, 16) and pages[0, 0] >= 0
+        from docodo_tpu_torch.index import word_group
+        from docodo_tpu_torch.lang.vocab import Vocab
+        from docodo_tpu_torch.synthetic import vocabulary_documents
+        voc = Vocab("Dict/ru.voc")
+        rus = build_index(vocabulary_documents(voc, n_docs=2), vocs=[voc])
+        assert word_group(rus, "князь")[0][0].startswith("#")
         terms, rs = standard_mix(np.diff(dix.offsets_np), dix.terms, 30)
         assert terms.shape == (30, 2)
         a = dix.coords[dix.offsets_np[10]:dix.offsets_np[11]].numpy()

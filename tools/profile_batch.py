@@ -1,11 +1,12 @@
-"""Where the time of one full-result batch goes: docodo_tpu_torch's
-search_batch_full over the standard 10k mix or the wide 10k mix
-(benchmarks/common.wide_mix, seed 77, as bench.py serves it) on a seeded
-Zipf corpus (the corpus and mixes of chip_smoke.py), on the kernel route
-and the plain route.
+"""Where the time of one batch goes: docodo_tpu_torch's
+search_batch_full (--leg full: topk 64, hit_cap 1024) over the standard
+10k mix or the wide 10k mix (benchmarks/common.wide_mix, seed 77, as
+bench.py serves it), or its page-level search_batch (--leg page: topk
+16, the standard mix), on a seeded Zipf corpus (the corpus and mixes of
+chip_smoke.py), on the kernel route and the plain (torch) route.
 
-    python3 tools/profile_batch.py [--mix standard|wide] [--corpus-mb 64]
-                                   [--seed 0] [--out FILE]
+    python3 tools/profile_batch.py [--leg full|page] [--mix standard|wide]
+                                   [--corpus-mb 64] [--seed 0] [--out FILE]
 
 Prints, per route:
   - the whole batch and its phases over RUNS warm runs, the routes
@@ -15,7 +16,8 @@ Prints, per route:
     numpy and the scatter into the result);
   - each bucket alone with a synchronise around it: cap, words,
     variants, rows, the route that served it (a slot kernel, the chunked
-    kernels or the plain route), ms;
+    kernels or the plain route; on the page leg a page-level kernel or
+    the torch route), ms;
   - one batch under torch.profiler: device time, profiled wall, busy
     share, the largest device items and each CUDA kernel's device time.
 The phase split synchronises once, after dispatch, so a batch reads a
@@ -50,6 +52,7 @@ from docodo_tpu_torch.synthetic import build_index, zipf_documents  # noqa: E402
 
 TOPK = 64
 HIT_CAP = 1024
+PAGE_TOPK = 16  # bench.py:41
 N_QUERIES = 10_000
 RUNS = 5
 ROUTES = {"kernel": True, "plain": False}
@@ -63,7 +66,9 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "locate_runs": "locate_runs_kernel",
                 "variants_and_locate_full": "variants_and_locate_full_kernel",
                 "union_merge_locate_full": "union_merge_locate_full_kernel",
-                "variants_keep": "keep_kernel<true>"}
+                "variants_keep": "keep_kernel<true>",
+                "and_locate_topk": "and_locate_topk_kernel",
+                "single_locate_topk": "single_locate_topk_kernel"}
 WIDE_SEED = 77  # bench.py:353
 
 
@@ -75,11 +80,25 @@ def card() -> str:
     return smi.splitlines()[0]
 
 
-def phased_batch(dix, queries, use_kernels: bool) -> dict:
-    """One batch, its host clock split at the entry and exit of
-    multi_bucket_query_full, with a synchronise after dispatch."""
+def run_batch(dix, queries, use_kernels: bool, leg: str):
+    if leg == "page":
+        return dix.search_batch(queries, topk=PAGE_TOPK,
+                                use_kernels=use_kernels)
+    return dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                 use_kernels=use_kernels)
+
+
+DISPATCHERS = {"full": "multi_bucket_query_full",
+               "page": "multi_bucket_query_step"}
+
+
+def phased_batch(dix, queries, use_kernels: bool, leg: str) -> dict:
+    """One batch, its host clock split at the entry and exit of the
+    leg's dispatcher (multi_bucket_query_full or _step), with a
+    synchronise after dispatch."""
     marks = {}
-    inner = tdi.multi_bucket_query_full
+    name = DISPATCHERS[leg]
+    inner = getattr(tdi, name)
 
     def timed(*a, **k):
         marks["enter"] = time.perf_counter()
@@ -89,14 +108,13 @@ def phased_batch(dix, queries, use_kernels: bool) -> dict:
         marks["drained"] = time.perf_counter()
         return outs
 
-    tdi.multi_bucket_query_full = timed
+    setattr(tdi, name, timed)
     try:
         t0 = time.perf_counter()
-        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
-                              use_kernels=use_kernels)
+        run_batch(dix, queries, use_kernels, leg)
         t1 = time.perf_counter()
     finally:
-        tdi.multi_bucket_query_full = inner
+        setattr(tdi, name, inner)
     ms = lambda a, b: (b - a) * 1e3
     return {"batch": ms(t0, t1), "bucketing": ms(t0, marks["enter"]),
             "dispatch": ms(marks["enter"], marks["dispatched"]),
@@ -142,7 +160,41 @@ def bucket_times(dix, queries, use_kernels: bool) -> list:
     return rows
 
 
-def profiled_batch(dix, queries, use_kernels: bool, top: int = 8) -> dict:
+def page_bucket_times(dix, queries, use_kernels: bool) -> list:
+    """Each bucket of one page-level batch with a synchronise before
+    and after: the page-level kernels' buckets and the torch route's."""
+    rows = []
+    routes = {"kernel": "_kernel_bucket", "torch": "query_step"}
+    saved = {route: getattr(tdi, fn) for route, fn in routes.items()}
+
+    def timed(route):
+        def call(term_offsets, coords, bounds, *a, **k):
+            # _kernel_bucket(.., tq, rq, cap, ..); query_step(.., page_doc,
+            # terms, rs, cap, ..)
+            tq, cap = (a[0], a[2]) if route == "kernel" else (a[1], a[3])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[route](term_offsets, coords, bounds, *a, **k)
+            torch.cuda.synchronize()
+            rows.append({"cap": int(cap), "words": int(tq.shape[1]),
+                         "variants": 1, "rows": int(tq.shape[0]),
+                         "route": route,
+                         "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+        return call
+
+    for route, fn in routes.items():
+        setattr(tdi, fn, timed(route))
+    try:
+        run_batch(dix, queries, use_kernels, "page")
+    finally:
+        for route, fn in routes.items():
+            setattr(tdi, fn, saved[route])
+    return rows
+
+
+def profiled_batch(dix, queries, use_kernels: bool, leg: str,
+                   top: int = 8) -> dict:
     """One batch under torch.profiler: summed device time of every
     kernel and copy against the profiled wall. Only device-side events
     count: a host op carries the device time of what it launched."""
@@ -150,8 +202,7 @@ def profiled_batch(dix, queries, use_kernels: bool, top: int = 8) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
-                              use_kernels=use_kernels)
+        run_batch(dix, queries, use_kernels, leg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
@@ -182,6 +233,7 @@ def summarize(runs: list) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--leg", choices=("full", "page"), default="full")
     ap.add_argument("--mix", choices=("standard", "wide"),
                     default="standard")
     ap.add_argument("--corpus-mb", type=float, default=64.0)
@@ -190,6 +242,10 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_batch: no CUDA device")
+    if args.leg == "page" and args.mix != "standard":
+        raise SystemExit("profile_batch: the page leg serves V = 1 rows: "
+                         "--mix standard")
+    leg = args.leg
     smi = card()
 
     docs = zipf_documents(int(args.corpus_mb * 1e6), seed=args.seed)
@@ -202,22 +258,24 @@ def main() -> None:
     queries = mix_queries(terms, rs, dix.terms)
     print(f"{args.corpus_mb:g} MB seed {args.seed}: {dix.bounds.numel()} "
           f"pages, {dix.coords.numel()} postings, {args.mix} mix of "
-          f"{len(queries)} queries; {smi}", flush=True)
+          f"{len(queries)} queries, {leg} leg; {smi}", flush=True)
 
-    report = {"card": smi, "mix": args.mix, "corpus_mb": args.corpus_mb,
+    report = {"card": smi, "leg": leg, "mix": args.mix,
+              "corpus_mb": args.corpus_mb,
               "seed": args.seed, "runs": RUNS, "routes": {}}
     for use in ROUTES.values():  # warm both routes
-        dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
-                              use_kernels=use)
+        run_batch(dix, queries, use, leg)
     phased = {name: [] for name in ROUTES}
     for i in range(RUNS):
         order = list(ROUTES) if i % 2 == 0 else list(ROUTES)[::-1]
         for name in order:
-            phased[name].append(phased_batch(dix, queries, ROUTES[name]))
+            phased[name].append(phased_batch(dix, queries, ROUTES[name],
+                                             leg))
     for name, use in ROUTES.items():
+        timer = page_bucket_times if leg == "page" else bucket_times
         rep = {"phases_ms": summarize(phased[name]),
-               "buckets": bucket_times(dix, queries, use),
-               "profile": profiled_batch(dix, queries, use)}
+               "buckets": timer(dix, queries, use),
+               "profile": profiled_batch(dix, queries, use, leg)}
         report["routes"][name] = rep
         print(f"== {name} route ({smi})")
         for key, v in rep["phases_ms"].items():
