@@ -8,7 +8,14 @@ full-result path (search_batch_full), the standard mix through both
 routes of the page-level path (search_batch, topk 16), times every
 kernel on the calls those batches make, checks sampled results against
 an independent numpy oracle, and serves words of a small Russian corpus
-built with Dict/ru.voc through their vocabulary keys.
+built with Dict/ru.voc through their vocabulary keys. Both mixes also go
+through the full-result path in the shape a server sends it: waves of
+512 rows through search_batch_full(fused=False, cap_ladder, deferred)
+with one wave in flight while the next is dispatched, then the truncated
+rows of cap <= 2048 once more at the escalated budgets (topk 2048,
+hit_cap 8192, clamp_budgets), once with each bucket's first-topk runs
+and the torch tail (sort_topk=True) and once through the top-k-mode
+kernels and merge_and_locate (sort_topk=False).
 
     python3 chip_smoke.py [--corpus-mb 64] [--seed 0]
 
@@ -79,6 +86,21 @@ KERNELS = {
                         [("_and_topk_kernel", "_and_topk_plain")]),
     "single_locate_topk": (LOCATE_TOPK, f"{PQ}:200",
                            [("_single_topk_kernel", "_single_topk_plain")]),
+    # the top-k-mode full-result kernels and the full-width fused kernel
+    "sorted_and_locate_full_topk": (LOCATE_FULL, f"{PQ}:498",
+                                    [("_sorted_and_topk_kernel",
+                                      "_sorted_and_topk_plain")]),
+    "variants_and_locate_full_topk": (VARIANTS, f"{PQ}:526",
+                                      [("_variants_and_topk_kernel",
+                                        "_variants_and_topk_plain")]),
+    "union_locate_full_topk": (VARIANTS, f"{PQ}:550",
+                               [("_union_topk_kernel", "_union_topk_plain")]),
+    "single_locate_full_topk": (LOCATE_FULL, f"{PQ}:218",
+                                [("_single_topk_mode_kernel",
+                                  "_single_topk_mode_plain")]),
+    "merge_and_locate": (LOCATE_FULL, f"{PQ}:2601",
+                         [("_merge_and_locate_streams_kernel",
+                           "_merge_and_locate_streams_plain")]),
 }
 STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
                     "union_locate_full", "merge_and_locate_topk",
@@ -86,6 +108,10 @@ STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
 WIDE_KERNELS = ("variants_and_locate_full", "union_merge_locate_full",
                 "variants_keep", "merge_tagged", "and_keep", "locate_runs")
 PAGE_KERNELS = ("and_locate_topk", "single_locate_topk")
+TOPK_MODE_KERNELS = ("sorted_and_locate_full_topk",
+                     "variants_and_locate_full_topk",
+                     "union_locate_full_topk", "single_locate_full_topk")
+SERVE_KERNELS = TOPK_MODE_KERNELS + ("merge_and_locate",)
 PAGE_CAPS = {"and_locate_topk": (64, 128, 256, 512),
              "single_locate_topk": (64, 128)}
 SLOT_CAPS = {
@@ -98,6 +124,8 @@ PAGE_WRAPPERS = {"and_locate_topk": "sorted_and_locate",
                  "single_locate_topk": "batched_single_locate"}
 FIELDS = ("pg_c", "rk_c", "ct_c", "n_pages", "n_hits", "hits")
 PAGE_FIELDS = ("pages", "ranks", "counts")
+FINISHED_FIELDS = PAGE_FIELDS + ("n_pages", "n_hits", "hits")
+STREAM_FIELDS = ("hits", "page_s", "rank_s", "cnt_s")
 
 
 def say(*parts) -> None:
@@ -126,7 +154,7 @@ def same_outputs(got, want, what: str, fields=FIELDS) -> float:
     for field, g, w in zip(fields, got, want):
         require(g.shape == w.shape and g.dtype == w.dtype,
                 f"{what}: {field} {tuple(g.shape)} {g.dtype}")
-        if field in ("rk_c", "ranks"):
+        if field in ("rk_c", "ranks", "rank_s"):
             u = ulps(g, w)
             require(u <= 1, f"{what}: ranks {u} ulp apart")
             diff = float((g - w).abs().max()) if g.numel() else 0.0
@@ -144,6 +172,10 @@ def same_result(name: str, got, want, what: str) -> float:
     Returns the largest absolute rank difference."""
     if name in PAGE_KERNELS:
         return same_outputs(got, want, what, PAGE_FIELDS)
+    if name in TOPK_MODE_KERNELS:
+        return same_outputs(got, want, what, FINISHED_FIELDS)
+    if name == "merge_and_locate":
+        return same_outputs(got, want, what, STREAM_FIELDS)
     if isinstance(got, torch.Tensor):
         require(torch.equal(got, want), f"{what} differs")
     elif name == "merge_tagged":
@@ -465,6 +497,113 @@ def phase_parity(rng) -> dict:
                 f"serving nothing"
                 + (f", ordered windows on every second row, {dups} "
                    f"coordinates in both words)" if dups else ")"))
+
+    def check_mode(name, what, wrapper, args, topk, hit_cap, **pgs):
+        """A top-k-mode kernel through its wrapper (sort_topk=False)
+        against its plain version; returns the plain outputs."""
+        kw = dict(topk=topk, hit_cap=hit_cap, sort_topk=False, **pgs)
+        got = getattr(qk, wrapper)(*args, **kw)
+        torch.cuda.synchronize()
+        want = getattr(qk, wrapper + "_plain")(*args, **kw)
+        err[name] = max(err[name], same_outputs(got, want, what,
+                                                FINISHED_FIELDS))
+        return want
+
+    def mode_sweep(name, wrapper, label, args, n, pgs):
+        """topk 16 carried / 64 looked up / the escalated 2048 clamped to
+        the stream with 8192 hits; the inputs hold rows with more runs
+        than topk, rows whose runs tie at the cut, and empty rows."""
+        shared = {k: None for k in pgs}
+        want = check_mode(name, f"{name} {label} topk 16", wrapper, args,
+                          16, HIT_CAP, **pgs)
+        check_mode(name, f"{name} {label} topk {TOPK} pages looked up",
+                   wrapper, args, TOPK, HIT_CAP, **shared)
+        check_mode(name, f"{name} {label} topk {min(2048, n)} hit_cap 8192",
+                   wrapper, args, min(2048, n), 8192, **pgs)
+        cut = int((want[3] > 16).sum())
+        tied = int(((want[1][:, 0] == want[1][:, -1]) & (want[3] > 16)).sum())
+        empty = int((want[3] == 0).sum())
+        require(cut > 0, f"{name} {label}: no row with more than 16 runs")
+        say(f"parity: {name} {label} B {want[0].shape[0]}, topk 16 / {TOPK} "
+            f"/ {min(2048, n)}, hit_cap {HIT_CAP} / 8192, carried pages / "
+            f"looked up: equal ({cut} rows with more than 16 runs, {tied} of "
+            f"them with all 16 served runs tied, {empty} empty rows)")
+        return tied, empty
+
+    def sweep(*a):
+        t, e = mode_sweep(*a)
+        seen[0] += t
+        seen[1] += e
+
+    seen = [0, 0]  # rows tied at the cut, empty rows
+    for cap in (64, 128, 256, 512):
+        x = _parity_inputs(rng, SLOT_ROWS, cap, dev, spread=True)
+        sweep(
+            "sorted_and_locate_full_topk", "sorted_and_locate_full",
+            f"cap {cap}",
+            (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bounds"]),
+            2 * cap, dict(a_pg=x["a_pg"], b_pg=x["b_pg"]))
+    for cap in (64, 128):
+        x = _parity_inputs(rng, SLOT_ROWS, cap, dev, spread=True)
+        sweep("single_locate_full_topk", "single_locate_full",
+                           f"cap {cap}", (x["a"], x["na"], x["bounds"]),
+                           cap, dict(a_pg=x["a_pg"]))
+    for cap in (256, 1024):  # a plain word past the W = 1 kernel: V = 1
+        x = _parity_inputs(rng, SLOT_ROWS, cap, dev, spread=True)
+        sweep("union_locate_full_topk", "union_locate_full",
+                           f"V 1 cap {cap}",
+                           (x["a"][:, None], x["na"][:, None], x["bounds"]),
+                           cap, dict(a_pg=x["a_pg"][:, None]))
+    for v, cap in ((2, 512), (4, 256), (8, 128)):
+        x = _variant_inputs(rng, SLOT_ROWS, v, 1, cap, dev, spacing=120)
+        sweep("union_locate_full_topk", "union_locate_full",
+                           f"V {v} cap {cap}",
+                           (x["a"], x["na"], x["bounds"]), v * cap,
+                           dict(a_pg=x["a_pg"]))
+    for va, vb, cap in ((2, 2, 128), (4, 4, 128)):
+        x = _variant_inputs(rng, SLOT_ROWS, va, vb, cap, dev, spacing=120)
+        sweep(
+            "variants_and_locate_full_topk", "variants_and_locate_full",
+            f"V {va}+{vb} cap {cap}",
+            (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bpad"],
+             x["bounds"]), (va + vb) * cap,
+            dict(a_pg=x["a_pg"], b_pg=x["b_pg"]))
+    require(min(seen) > 0, f"top-k-mode parity: {seen[0]} rows tied at the "
+            f"cut, {seen[1]} empty rows")
+
+    for cap in (1024, 2048):
+        x = _parity_inputs(rng, 1024, cap, dev)
+        args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["a_pg"],
+                x["b_pg"])
+        got = qk.merge_and_locate(*args)
+        torch.cuda.synchronize()
+        err["merge_and_locate"] = max(
+            err["merge_and_locate"],
+            same_outputs(got, qk.merge_and_locate_plain(*args),
+                         f"merge_and_locate cap {cap}", STREAM_FIELDS))
+        # its three-step form against the fused kernel with its tails
+        fused = qk.merge_and_locate_topk(*args, topk=TOPK, hit_cap=HIT_CAP)
+        pg_c, rk_c, ct_c, n_pages = qk.compact_streams_topk(*got[1:], TOPK)
+        live = rk_c > 0
+        require(torch.equal(n_pages, fused[3])
+                and torch.equal(pg_c[live], fused[0][live])
+                and torch.equal(ct_c, fused[2]) and ulps(rk_c, fused[1]) <= 1,
+                f"merge_and_locate cap {cap}: its streams' first {TOPK} runs "
+                f"differ from merge_and_locate_topk's")
+        at = torch.searchsorted(x["b"], x["a"])
+        lane = torch.arange(cap, device=dev)[None, :]
+        dups = int(((at < x["nb"][:, None]) & (lane < x["na"][:, None])
+                    & (torch.gather(x["b"], 1, at.clamp_max(cap - 1))
+                       == x["a"])).sum())
+        empty = int(((x["na"] == 0) | (x["nb"] == 0)).sum())
+        kept = int((got[0] < INF32).sum())
+        require(dups > 0 and empty > 0 and kept > 0,
+                f"merge_and_locate cap {cap}: {dups} duplicates, {empty} "
+                f"empty operands, {kept} kept")
+        say(f"parity: merge_and_locate cap {cap} n {2 * cap} B 1024: equal, "
+            f"and its first {TOPK} runs equal merge_and_locate_topk's ({kept} "
+            f"kept, ordered windows on every second row, {empty} rows with "
+            f"an empty operand, {dups} coordinates in both words)")
     return err
 
 
@@ -552,6 +691,21 @@ def _wide_queries(dix, n: int, n_alt: int):
             + mix_queries(at, ar, dix.terms))
 
 
+def _rows_equal(a: dict, b: dict, rows, what: str) -> None:
+    """Two result dicts equal on `rows` (a mask or a slice): ints exact,
+    ranks and doc ranks within 1 ulp."""
+    for f, v in a.items():
+        x, y = v[rows], b[f][rows]
+        if v.dtype == np.float32:
+            u = ulps(torch.from_numpy(np.ascontiguousarray(x)),
+                     torch.from_numpy(np.ascontiguousarray(y)))
+            require(u <= 1, f"{what}: {f} {u} ulp apart")
+        else:
+            bad = np.argwhere(x != y)
+            require(bad.size == 0, f"{what}: {f} differs at rows "
+                    f"{bad[:4, 0].tolist()}")
+
+
 def phase_main(dix, queries, card: str, label: str, required):
     """One mix on the main path: the batch on the kernel route with every
     launch count zeroed just before and read just after, the bucket
@@ -610,14 +764,7 @@ def phase_main(dix, queries, card: str, label: str, required):
     t0 = time.perf_counter()
     plain = run(False)
     psecs = time.perf_counter() - t0
-    for f, v in out.items():
-        if v.dtype == np.float32:
-            u = ulps(torch.from_numpy(v), torch.from_numpy(plain[f]))
-            require(u <= 1, f"{label} {f}: kernel and plain routes {u} ulp "
-                    f"apart")
-        else:
-            require(np.array_equal(v, plain[f]),
-                    f"{label} {f}: routes differ")
+    _rows_equal(out, plain, slice(None), f"{label}, kernel and plain routes")
     say(f"plain route, {label}: {psecs * 1e3:.1f} ms warm "
         f"({len(queries) / psecs:.0f} QPS); every field equal to the "
         f"kernel route (ranks within 1 ulp)")
@@ -689,6 +836,88 @@ def phase_page(dix, queries, card: str):
     return out, launches
 
 
+def phase_serve(dix, queries, fused_out, card: str, rng):
+    """Both mixes through the serving shape of search_batch_full
+    (tools/profile_batch.py, serve_pass: waves of 512, fused=False, the
+    cap ladder, deferred, then the escalated pass), once per sort_topk
+    mode, with every launch count zeroed just before a pass and read
+    just after. The top-k-mode pass must launch each of SERVE_KERNELS;
+    only W >= 3 buckets with variants may take the plain route; the
+    passes agree on every row not flagged truncated, and with the fused
+    batch (`fused_out`, the same queries) on every row neither flags;
+    sampled rows, escalated ones among them, are held against the numpy
+    oracle. Returns the launches of both passes summed."""
+    from docodo_tpu_torch.ops import _cuda
+
+    pb = _profile_batch()
+    pb.serve_pass(dix, queries[: 4 * pb.SERVE_WAVE], True)  # warm
+    pb.serve_pass(dix, queries[: 4 * pb.SERVE_WAVE], False)
+    torch.cuda.synchronize()
+    runs, launches = {}, {}
+    for st in (True, False):
+        for k in _cuda.KERNELS.values():
+            k.launches = 0
+        runs[st] = pb.serve_pass(dix, queries, st)
+        launches[st] = {n: k.launches for n, k in _cuda.KERNELS.items()}
+        r = runs[st]
+        med, emed = pb.wave_medians(r["stats"]), pb.wave_medians(
+            r["esc_stats"])
+        plain = [wv for s in r["stats"] + r["esc_stats"] for wv in s["plain"]]
+        say(f"serving path, sort_topk={st}: {len(queries)} rows in "
+            f"{len(r['stats'])} waves of {pb.SERVE_WAVE}, "
+            f"{r['secs'] * 1e3:.1f} ms ({len(queries) / r['secs']:.0f} QPS) "
+            f"on {card}; per wave (medians): {med['buckets']:.0f} buckets, "
+            f"{med['launches']:.0f} kernel launches, deferred call "
+            f"{med['call_ms']:.2f} ms ({med['launch_ms']:.2f} ms of it in "
+            f"the buckets' launches), finish {med['finish_ms']:.2f} ms; "
+            f"{r['truncated']} rows truncated, {len(r['esc_rows'])} of cap "
+            f"<= {pb.ESC_CAP_MAX} escalated (topk {pb.ESC_TOPK}, hit_cap "
+            f"{pb.ESC_HIT_CAP}, clamped) in {len(r['esc_stats'])} waves, "
+            f"{r['esc_secs'] * 1e3:.1f} ms"
+            + (f" (per wave {emed['buckets']:.0f} buckets, call "
+               f"{emed['call_ms']:.2f} ms, finish {emed['finish_ms']:.2f} "
+               f"ms)" if emed else "")
+            + f", {pb.still_truncated(r['esc_out'])} still truncated; "
+            f"{len(plain)} buckets on the plain route; launches "
+            f"{({n: c for n, c in launches[st].items() if c})}")
+        require(all(w >= 3 and v > 1 for w, v in plain),
+                f"buckets {sorted(set(plain))} took query_step_full")
+        require(len(r["esc_rows"]) > 0, "no row was escalated")
+    for name in SERVE_KERNELS:
+        require(launches[False][name] > 0, f"kernel {name} was not launched "
+                "on the serving path with sort_topk=False")
+        require(launches[True][name] == 0, f"kernel {name} launched with "
+                "sort_topk=True")
+
+    a, b = runs[True], runs[False]
+    whole = (a["out"]["n_pages"] <= TOPK) & (a["out"]["n_hits"] <= HIT_CAP)
+    _rows_equal(a["out"], b["out"], whole, "serving path, sort_topk modes")
+    require(a["esc_rows"] == b["esc_rows"], "the modes escalate other rows")
+    ea, eb = a["esc_out"], b["esc_out"]
+    esc_whole = ((ea["n_pages"] <= ea["topk_eff"])
+                 & (ea["n_hits"] <= ea["hit_cap_eff"]))
+    _rows_equal(ea, eb, esc_whole, "escalated pass, sort_topk modes")
+    both = whole & (fused_out["n_pages"] <= TOPK) & (fused_out["n_hits"]
+                                                      <= HIT_CAP)
+    for st in (True, False):
+        _rows_equal(runs[st]["out"], fused_out, both,
+                    f"serving path sort_topk={st} against the fused batch")
+    say(f"serving path: the sort_topk modes agree on all {int(whole.sum())} "
+        f"rows not flagged truncated and on {int(esc_whole.sum())} of "
+        f"{esc_whole.size} escalated rows served whole; both equal the "
+        f"fused batch on the {int(both.sum())} rows neither flags (ranks "
+        f"within 1 ulp)")
+    for st in (True, False):
+        r = runs[st]
+        phase_oracle(dix, queries, r["out"], rng,
+                     f"serving path sort_topk={st}")
+        phase_oracle(dix, [queries[i] for i in r["esc_rows"]], r["esc_out"],
+                     rng, f"escalated pass sort_topk={st}", n=256,
+                     topk=r["esc_out"]["topk_eff"],
+                     hit_cap=r["esc_out"]["hit_cap_eff"])
+    return {n: launches[True][n] + launches[False][n] for n in launches[True]}
+
+
 def _valid(n, cap: int) -> int:
     return int(n.clamp(0, cap).sum())
 
@@ -699,12 +928,19 @@ def _bytes_moved(name: str, args) -> int:
     block or stream), each output written once."""
     from docodo_tpu_torch.ops.seqops import INF32
 
-    if name in ("sorted_and_locate_full", "merge_and_locate_topk"):
+    if name == "merge_and_locate":  # four full-width streams out
+        a, _, na, _, b, _, nb, _ = args
+        rows, cap = a.shape
+        return (8 * (_valid(na, cap) + _valid(nb, cap)) + 16 * rows
+                + rows * 2 * cap * 16)
+    if name in ("sorted_and_locate_full", "merge_and_locate_topk",
+                "sorted_and_locate_full_topk"):
         a, _, na, _, b, _, nb, _, kpad, hpad = args
         rows, cap = a.shape
         return (8 * (_valid(na, cap) + _valid(nb, cap)) + 16 * rows
                 + rows * (12 * kpad + 4 * hpad + 8))
-    if name in ("single_locate_full", "union_locate_full"):
+    if name in ("single_locate_full", "union_locate_full",
+                "single_locate_full_topk"):
         a, _, na, kpad, hpad = args
         rows, cap = a.shape
         return 8 * _valid(na, cap) + 4 * rows + rows * (12 * kpad + 4 * hpad
@@ -723,13 +959,14 @@ def _bytes_moved(name: str, args) -> int:
         return (per * _valid(na, cap) + 4 * rows
                 + (0 if a_pg is not None else 4 * bounds.numel())
                 + 12 * rows * topk)
-    if name == "variants_and_locate_full":
+    if name in ("variants_and_locate_full",
+                "variants_and_locate_full_topk"):
         a, _, na, _, b, _, nb, _, _, kpad, hpad = args
         rows, cap = a.shape[0], a.shape[2]
         return (8 * (_valid(na, cap) + _valid(nb, cap))
                 + 4 * (na.numel() + nb.numel()) + 12 * rows
                 + rows * (12 * kpad + 4 * hpad + 8))
-    if name == "union_merge_locate_full":
+    if name in ("union_merge_locate_full", "union_locate_full_topk"):
         a, _, na, kpad, hpad = args
         rows, cap = a.shape[0], a.shape[2]
         return (8 * _valid(na, cap) + 4 * na.numel()
@@ -754,13 +991,20 @@ def _bytes_moved(name: str, args) -> int:
     return read + hv.shape[0] * (12 * kpad + 4 * hpad + 8)
 
 
-def _ops(name: str, args) -> int:
+def _ops(name: str, args, outs=None) -> int:
     """Integer operations a kernel core does on these inputs:
-    OPS_PER_LANE for every lane that holds data, and for the merges
+    OPS_PER_LANE for every lane that holds data, for the merges
     OPS_PER_STEP for each binary-search step that ranks an element in
-    another block."""
+    another block, and for a top-k-mode kernel one compare for every
+    pair of the row's runs (its n_pages, from `outs`)."""
     from docodo_tpu_torch.ops.seqops import INF32
 
+    if name in TOPK_MODE_KERNELS:
+        base = {"sorted_and_locate_full_topk": "sorted_and_locate_full",
+                "single_locate_full_topk": "single_locate_full",
+                "union_locate_full_topk": "union_merge_locate_full",
+                "variants_and_locate_full_topk": "variants_and_locate_full"}
+        return _ops(base[name], args) + int((outs[3].long() ** 2).sum())
     if name in ("and_keep", "variants_keep", "locate_runs"):
         return OPS_PER_LANE * int((args[0] < INF32).sum())
     if name in ("merge_tagged", "variants_and_locate_full",
@@ -779,7 +1023,7 @@ def _ops(name: str, args) -> int:
     # the W = 2 cores carry (a, a_pg, na, ra, b, b_pg, nb, rb, ...), the
     # W = 1 cores (a, a_pg, na, ...)
     two = name in ("sorted_and_locate_full", "merge_and_locate_topk",
-                   "and_locate_topk")
+                   "and_locate_topk", "merge_and_locate")
     lengths = (args[2], args[6]) if two else (args[2],)
     cap = args[0].shape[1]
     return OPS_PER_LANE * sum(_valid(n, cap) for n in lengths)
@@ -803,18 +1047,20 @@ def _library_call(name: str, calls):
     return lambda: [torch.sort(k, dim=1, stable=True) for k in keys]
 
 
-def phase_kernel_times(batches) -> dict:
-    """Every kernel on the calls the kernel-route batches (callables
-    that run one batch each) make: the
+def phase_kernel_times(batches, names, most: int = 0) -> dict:
+    """The kernels `names` on the calls the kernel-route batches
+    (callables that run one batch each) make: the
     calls' inputs are recorded, then each kernel's launches for the
     batches and its plain version's run back to back between CUDA events
     (median of 10), are checked equal, and give the bound and, for
     merge_tagged, the one PyTorch call that computes the same function
-    (a stable sort of the packed coord << 2 | tag key)."""
+    (a stable sort of the packed coord << 2 | tag key). With `most`, at
+    most that many of a core's calls, evenly spaced over the batches,
+    are timed."""
     from docodo_tpu_torch.ops import query_kernels as qk
 
-    calls = {core: [] for _, _, cores in KERNELS.values()
-             for core, _ in cores}
+    calls = {core: [] for name in names
+             for core, _ in KERNELS[name][2]}
     saved = {}
     for core in calls:
         saved[core] = getattr(qk, core)
@@ -830,23 +1076,30 @@ def phase_kernel_times(batches) -> dict:
         for core, fn in saved.items():
             setattr(qk, core, fn)
     torch.cuda.synchronize()
+    made = {core: len(cs) for core, cs in calls.items()}
+    if most:
+        calls = {core: cs[:: -(-len(cs) // most) or 1]
+                 for core, cs in calls.items()}
 
     res = {}
-    for name, (_, _, cores) in KERNELS.items():
+    for name in names:
+        cores = KERNELS[name][2]
         runs = [(getattr(qk, core), getattr(qk, plain), calls[core])
                 for core, plain in cores]
         err = 0.0
+        ops = 0
         for kern, plain, cs in runs:
             for args in cs:
-                err = max(err, same_result(name, kern(*args), plain(*args),
+                got = kern(*args)
+                err = max(err, same_result(name, got, plain(*args),
                                            f"{name} on the main path"))
+                ops += _ops(name, args, got)
         ms = cuda_ms(lambda: [kern(*a) for kern, _, cs in runs for a in cs])
         plain_ms = cuda_ms(lambda: [plain(*a) for _, plain, cs in runs
                                     for a in cs])
         lib = _library_call(name, calls[cores[0][0]])
         library_ms = None if lib is None else cuda_ms(lib)
         nbytes = sum(_bytes_moved(name, a) for _, _, cs in runs for a in cs)
-        ops = sum(_ops(name, a) for _, _, cs in runs for a in cs)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = ops / INT_OPS_PER_S * 1e3
         n_calls = sum(len(cs) for _, _, cs in runs)
@@ -856,8 +1109,10 @@ def phase_kernel_times(batches) -> dict:
                          else "operations",
                          library_ms=library_ms)
         shapes = sorted({tuple(a[0].shape) for _, _, cs in runs for a in cs})
-        say(f"kernel time: {name}: {n_calls} calls of the batches "
-            f"(shapes {shapes[:3]}{'...' if len(shapes) > 3 else ''}), "
+        n_made = sum(made[core] for core, _ in cores)
+        say(f"kernel time: {name}: {n_calls} "
+            f"{'' if n_calls == n_made else f'of the {n_made} '}calls of the "
+            f"batches (shapes {shapes[:3]}{'...' if len(shapes) > 3 else ''}), "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{res[name]['bound_ms']:.4f} ms ({nbytes} bytes, {ops} ops), "
             f"library "
@@ -950,13 +1205,16 @@ def _oracle_row(dix, coords, query):
 def phase_oracle(dix, queries, out, rng, label: str, n: int = 512,
                  topk: int = TOPK, hit_cap: int = HIT_CAP) -> None:
     """Served full-result rows against numpy (_oracle_row); `out` was
-    served with `topk` and `hit_cap`."""
+    served with `topk` and `hit_cap`, one budget for all rows or an
+    array of per-row budgets."""
     coords = dix.coords.cpu().numpy()
     checked = mismatches = 0
+    topk = np.broadcast_to(topk, len(queries))
+    hit_cap = np.broadcast_to(hit_cap, len(queries))
     for qi in rng.choice(len(queries), size=min(n, len(queries)),
                          replace=False):
         npg, nht = int(out["n_pages"][qi]), int(out["n_hits"][qi])
-        if npg > topk or nht > hit_cap:
+        if npg > topk[qi] or nht > hit_cap[qi]:
             continue  # truncated: re-served on the host by the caller
         acc, pages, cnt, rank = _oracle_row(dix, coords, queries[qi])
         want = sorted(zip(pages.tolist(), cnt.tolist()))
@@ -1078,20 +1336,31 @@ def main() -> None:
     wout, wlaunches = phase_main(dix, wide, f"{card} ({smi})",
                                  "wide mix + alternations", WIDE_KERNELS)
     pout, planches = phase_page(dix, queries, f"{card} ({smi})")
+    slaunches = phase_serve(
+        dix, queries + wide,
+        {f: np.concatenate([out[f], wout[f]]) for f in out},
+        f"{card} ({smi})", rng)
+    earlier = [n for n in KERNELS if n not in SERVE_KERNELS]
     times = phase_kernel_times([
         lambda: dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
                                       use_kernels=True),
         lambda: dix.search_batch_full(wide, topk=TOPK, hit_cap=HIT_CAP,
                                       use_kernels=True),
         lambda: dix.search_batch(queries, topk=PAGE_TOPK, use_kernels=True),
-    ])
+    ], earlier)
+    # the five kernels of the serving path, on calls of its top-k-mode
+    # pass (both mixes, the escalated rows included)
+    times.update(phase_kernel_times(
+        [lambda: _profile_batch().serve_pass(dix, queries + wide, False)],
+        SERVE_KERNELS, most=64))
     phase_oracle(dix, queries, out, rng, "standard mix")
     phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
     phase_page_oracle(dix, queries, pout, rng)
     phase_vocabulary(args.seed, rng)
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
-             launches=launches[name] + wlaunches[name] + planches[name],
+             launches=(launches[name] + wlaunches[name] + planches[name]
+                       + slaunches[name]),
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
         for name, (src, replaces, _) in KERNELS.items()]}))

@@ -1,6 +1,6 @@
 // Full-result locate/rank kernels of docodo_tpu_torch, for Hopper (sm_90a).
 //
-// They replace four Pallas TPU kernels of docodo_tpu/ops/pallas_query.py:
+// They replace these Pallas TPU kernels of docodo_tpu/ops/pallas_query.py:
 //
 //   docodo_sorted_and_locate_full  <- _sorted_and_locate_full_slots_kernel
 //                                     (pallas_query.py:617), W = 2, cap <= 512
@@ -12,12 +12,29 @@
 //   docodo_merge_and_locate_topk   <- _merge_and_locate_topk_kernel
 //                                     (pallas_query.py:2623), W = 2,
 //                                     2 * cap <= 4096
+//   docodo_sorted_and_locate_full_topk <- _sorted_and_locate_full_kernel
+//                                     (pallas_query.py:498), W = 2, cap <= 512
+//   docodo_single_locate_full_topk <- _single_word_full_kernel
+//                                     (pallas_query.py:218), W = 1, cap <= 128
+//   docodo_merge_and_locate        <- _merge_and_locate_kernel
+//                                     (pallas_query.py:2601), W = 2,
+//                                     2 * cap <= 4096
 //
-// Each kernel turns one query row into the row's first kpad page runs in
+// Each of the first four turns one query row into the row's first kpad page runs in
 // slot order (page, rank, count), its first hpad kept hits, and the exact
 // n_pages / n_hits totals. A run starts at a kept lane whose page differs
 // from the previous kept lane's; each later lane of the run adds
-// 30 / max(5, gap), and rank = (1 + bonus) + ln(count) in f32.
+// 30 / max(5, gap), and rank = (1 + bonus) + ln(count) in f32. The two
+// _topk kernels are the same row bodies ending in the other tail
+// (slot_row.cuh, TopkTail): the top k of EVERY run of the row by (rank
+// descending, lane ascending), picked in the kernel by an enumeration sort,
+// where the TPU kernels run topk masked-argmax passes and leave the hit
+// compaction to a sort outside. merge_and_locate writes the same row body's
+// streams at full width instead: the kept stream in slot order (INF32 at
+// dropped lanes) and each run's page, rank and count at the run's first
+// lane (-1 / 0 / 0 elsewhere); sum_runs hands it each run's first lane in
+// the row's scratch array, so it needs no more shared memory than
+// merge_and_locate_topk.
 //
 // What bounds them on this card: bytes, not arithmetic. Each row is read
 // once (values and pages, 8 bytes a lane) and 3 * kpad + hpad + 2 values are
@@ -45,19 +62,19 @@ namespace {
 
 using namespace docodo;
 
-// W = 2: merge_and_keep, then the first-kpad-runs tail.
-template <int T, int L, int N>
+// W = 2: merge_and_keep, then the row's tail (SlotsTail or TopkTail).
+template <int T, int L, int N, class Tail>
 __device__ void sorted_and_body(
     AndSmem<N>& sm, const int* __restrict__ a, const int* __restrict__ a_pg,
     const int* __restrict__ na_, const int* __restrict__ ra_,
     const int* __restrict__ b, const int* __restrict__ b_pg,
     const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
-    int kpad, int hpad, const Outputs& out) {
+    const Tail& tail) {
   const int n = 2 * cap;
   bool keep[L];
   merge_and_keep<T, L, N>(sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr,
                           0, cap, keep);
-  locate_tail<T, L, N>(sm.row, keep, n, (n + T - 1) / T, kpad, hpad, out);
+  tail.template run<T, L, N>(sm.row, keep, n, (n + T - 1) / T);
 }
 
 constexpr int kSlotThreads = 256;
@@ -69,15 +86,16 @@ constexpr int kFusedLanes = 4096;  // FUSED_AND_MAX, pallas_query.py:2478
 constexpr int kFusedIpt = kFusedLanes / kFusedThreads;
 constexpr size_t kFusedSmem = sizeof(AndSmem<kFusedLanes>);
 
+template <class Tail>
 __global__ void __launch_bounds__(kSlotThreads) sorted_and_locate_full_kernel(
     const int* __restrict__ a, const int* __restrict__ a_pg,
     const int* __restrict__ na_, const int* __restrict__ ra_,
     const int* __restrict__ b, const int* __restrict__ b_pg,
     const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
-    int kpad, int hpad, Outputs out) {
+    Tail tail) {
   __shared__ AndSmem<kSlotLanes> sm;
   sorted_and_body<kSlotThreads, kSlotIpt, kSlotLanes>(
-      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, kpad, hpad, out);
+      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, tail);
 }
 
 __global__ void __launch_bounds__(kFusedThreads) merge_and_locate_topk_kernel(
@@ -85,11 +103,56 @@ __global__ void __launch_bounds__(kFusedThreads) merge_and_locate_topk_kernel(
     const int* __restrict__ na_, const int* __restrict__ ra_,
     const int* __restrict__ b, const int* __restrict__ b_pg,
     const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
-    int kpad, int hpad, Outputs out) {
+    SlotsTail tail) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<AndSmem<kFusedLanes>*>(smem_raw);
   sorted_and_body<kFusedThreads, kFusedIpt, kFusedLanes>(
-      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, kpad, hpad, out);
+      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, tail);
+}
+
+// merge_and_locate_topk's row body with its streams written at full width:
+// hits[l] is the value at kept lanes and INF32 elsewhere, and a run's first
+// lane carries its page, rank and count.
+__global__ void __launch_bounds__(kFusedThreads) merge_and_locate_kernel(
+    const int* __restrict__ a, const int* __restrict__ a_pg,
+    const int* __restrict__ na_, const int* __restrict__ ra_,
+    const int* __restrict__ b, const int* __restrict__ b_pg,
+    const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
+    int* __restrict__ hits, int* __restrict__ page_s,
+    float* __restrict__ rank_s, float* __restrict__ cnt_s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<AndSmem<kFusedLanes>*>(smem_raw);
+  RowSmem<kFusedLanes>& s = sm.row;
+  const int tid = threadIdx.x;
+  const int n = 2 * cap;
+  const int ipt = (n + kFusedThreads - 1) / kFusedThreads;
+  const int base = tid * ipt;
+  const size_t o = (size_t)blockIdx.x * n;
+  bool keep[kFusedIpt];
+  merge_and_keep<kFusedThreads, kFusedIpt, kFusedLanes>(
+      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr, 0, cap, keep);
+  // every run's sums, and its first lane in s.tmp
+  const int runs = sum_runs<kFusedThreads, kFusedIpt, kFusedLanes>(
+      s, keep, n, ipt, n, s.tmp);
+  for (int l = tid; l < n; l += kFusedThreads) {
+    page_s[o + l] = -1;
+    rank_s[o + l] = 0.0f;
+    cnt_s[o + l] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kFusedIpt; ++k) {
+    const int l = base + k;
+    if (k < ipt && l < n) hits[o + l] = keep[k] ? s.val[l] : kInf;
+  }
+  // the run starts overwrite what other threads wrote above
+  __syncthreads();
+  for (int r = tid; r < runs; r += kFusedThreads) {
+    const int l = s.tmp[r];
+    const int c = s.run_count[r];
+    page_s[o + l] = s.run_page[r];
+    rank_s[o + l] = run_rank(s.run_bonus[r], c);
+    cnt_s[o + l] = (float)c;
+  }
 }
 
 // Loads one posting block row (INF32 past na) and its page stream.
@@ -107,9 +170,10 @@ __device__ int load_block(RowSmem<N>& s, const int* a, const int* a_pg,
 }
 
 // W = 1: the posting block is the kept stream.
+template <class Tail>
 __global__ void __launch_bounds__(kSlotThreads) single_locate_full_kernel(
     const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, int cap, int kpad, int hpad, Outputs out) {
+    const int* __restrict__ na_, int cap, Tail tail) {
   __shared__ RowSmem<kSlotLanes> s;
   const int na = load_block<kSlotThreads>(s, a, a_pg, na_, cap);
   const int ipt = (cap + kSlotThreads - 1) / kSlotThreads;
@@ -117,15 +181,14 @@ __global__ void __launch_bounds__(kSlotThreads) single_locate_full_kernel(
   bool keep[kSlotIpt];
 #pragma unroll
   for (int k = 0; k < kSlotIpt; ++k) keep[k] = k < ipt && base + k < na;
-  locate_tail<kSlotThreads, kSlotIpt, kSlotLanes>(s, keep, cap, ipt, kpad,
-                                                  hpad, out);
+  tail.template run<kSlotThreads, kSlotIpt, kSlotLanes>(s, keep, cap, ipt);
 }
 
 // W = 1 union of one variant: a slot is kept where it is valid and
 // differs from the previous slot.
 __global__ void __launch_bounds__(kSlotThreads) union_locate_full_kernel(
     const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, int cap, int kpad, int hpad, Outputs out) {
+    const int* __restrict__ na_, int cap, SlotsTail tail) {
   __shared__ RowSmem<kSlotLanes> s;
   load_block<kSlotThreads>(s, a, a_pg, na_, cap);
   const int ipt = (cap + kSlotThreads - 1) / kSlotThreads;
@@ -140,8 +203,14 @@ __global__ void __launch_bounds__(kSlotThreads) union_locate_full_kernel(
       keep[k] = v < kInf && v != (l > 0 ? s.val[l - 1] : -1);
     }
   }
-  locate_tail<kSlotThreads, kSlotIpt, kSlotLanes>(s, keep, cap, ipt, kpad,
-                                                  hpad, out);
+  tail.template run<kSlotThreads, kSlotIpt, kSlotLanes>(s, keep, cap, ipt);
+}
+
+// Raises a kernel's dynamic shared memory limit to the fused row's size.
+template <class K>
+cudaError_t size_fused(K kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFusedSmem);
 }
 
 }  // namespace
@@ -154,8 +223,21 @@ extern "C" int docodo_sorted_and_locate_full(
   if (rows > 0)
     sorted_and_locate_full_kernel<<<rows, kSlotThreads, 0,
                                     (cudaStream_t)stream>>>(
-        a, a_pg, na, ra, b, b_pg, nb, rb, cap, kpad, hpad,
-        outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+        a, a_pg, na, ra, b, b_pg, nb, rb, cap,
+        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int docodo_sorted_and_locate_full_topk(
+    const int* a, const int* a_pg, const int* na, const int* ra,
+    const int* b, const int* b_pg, const int* nb, const int* rb, int rows,
+    int cap, int topk, int hpad, int* pages, float* ranks, int* counts,
+    int* n_pages, int* n_hits, int* hits, void* stream) {
+  if (rows > 0)
+    sorted_and_locate_full_kernel<<<rows, kSlotThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        a, a_pg, na, ra, b, b_pg, nb, rb, cap,
+        topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits));
   return (int)cudaGetLastError();
 }
 
@@ -166,17 +248,34 @@ extern "C" int docodo_merge_and_locate_topk(
     int* n_pages, int* n_hits, int* hits, void* stream) {
   static bool sized = false;
   if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        merge_and_locate_topk_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFusedSmem);
+    const cudaError_t e = size_fused(merge_and_locate_topk_kernel);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   if (rows > 0)
     merge_and_locate_topk_kernel<<<rows, kFusedThreads, kFusedSmem,
                                    (cudaStream_t)stream>>>(
-        a, a_pg, na, ra, b, b_pg, nb, rb, cap, kpad, hpad,
-        outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+        a, a_pg, na, ra, b, b_pg, nb, rb, cap,
+        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int docodo_merge_and_locate(
+    const int* a, const int* a_pg, const int* na, const int* ra,
+    const int* b, const int* b_pg, const int* nb, const int* rb, int rows,
+    int cap, int* hits, int* page_s, float* rank_s, float* cnt_s,
+    void* stream) {
+  if (cap <= 0 || 2 * cap > kFusedLanes) return (int)cudaErrorInvalidValue;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = size_fused(merge_and_locate_kernel);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  if (rows > 0)
+    merge_and_locate_kernel<<<rows, kFusedThreads, kFusedSmem,
+                              (cudaStream_t)stream>>>(
+        a, a_pg, na, ra, b, b_pg, nb, rb, cap, hits, page_s, rank_s, cnt_s);
   return (int)cudaGetLastError();
 }
 
@@ -187,8 +286,20 @@ extern "C" int docodo_single_locate_full(
   if (rows > 0)
     single_locate_full_kernel<<<rows, kSlotThreads, 0,
                                 (cudaStream_t)stream>>>(
-        a, a_pg, na, cap, kpad, hpad,
-        outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+        a, a_pg, na, cap,
+        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int docodo_single_locate_full_topk(
+    const int* a, const int* a_pg, const int* na, int rows, int cap,
+    int topk, int hpad, int* pages, float* ranks, int* counts, int* n_pages,
+    int* n_hits, int* hits, void* stream) {
+  if (rows > 0)
+    single_locate_full_kernel<<<rows, kSlotThreads, 0,
+                                (cudaStream_t)stream>>>(
+        a, a_pg, na, cap,
+        topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits));
   return (int)cudaGetLastError();
 }
 
@@ -199,8 +310,8 @@ extern "C" int docodo_union_locate_full(
   if (rows > 0)
     union_locate_full_kernel<<<rows, kSlotThreads, 0,
                                (cudaStream_t)stream>>>(
-        a, a_pg, na, cap, kpad, hpad,
-        outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+        a, a_pg, na, cap,
+        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // The row-per-block pieces shared by the slot kernels of locate_full.cu,
 // variants.cu and locate_topk.cu (sm_90a): a query row held in shared
 // memory, the W = 2 merge and the AND's segmentation over it, the locate
-// tail that writes the row's full-result outputs (its first kpad runs), and
-// the page-level tail that ranks every run and writes the row's top k.
+// tail that writes the row's full-result outputs (its first kpad runs), the
+// page-level tail that ranks every run and writes the row's top k, and the
+// full-result tail that ends a row with that top k inside the kernel.
 
 #pragma once
 
@@ -183,11 +184,13 @@ __device__ void merge_and_keep(
 // this thread's lanes: a run starts at a kept lane whose page differs from
 // the previous kept lane's, and each later lane of the run adds
 // 30 / max(5, gap). For every run of ordinal < limit, s.run_page,
-// s.run_count and s.run_bonus (exact integer sums) are filled. Returns the
-// row's number of runs. Called by every thread; ends synchronised.
+// s.run_count and s.run_bonus (exact integer sums) are filled, and with
+// run_lane (a shared array of `limit` ints; s.tmp is free for it) the run's
+// first lane. Returns the row's number of runs. Called by every thread; ends
+// synchronised.
 template <int T, int L, int N>
 __device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
-                        int limit) {
+                        int limit, int* run_lane = nullptr) {
   const int tid = threadIdx.x;
   const int base = tid * ipt;
   for (int r = tid; r < limit; r += T) {
@@ -230,11 +233,37 @@ __device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
     if (k < ipt && l < n && keep[k] && r < limit) {
       atomicAdd(&s.run_count[r], 1);
       if (bonus[k]) atomicAdd(&s.run_bonus[r], bonus[k]);
-      if (first[k]) s.run_page[r] = s.page[l];
+      if (first[k]) {
+        s.run_page[r] = s.page[l];
+        if (run_lane) run_lane[r] = l;
+      }
     }
   }
   __syncthreads();
   return runs;
+}
+
+// The row's first hpad kept values, in lane order, into hits[0 .. hpad), and
+// INF32 after them. Returns the row's number of kept values. Called by every
+// thread.
+template <int T, int L, int N>
+__device__ int compact_hits(RowSmem<N>& s, const bool (&keep)[L], int n,
+                            int ipt, int hpad, int* __restrict__ hits) {
+  const int tid = threadIdx.x;
+  const int base = tid * ipt;
+  int slot[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    slot[k] = (k < ipt && base + k < n && keep[k]) ? 1 : 0;
+  const int total = scan_lanes<T>(slot, ipt, 0, Sum(), false, s.warp);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int l = base + k;
+    if (k < ipt && l < n && keep[k] && slot[k] < hpad)
+      hits[slot[k]] = s.val[l];
+  }
+  for (int r = total + tid; r < hpad; r += T) hits[r] = kInf;
+  return total;
 }
 
 // Locate, rank and both compactions over the row held in s.val / s.page,
@@ -244,22 +273,10 @@ template <int T, int L, int N>
 __device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
                             int ipt, int kpad, int hpad, const Outputs& out) {
   const int tid = threadIdx.x;
-  const int base = tid * ipt;
   const size_t row = blockIdx.x;
   const int total_pages = sum_runs<T, L, N>(s, keep, n, ipt, kpad);
-  // each kept lane's hit slot
-  int slot[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k)
-    slot[k] = (k < ipt && base + k < n && keep[k]) ? 1 : 0;
-  const int total_hits = scan_lanes<T>(slot, ipt, 0, Sum(), false, s.warp);
-  int* hits = out.hits + row * hpad;
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int l = base + k;
-    if (k < ipt && l < n && keep[k] && slot[k] < hpad)
-      hits[slot[k]] = s.val[l];
-  }
+  const int total_hits =
+      compact_hits<T, L, N>(s, keep, n, ipt, hpad, out.hits + row * hpad);
   for (int r = tid; r < kpad; r += T) {
     const size_t o = row * kpad + r;
     if (r < total_pages) {
@@ -273,7 +290,6 @@ __device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
       out.ct_c[o] = 0.0f;
     }
   }
-  for (int r = total_hits + tid; r < hpad; r += T) hits[r] = kInf;
   if (tid == 0) {
     out.n_pages[row] = total_pages;
     out.n_hits[row] = total_hits;
@@ -294,10 +310,10 @@ struct TopkOutputs {
 // once, into s.tmp, and the selection compares those stored bits (a
 // positive f32 orders as its bit pattern): a run's output slot is the number
 // of runs that precede it in that order, counted against every run of the
-// row. Slots past the row's run count get -1 / 0 / 0. Called by every
-// thread; N lanes hold at most N runs.
+// row. Slots past the row's run count get -1 / 0 / 0. Returns the row's
+// number of runs. Called by every thread; N lanes hold at most N runs.
 template <int T, int L, int N>
-__device__ void locate_topk_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
+__device__ int locate_topk_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
                                  int ipt, int topk, const TopkOutputs& out) {
   const int tid = threadIdx.x;
   const size_t row = blockIdx.x;
@@ -325,6 +341,79 @@ __device__ void locate_topk_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
     out.ranks[o] = 0.0f;
     out.counts[o] = 0;
   }
+  return runs;
+}
+
+struct FullTopkOutputs {
+  TopkOutputs top;  // the row's top k runs, each [rows, topk]
+  int* n_pages;     // [rows] every run of the row
+  int* n_hits;      // [rows] every kept value of the row
+  int* hits;        // [rows, hpad] kept values, INF32 past n_hits
+};
+
+// The full-result tail that ends a row inside the kernel
+// (pallas_query._full_stream_call with _locate_rank_topk): the row's first
+// hpad kept values, the top `topk` of ALL its page runs (locate_topk_tail)
+// and the exact totals. Called by every thread.
+template <int T, int L, int N>
+__device__ void locate_full_topk_tail(RowSmem<N>& s, const bool (&keep)[L],
+                                      int n, int ipt, int topk, int hpad,
+                                      const FullTopkOutputs& out) {
+  const size_t row = blockIdx.x;
+  const int total_hits =
+      compact_hits<T, L, N>(s, keep, n, ipt, hpad, out.hits + row * hpad);
+  const int runs = locate_topk_tail<T, L, N>(s, keep, n, ipt, topk, out.top);
+  if (threadIdx.x == 0) {
+    out.n_pages[row] = runs;
+    out.n_hits[row] = total_hits;
+  }
+}
+
+// How a slot kernel ends a row whose keep mask it has computed: with the
+// row's first kpad runs in slot order (the caller finishes the top k), or
+// with the top k of every run picked here.
+struct SlotsTail {
+  int kpad, hpad;
+  Outputs out;
+  template <int T, int L, int N>
+  __device__ void run(RowSmem<N>& s, const bool (&keep)[L], int n,
+                      int ipt) const {
+    locate_tail<T, L, N>(s, keep, n, ipt, kpad, hpad, out);
+  }
+};
+
+struct TopkTail {
+  int topk, hpad;
+  FullTopkOutputs out;
+  template <int T, int L, int N>
+  __device__ void run(RowSmem<N>& s, const bool (&keep)[L], int n,
+                      int ipt) const {
+    locate_full_topk_tail<T, L, N>(s, keep, n, ipt, topk, hpad, out);
+  }
+};
+
+inline SlotsTail slots_tail(int kpad, int hpad, int* pg_c, float* rk_c,
+                            float* ct_c, int* n_pages, int* n_hits,
+                            int* hits) {
+  SlotsTail t;
+  t.kpad = kpad;
+  t.hpad = hpad;
+  t.out = outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits);
+  return t;
+}
+
+inline TopkTail topk_tail(int topk, int hpad, int* pages, float* ranks,
+                          int* counts, int* n_pages, int* n_hits, int* hits) {
+  TopkTail t;
+  t.topk = topk;
+  t.hpad = hpad;
+  t.out.top.pages = pages;
+  t.out.top.ranks = ranks;
+  t.out.top.counts = counts;
+  t.out.n_pages = n_pages;
+  t.out.n_hits = n_hits;
+  t.out.hits = hits;
+  return t;
 }
 
 }  // namespace docodo

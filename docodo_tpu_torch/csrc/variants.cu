@@ -1,5 +1,5 @@
 // Full-result kernels of docodo_tpu_torch's variant ORs within one slot
-// (a stream of at most 1024 lanes), for Hopper (sm_90a). They replace three
+// (a stream of at most 1024 lanes), for Hopper (sm_90a). They replace these
 // Pallas TPU kernels of docodo_tpu/ops/pallas_query.py:
 //
 //   docodo_variants_and_locate_full <- _variants_and_locate_full_slots_kernel
@@ -9,10 +9,18 @@
 //                                      (:681, V = 2) and
 //                                      _union_locate_full_slots_kernel (:660)
 //                                      at V > 2, W = 1
+//   docodo_variants_and_locate_full_topk <- _variants_and_locate_full_kernel
+//                                      (:526)
+//   docodo_union_locate_full_topk   <- _union_locate_full_kernel (:550),
+//                                      W = 1, any V >= 1 (V = 1 serves a
+//                                      plain word past the W = 1 kernel's
+//                                      128 lanes)
 //
-// Each turns one query row into the row's first kpad page runs in slot
-// order, its first hpad kept hits and the exact n_pages / n_hits totals, as
-// the kernels of locate_full.cu do.
+// Each of the first two turns one query row into the row's first kpad page
+// runs in slot order, its first hpad kept hits and the exact n_pages /
+// n_hits totals, as the kernels of locate_full.cu do. The two _topk kernels
+// are the same row bodies ending in the other tail (slot_row.cuh,
+// TopkTail): the top k of every run of the row, picked in the kernel.
 //
 // What bounds them on this card: bytes. Each reads its variant blocks once
 // (values and pages, 8 bytes a lane) and writes 3 * kpad + hpad + 2 values
@@ -111,13 +119,13 @@ __device__ void merge_blocks(VarSmem& s, const int* __restrict__ a,
 // the run-dedupe marks, the AND's segmentation, the locate tail. With
 // bpad (word B is query padding) the row keeps every run start, word A's
 // union.
+template <class Tail>
 __global__ void __launch_bounds__(kThreads) variants_and_locate_full_kernel(
     const int* __restrict__ a, const int* __restrict__ a_pg,
     const int* __restrict__ na_, const int* __restrict__ ra_,
     const int* __restrict__ b, const int* __restrict__ b_pg,
     const int* __restrict__ nb_, const int* __restrict__ rb_,
-    const int* __restrict__ bpad_, int va, int vb, int cap, int kpad,
-    int hpad, Outputs out) {
+    const int* __restrict__ bpad_, int va, int vb, int cap, Tail tail) {
   __shared__ VarSmem s;
   merge_blocks(s, a, a_pg, na_, va, b, b_pg, nb_, vb, cap);
   const size_t row = blockIdx.x;
@@ -154,14 +162,14 @@ __global__ void __launch_bounds__(kThreads) variants_and_locate_full_kernel(
 #pragma unroll
     for (int k = 0; k < kIpt; ++k) keep[k] = start[k];
   }
-  locate_tail<kThreads, kIpt, kLanes>(s.row, keep, n, ipt, kpad, hpad, out);
+  tail.template run<kThreads, kIpt, kLanes>(s.row, keep, n, ipt);
 }
 
 // W = 1, one word's V variants: the merged row keeps each run's first lane.
+template <class Tail>
 __global__ void __launch_bounds__(kThreads) union_merge_locate_full_kernel(
     const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, int v, int cap, int kpad, int hpad,
-    Outputs out) {
+    const int* __restrict__ na_, int v, int cap, Tail tail) {
   __shared__ VarSmem s;
   merge_blocks(s, a, a_pg, na_, v, nullptr, nullptr, nullptr, 0, cap);
   const int n = v * cap;
@@ -177,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) union_merge_locate_full_kernel(
       keep[k] = x < kInf && x != (l > 0 ? s.row.val[l - 1] : -1);
     }
   }
-  locate_tail<kThreads, kIpt, kLanes>(s.row, keep, n, ipt, kpad, hpad, out);
+  tail.template run<kThreads, kIpt, kLanes>(s.row, keep, n, ipt);
 }
 
 bool shape_ok(int nblk, int cap) {
@@ -196,8 +204,23 @@ extern "C" int docodo_variants_and_locate_full(
   if (rows > 0)
     variants_and_locate_full_kernel<<<rows, kThreads, 0,
                                       (cudaStream_t)stream>>>(
-        a, a_pg, na, ra, b, b_pg, nb, rb, bpad, va, vb, cap, kpad, hpad,
-        outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+        a, a_pg, na, ra, b, b_pg, nb, rb, bpad, va, vb, cap,
+        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int docodo_variants_and_locate_full_topk(
+    const int* a, const int* a_pg, const int* na, const int* ra,
+    const int* b, const int* b_pg, const int* nb, const int* rb,
+    const int* bpad, int rows, int va, int vb, int cap, int topk, int hpad,
+    int* pages, float* ranks, int* counts, int* n_pages, int* n_hits,
+    int* hits, void* stream) {
+  if (!shape_ok(va + vb, cap)) return (int)cudaErrorInvalidValue;
+  if (rows > 0)
+    variants_and_locate_full_kernel<<<rows, kThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        a, a_pg, na, ra, b, b_pg, nb, rb, bpad, va, vb, cap,
+        topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits));
   return (int)cudaGetLastError();
 }
 
@@ -209,7 +232,20 @@ extern "C" int docodo_union_merge_locate_full(
   if (rows > 0)
     union_merge_locate_full_kernel<<<rows, kThreads, 0,
                                      (cudaStream_t)stream>>>(
-        a, a_pg, na, v, cap, kpad, hpad,
-        outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+        a, a_pg, na, v, cap,
+        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int docodo_union_locate_full_topk(
+    const int* a, const int* a_pg, const int* na, int rows, int v, int cap,
+    int topk, int hpad, int* pages, float* ranks, int* counts, int* n_pages,
+    int* n_hits, int* hits, void* stream) {
+  if (!shape_ok(v, cap)) return (int)cudaErrorInvalidValue;
+  if (rows > 0)
+    union_merge_locate_full_kernel<<<rows, kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        a, a_pg, na, v, cap,
+        topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits));
   return (int)cudaGetLastError();
 }

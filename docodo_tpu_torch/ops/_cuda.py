@@ -156,34 +156,45 @@ class Kernel:
 
 
 def full_result(kernel: Kernel, inputs, n: int, max_lanes: int, kpad: int,
-                hpad: int):
+                hpad: int, topk_mode: bool = False):
     """Launch one of the row-per-block full-result kernels of
     locate_full.cu. inputs: the pointer arguments in the C entry point's
     order, int32 [rows, cap] posting/page blocks and [rows] per-row
     scalars; n: the stream width a row makes. Returns (pg_c, rk_c, ct_c,
-    n_pages, n_hits, hits)."""
+    n_pages, n_hits, hits), or with `topk_mode` (a _topk kernel: kpad is
+    its topk, which may exceed n) the finished (pages, ranks, counts
+    int32, n_pages, n_hits, hits)."""
     rows, cap = inputs[0].shape
     if not 0 < n <= max_lanes:
         raise ValueError(f"{kernel.symbol}: stream width {n} outside "
                          f"(0, {max_lanes}]")
-    if not (0 < kpad <= n and 0 < hpad <= n):
-        raise ValueError(f"{kernel.symbol}: kpad {kpad} / hpad {hpad} "
-                         f"outside (0, {n}]")
+    check_budgets(kernel, n, kpad, hpad, topk_mode)
     for k, t in enumerate(inputs):
         check(t, f"input {k}", torch.int32,
               (rows, cap) if t.dim() == 2 else (rows,))
-    outs = full_result_outputs(rows, kpad, hpad, inputs[0].device)
+    outs = full_result_outputs(rows, kpad, hpad, inputs[0].device, topk_mode)
     kernel.launch(inputs[0].device, *inputs, rows, cap, kpad, hpad, *outs)
     return outs
 
 
-def full_result_outputs(rows: int, kpad: int, hpad: int, dev):
-    """Uninitialised (pg_c, rk_c, ct_c, n_pages, n_hits, hits)."""
+def check_budgets(kernel: Kernel, n: int, kpad: int, hpad: int,
+                  topk_mode: bool = False) -> None:
+    """A full-result kernel's run and hit widths over an n-lane stream:
+    both in (0, n], but a _topk kernel pads any topk itself."""
+    if not (0 < kpad and (topk_mode or kpad <= n) and 0 < hpad <= n):
+        raise ValueError(f"{kernel.symbol}: kpad {kpad} / hpad {hpad} "
+                         f"outside (0, {n}]")
+
+
+def full_result_outputs(rows: int, kpad: int, hpad: int, dev,
+                        topk_mode: bool = False):
+    """Uninitialised (pg_c, rk_c, ct_c, n_pages, n_hits, hits); the
+    counts are f32, or int32 with `topk_mode`."""
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty((rows, kpad), **i32),
             torch.empty((rows, kpad), **f32),
-            torch.empty((rows, kpad), **f32),
+            torch.empty((rows, kpad), **(i32 if topk_mode else f32)),
             torch.empty((rows,), **i32),
             torch.empty((rows,), **i32),
             torch.empty((rows, hpad), **i32))
@@ -208,6 +219,13 @@ AND_LOCATE_TOPK = Kernel("docodo_and_locate_topk",
                          "ppppppppp" + "iiii" + "ppp")
 SINGLE_LOCATE_TOPK = Kernel("docodo_single_locate_topk",
                             "pppp" + "iiii" + "ppp")
+SORTED_AND_TOPK = Kernel("docodo_sorted_and_locate_full_topk", _FULL)
+VARIANTS_AND_TOPK = Kernel("docodo_variants_and_locate_full_topk",
+                           VARIANTS_AND.signature)
+UNION_TOPK = Kernel("docodo_union_locate_full_topk", UNION_MERGE.signature)
+SINGLE_TOPK = Kernel("docodo_single_locate_full_topk", _W1)
+MERGE_AND_LOCATE_STREAMS = Kernel("docodo_merge_and_locate",
+                                  "pppppppp" + "ii" + "pppp")
 KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "single_locate_full": SINGLE,
            "union_locate_full": UNION,
@@ -219,4 +237,9 @@ KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "union_merge_locate_full": UNION_MERGE,
            "variants_keep": VARIANTS_KEEP,
            "and_locate_topk": AND_LOCATE_TOPK,
-           "single_locate_topk": SINGLE_LOCATE_TOPK}
+           "single_locate_topk": SINGLE_LOCATE_TOPK,
+           "sorted_and_locate_full_topk": SORTED_AND_TOPK,
+           "variants_and_locate_full_topk": VARIANTS_AND_TOPK,
+           "union_locate_full_topk": UNION_TOPK,
+           "single_locate_full_topk": SINGLE_TOPK,
+           "merge_and_locate": MERGE_AND_LOCATE_STREAMS}

@@ -17,7 +17,9 @@ Queries are AND folds of W words, each word an OR of V variants. With
 the kernels, each bucket of queries goes through a slot kernel when its
 shape is admitted, else through the chunked kernels (query_kernels); the
 kernel buckets share one rank top-k and one doc grouping at the end, as
-in the JAX package. W >= 3 with variants, which no kernel takes (nor
+in the JAX package; on the per-bucket path a server takes
+(search_batch_full with fused=False, batched_query_full) each bucket
+ends its own. W >= 3 with variants, which no kernel takes (nor
 does the JAX package's), and every bucket without the kernels take the
 plain route below (query_step_full).
 
@@ -30,7 +32,7 @@ itself; every other bucket takes the torch route (query_step).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +44,7 @@ from docodo_tpu_torch.ops.seqops import (
     and_variants_sorted,
     combine_r,
     compact,
+    compact_hits,
     locate_compact,
     or_masked,
     or_variants_sorted,
@@ -62,6 +65,32 @@ def _bucket(n: int, lo: int = 64) -> int:
     while c < n:
         c <<= 1
     return c
+
+
+def _bucket4(n: int, lo: int = 8) -> int:
+    """Power-of-four bucket (device_index.py:1891): the per-bucket path's
+    row counts, so that request waves of changing sizes launch few
+    distinct shapes, at the cost of under 4x padding rows (empty
+    queries)."""
+    c = lo
+    while c < n:
+        c <<= 2
+    return c
+
+
+def _cap_rounder(cap: Optional[int], cap_ladder: Optional[Sequence[int]]):
+    """need -> a bucket's posting cap (device_index.py:2224): `cap` for
+    every query, else the first rung of `cap_ladder` that holds the
+    longest list, else a power of two from 64."""
+
+    def round_cap(need: int) -> int:
+        if cap:
+            return cap
+        for c in cap_ladder or ():
+            if need <= c:
+                return c
+        return _bucket(need)
+    return round_cap
 
 
 def _bucket_sort_key(kv):
@@ -573,13 +602,32 @@ def _variants(tq):
     return tq.shape[2] if tq.dim() == 3 else 1
 
 
+def _pack(outs, tail: bool, ranked: bool = True):
+    """A route's six outputs as its bucket result: the PreFull, or with
+    `tail` the LocateFull before doc grouping. `ranked`: the wrapper
+    finished the rank top-k itself; else the outputs are first-topk runs
+    and streams_topk_tail ends them here."""
+    if not tail:
+        return PreFull(*outs)
+    pages, ranks, counts, n_pages, n_hits, hits = outs
+    if not ranked:
+        pages, ranks, counts, _ = qk.streams_topk_tail(
+            pages, ranks, counts, n_pages, pages.shape[1])
+    return LocateFull(pages=pages, ranks=ranks, counts=counts,
+                      n_pages=n_pages, docs=None, doc_ranks=None, hits=hits,
+                      n_hits=n_hits)
+
+
 def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
-                        topk: int, hit_cap: int, small=None, page_of=None):
+                        topk: int, hit_cap: int, small=None, page_of=None,
+                        tail: bool = False, sort_topk: bool = True):
     """One bucket [B, W] or [B, W, V] through the slot kernels (device_
-    index._pallas_bucket_full, :1618-1800) up to its PreFull, or None
-    when its shape is not admitted: W > 2; with variants (V > 1) a
-    stream W V cap past 1024 lanes; else a W = 2 cap past 512, a W = 1
-    cap past 1024 (256 without carried pages), or W = 1 with topk > cap.
+    index._pallas_bucket_full, :1618-1800) up to its PreFull, or with
+    `tail` up to its LocateFull without docs (sort_topk False: through
+    the top-k-mode kernels), or None when its shape is not admitted:
+    W > 2; with variants (V > 1) a stream W V cap past 1024 lanes; else
+    a W = 2 cap past 512, a W = 1 cap past 1024 (256 without carried
+    pages), or W = 1 with topk > cap.
 
     Pages ride the fetch when combined small tables serve the cap
     (carried); otherwise the wrappers look them up (shared)."""
@@ -588,18 +636,18 @@ def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
         return None
     carried = page_of is not None and _tab_serves(small, cap)
     fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
-    kw = dict(topk=topk, hit_cap=hit_cap, tail=False)
+    kw = dict(topk=topk, hit_cap=hit_cap, tail=tail, sort_topk=sort_topk)
     if v > 1:
         if w * v * cap > qk.MAX_STREAM_WIDTH:
             return None
         a, apg, na = fetch(tq[:, 0])
         if w == 1:
-            return PreFull(*qk.union_locate_full(a, na, bounds, a_pg=apg,
-                                                 **kw))
+            return _pack(qk.union_locate_full(a, na, bounds, a_pg=apg, **kw),
+                         tail)
         b, bpg, nb = fetch(tq[:, 1])
-        return PreFull(*qk.variants_and_locate_full(
+        return _pack(qk.variants_and_locate_full(
             a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
-            tq[:, 1, 0] < 0, bounds, a_pg=apg, b_pg=bpg, **kw))
+            tq[:, 1, 0] < 0, bounds, a_pg=apg, b_pg=bpg, **kw), tail)
     if tq.dim() == 3:
         tq = tq[:, :, 0]
     single = w == 1
@@ -620,7 +668,7 @@ def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
         outs = qk.sorted_and_locate_full(
             a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
             bounds, b_pg=bpg, **kw)
-    return PreFull(*outs)
+    return _pack(outs, tail)
 
 
 # smallest bucket batch the chunked route admits (device_index.py:995,
@@ -629,19 +677,24 @@ CHUNK_MIN_B = 1
 
 
 def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
-                         topk: int, hit_cap: int, small=None, page_of=None):
+                         topk: int, hit_cap: int, small=None, page_of=None,
+                         tail: bool = False, sort_topk: bool = True):
     """One bucket past slot admission through the chunked kernels (the
     chunked branches of device_index._bucket_full, :1329-1398, as a TPU
-    takes them) up to its PreFull, or None for W >= 3 with variants or
-    fewer than CHUNK_MIN_B rows. Pages ride the fetch and the merges
+    takes them) up to its PreFull, or with `tail` up to its LocateFull
+    without docs, or None for W >= 3 with variants or fewer than
+    CHUNK_MIN_B rows. Pages ride the fetch and the merges
     when the small tables carry them; otherwise the locate kernel looks
     them up. Where the JAX package sorts blocks that are already sorted,
     the merge kernel gives the same (coord, tag) stream.
 
     W = 2 (caps past slot admission, so 2 cap >= 2048, the JAX
     package's condition): with carried pages and 2 cap <= 4096 the
-    fused merge + AND + locate kernel (:1124-1167); otherwise the merge,
-    the AND keep and the locate kernels (:1168-1196).
+    fused merge + AND + locate kernel (:1124-1167), or with sort_topk
+    False its three-step form (pallas_query.py:2755): merge_and_locate's
+    full-width streams, the hit compaction and locate_streams_topk;
+    otherwise the merge, the AND keep and the locate kernels
+    (:1168-1196).
 
     W = 1: the gathered block is the kept stream, and the locate kernel
     takes it (:1371-1398). The JAX package gives W = 1 streams narrower
@@ -676,17 +729,25 @@ def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
             vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
             hv = qk.variants_keep(vals, tag, rq[:, 0].contiguous(),
                                   rq[:, 1].contiguous(), tq[:, 1, 0] < 0)
-        return PreFull(*qk.locate_runs(hv, bounds, pg=pg, **kw))
+        return _pack(qk.locate_runs(hv, bounds, pg=pg, **kw), tail, False)
     if tq.dim() == 3:
         tq = tq[:, :, 0]
     a, apg, na = fetch(tq[:, 0])
     if w == 1:
-        return PreFull(*qk.locate_runs(a, bounds, pg=apg, **kw))
+        return _pack(qk.locate_runs(a, bounds, pg=apg, **kw), tail, False)
     ra = rq[:, 0].contiguous()
     if w == 2 and carried and 2 * cap <= qk.FUSED_AND_MAX:
         b, bpg, nb = fetch(tq[:, 1])
-        return PreFull(*qk.merge_and_locate_topk(
-            a, na, ra, b, nb, rq[:, 1].contiguous(), apg, bpg, **kw))
+        rb = rq[:, 1].contiguous()
+        if sort_topk:
+            return _pack(qk.merge_and_locate_topk(a, na, ra, b, nb, rb, apg,
+                                                  bpg, **kw), tail, False)
+        hv, page_s, rank_s, cnt_s = qk.merge_and_locate(a, na, ra, b, nb, rb,
+                                                        apg, bpg)
+        hits, n_hits = compact_hits(hv, hv < INF32, hit_cap)
+        pages, ranks, counts, n_pages = qk.locate_streams_topk(
+            page_s, rank_s, cnt_s, topk)
+        return _pack((pages, ranks, counts, n_pages, n_hits, hits), tail)
     for q in range(1, w):
         b, bpg, nb = fetch(tq[:, q])
         rb = rq[:, q].contiguous()
@@ -695,26 +756,57 @@ def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
             a, apg, na = qk.and_keep_compact(vals, tag, ra, rb, pg)
             ra = combine_r(ra, rb)
     hv = qk.and_keep(vals, tag, ra, rb)
-    return PreFull(*qk.locate_runs(hv, bounds, pg=pg, **kw))
+    return _pack(qk.locate_runs(hv, bounds, pg=pg, **kw), tail, False)
 
 
 def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
                  cap: int, topk: int, hit_cap: int, with_docs: bool,
-                 use_kernels: bool, small=None, page_of=None):
+                 use_kernels: bool, small=None, page_of=None,
+                 tail: bool = True, sort_topk: bool = True):
     """One full-result bucket (device_index.py:1302): with the kernels,
-    the slot kernels' PreFull where admitted, else the chunked kernels';
+    the slot kernels' result where admitted, else the chunked kernels';
     without them, or for a shape no kernel takes, the plain route's
-    finished LocateFull."""
+    finished LocateFull. With `tail` a kernel bucket ends its own rank
+    top-k and doc grouping (a finished LocateFull); with tail=False it
+    returns the PreFull that multi_bucket_query_full's shared tail
+    takes. sort_topk=False (only with `tail`) hands the slot wrappers'
+    keyword through: the top-k-mode kernels."""
+    if sort_topk is False and not tail:
+        raise ValueError("sort_topk=False ends each bucket's top k in its "
+                         "kernel: it has no tail=False form")
     if use_kernels:
         for route in (_kernel_bucket_full, _chunked_bucket_full):
             out = route(term_offsets, coords, bounds, tq, rq, cap=cap,
                         topk=topk, hit_cap=hit_cap, small=small,
-                        page_of=page_of)
-            if out is not None:
-                return out
+                        page_of=page_of, tail=tail, sort_topk=sort_topk)
+            if out is None:
+                continue
+            if tail and with_docs:
+                docs, doc_ranks = doc_group_topk(out.pages, out.ranks,
+                                                 page_doc, is_header)
+                out = out._replace(docs=docs, doc_ranks=doc_ranks)
+            return out
     return query_step_full(term_offsets, coords, bounds, page_doc,
                            is_header, tq, rq, cap=cap, topk=topk,
                            hit_cap=hit_cap, with_docs=with_docs, small=small)
+
+
+def batched_query_full(term_offsets, coords, bounds, page_doc, is_header,
+                       terms, rs, cap: int, topk: int, hit_cap: int,
+                       with_docs: bool = True, use_kernels: bool = False,
+                       small=None, page_of=None,
+                       sort_topk: bool = True) -> LocateFull:
+    """One bucket of full-result queries ([B, W] or [B, W, V] terms),
+    finished (device_index.py:1417): what a server launches per bucket,
+    because the buckets of a request wave change from wave to wave.
+    sort_topk=False takes the top-k-mode kernels where a slot kernel or
+    the fused W = 2 kernel serves the bucket (the JAX routing always
+    passes True); served rows (n_pages <= topk) come out the same."""
+    return _bucket_full(term_offsets, coords, bounds, page_doc, is_header,
+                        terms, rs, cap=cap, topk=topk, hit_cap=hit_cap,
+                        with_docs=with_docs, use_kernels=use_kernels,
+                        small=small, page_of=page_of, tail=True,
+                        sort_topk=sort_topk)
 
 
 def multi_bucket_query_full(term_offsets, coords, bounds, page_doc,
@@ -730,7 +822,8 @@ def multi_bucket_query_full(term_offsets, coords, bounds, page_doc,
     outs = [
         _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq,
                      rq, cap=cap, topk=topk, hit_cap=hb, with_docs=with_docs,
-                     use_kernels=use_kernels, small=small, page_of=page_of)
+                     use_kernels=use_kernels, small=small, page_of=page_of,
+                     tail=False)
         for tq, rq, cap, hb in zip(terms_list, rs_list, caps, hit_caps)
     ]
     idxs = [i for i, o in enumerate(outs) if isinstance(o, PreFull)]
@@ -965,14 +1058,7 @@ class DeviceIndex:
         ranks = np.zeros((b, topk), dtype=np.float32)
         counts = np.zeros((b, topk), dtype=np.int32)
 
-        def round_cap(need: int) -> int:
-            if cap:
-                return cap
-            for c in cap_ladder or ():
-                if need <= c:
-                    return c
-            return _bucket(need)
-
+        round_cap = _cap_rounder(cap, cap_ladder)
         buckets = {}
         for i, q in enumerate(queries):
             if any(self.term_id(word) < 0 for word, _ in q):
@@ -1063,13 +1149,21 @@ class DeviceIndex:
 
     def search_batch_full(self, queries, topk: int = 64,
                           hit_cap: int = 512, want_docs: bool = True,
-                          use_kernels: Optional[bool] = None):
+                          use_kernels: Optional[bool] = None,
+                          cap: Optional[int] = None,
+                          cap_ladder: Optional[Sequence[int]] = None,
+                          fused: bool = True, deferred: bool = False,
+                          clamp_budgets: bool = False,
+                          sort_topk: bool = True):
         """Full-result batch evaluation with per-word variant ORs
-        (device_index.py:2170, the fused path). queries: per query a
-        list of (codes, r) groups; codes is a term key or a sequence of
-        OR'd variant keys (the reference's code sets and `a|b`
-        alternations). Buckets group queries by (cap, W, V rounded up to
-        a power of two, hit tier).
+        (device_index.py:2170). queries: per query a list of (codes, r)
+        groups; codes is a term key or a sequence of OR'd variant keys
+        (the reference's code sets and `a|b` alternations). Buckets
+        group queries by (cap, W, V rounded up to a power of two, hit
+        tier); the cap is a power of two from 64, or the first rung of
+        `cap_ladder` that holds the longest list, or `cap` for every
+        query (longer lists are then cut to their first `cap` postings,
+        and neither the small tables nor carried pages serve).
 
         Returns a dict of numpy arrays: pages / ranks / counts [B, topk],
         n_pages / n_hits [B], hits [B, hit_cap] (ascending kept
@@ -1077,11 +1171,34 @@ class DeviceIndex:
         doc_ranks [B, topk]. n_pages > topk or n_hits > hit_cap flags
         rank truncation.
 
+        fused: every bucket shares one rank top-k and one doc grouping
+        and the hit buffers come in tiers (128 / 512 / hit_cap by the
+        smallest operand). With False, the shape a server sends
+        (batcher.py:701-768): one hit tier, rows padded to a power of
+        four, and each bucket finished on its own (batched_query_full).
+
+        clamp_budgets (the escalated pass of truncated rows, per-bucket
+        path): each bucket's topk is cut to its cap and its hit buffer
+        to min(hit_cap, cap * max(2, 2 V)), and the row's budgets come
+        back in out["topk_eff"] / out["hit_cap_eff"] for the caller's
+        truncation check.
+
+        deferred: returns `finish` instead of the dict. Every launch and
+        the copies into pinned host memory are queued on the stream;
+        nothing is waited for or scattered into the result until
+        finish() is called, so the caller can bucket the next wave
+        meanwhile.
+
         use_kernels: the CUDA kernels (default on a CUDA device; on the
         CPU their plain versions) or, with False, the plain route for
-        every bucket."""
+        every bucket. sort_topk=False (per-bucket path only): the
+        top-k-mode kernels, see batched_query_full."""
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
+        per_bucket = not fused or clamp_budgets
+        if not sort_topk and not per_bucket:
+            raise ValueError("sort_topk=False needs the per-bucket path: "
+                             "fused=False or clamp_budgets=True")
         b = len(queries)
         out = {
             "pages": np.full((b, topk), -1, dtype=np.int32),
@@ -1094,11 +1211,17 @@ class DeviceIndex:
         if want_docs:
             out["docs"] = np.full((b, topk), -1, dtype=np.int32)
             out["doc_ranks"] = np.zeros((b, topk), dtype=np.float32)
+        if clamp_budgets:
+            out["topk_eff"] = np.full(b, topk, dtype=np.int64)
+            out["hit_cap_eff"] = np.full(b, hit_cap, dtype=np.int64)
 
+        round_cap = _cap_rounder(cap, cap_ladder)
         # hit-stream readback tiers: a query whose smallest operand
         # bounds its result small reads back a small buffer; overflow
-        # still flags through n_hits
-        hit_tiers = sorted({min(hit_cap, t) for t in (128, 512, hit_cap)})
+        # still flags through n_hits. Fused path only: per bucket, each
+        # extra tier is another launch
+        hit_tiers = sorted({min(hit_cap, t) for t in (128, 512, hit_cap)}
+                           ) if fused else [hit_cap]
 
         def hit_tier(min_need: int) -> int:
             want = 4 * min_need + 16
@@ -1116,15 +1239,23 @@ class DeviceIndex:
                 continue
             _rows, _rvals, w, v, need, min_need = cg
             buckets.setdefault(
-                (_bucket(need), w, _bucket(v, lo=1), hit_tier(min_need)),
+                (round_cap(need), w, _bucket(v, lo=1), hit_tier(min_need)),
                 []).append(i)
 
         terms_list, rs_list, caps_list, hcaps_list, idx_list = (
             [], [], [], [], [])
+        topks_list = []
         dev = self.device
         for (qcap, w, vb, hb), idxs in sorted(buckets.items(),
                                                key=_bucket_sort_key):
-            brows = _bucket(len(idxs), lo=8)
+            topk_b = topk
+            if clamp_budgets:
+                topk_b = min(topk, qcap)
+                hb = min(hit_cap, qcap * max(2, 2 * vb))
+                out["topk_eff"][idxs] = topk_b
+                out["hit_cap_eff"][idxs] = hb
+            topks_list.append(topk_b)
+            brows = _bucket(len(idxs), lo=8) if fused else _bucket4(len(idxs))
             terms = np.full((brows, w, vb), -1, dtype=np.int32)
             rs = np.ones((brows, w), dtype=np.int32)
             for row, i in enumerate(idxs):
@@ -1140,33 +1271,83 @@ class DeviceIndex:
             hcaps_list.append(hb)
             idx_list.append(idxs)
         if not idx_list:
-            return out
-        outs = multi_bucket_query_full(
-            self.term_offsets, self.coords, self.bounds, self.page_doc,
-            self.is_header, terms_list, rs_list, caps_list, topk,
-            hcaps_list, with_docs=want_docs, use_kernels=use_kernels,
-            small=self.small, page_of=self.page_of)
-        # one transfer per fixed-width field, one per bucket for the hits
-        fields = ["pages", "ranks", "counts", "n_pages", "n_hits"]
+            return (lambda: out) if deferred else out
+        # an explicit cap may cut long lists, which the small tables
+        # cannot serve (no row for a count past the cap), and then no
+        # page stream is carried either
+        small = self.small if cap is None else None
+        page_of = self.page_of if cap is None else None
+        if not per_bucket:
+            outs = multi_bucket_query_full(
+                self.term_offsets, self.coords, self.bounds, self.page_doc,
+                self.is_header, terms_list, rs_list, caps_list, topk,
+                hcaps_list, with_docs=want_docs, use_kernels=use_kernels,
+                small=small, page_of=page_of)
+        else:
+            outs = [
+                batched_query_full(
+                    self.term_offsets, self.coords, self.bounds,
+                    self.page_doc, self.is_header, tq, rq, cap=qcap, topk=tk,
+                    hit_cap=hb, with_docs=want_docs,
+                    use_kernels=use_kernels, small=small, page_of=page_of,
+                    sort_topk=sort_topk)
+                for tq, rq, qcap, hb, tk in zip(
+                    terms_list, rs_list, caps_list, hcaps_list, topks_list)]
+        fields = ["pages", "ranks", "counts", "n_pages", "n_hits", "hits"]
         if want_docs:
             fields += ["docs", "doc_ranks"]
-        host = {f: torch.cat([getattr(o, f) for o in outs]).cpu().numpy()
-                for f in fields}
-        off = 0
-        for idxs, hb, o in zip(idx_list, hcaps_list, outs):
-            n = len(idxs)
-            sl = slice(off, off + n)
-            for f in ("pages", "ranks", "counts", "docs", "doc_ranks"):
-                if f in host:
-                    out[f][idxs] = host[f][sl]
-            out["n_pages"][idxs] = host["n_pages"][sl]
-            nh = host["n_hits"][sl]
-            # a query overflowing its tier must flag truncation
-            out["n_hits"][idxs] = (np.where(nh > hb, np.int32(hit_cap + 1),
-                                            nh) if hb < hit_cap else nh)
-            out["hits"][idxs, :hb] = o.hits[:n].cpu().numpy()
-            off += o.pages.shape[0]
-        return out
+        host, ready = _to_host({f: [getattr(o, f) for o in outs]
+                                for f in fields})
+
+        def finish():
+            if ready is not None:
+                ready.synchronize()
+            for k, (idxs, hb, tk) in enumerate(zip(idx_list, hcaps_list,
+                                                   topks_list)):
+                n = len(idxs)
+                for f in ("pages", "ranks", "counts", "docs", "doc_ranks"):
+                    if f in host:
+                        out[f][idxs, :tk] = host[f][k][:n]
+                out["n_pages"][idxs] = host["n_pages"][k][:n]
+                nh = host["n_hits"][k][:n]
+                # a query overflowing its tier must flag truncation
+                out["n_hits"][idxs] = (np.where(nh > hb,
+                                                np.int32(hit_cap + 1), nh)
+                                       if hb < hit_cap else nh)
+                out["hits"][idxs, :hb] = host["hits"][k][:n]
+            return out
+
+        return finish if deferred else finish()
+
+
+def _to_host(fields: dict):
+    """Copies of per-bucket device tensors on the host, {field: [numpy
+    view per bucket]}: a field whose buckets agree in width goes in one
+    transfer. On a CUDA device the copies go to pinned memory without
+    waiting; the second result is the event that says they have
+    landed (None on the CPU)."""
+    host = {}
+    cuda = False
+    for f, tensors in fields.items():
+        cuda = tensors[0].is_cuda
+        if len({t.shape[1:] for t in tensors}) == 1:
+            parts = torch.split(_host_copy(torch.cat(tensors)),
+                                [t.shape[0] for t in tensors])
+        else:
+            parts = [_host_copy(t) for t in tensors]
+        host[f] = [p.numpy() for p in parts]
+    ready = None
+    if cuda:
+        ready = torch.cuda.Event()
+        ready.record()
+    return host, ready
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_cuda:
+        return t
+    dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return dst.copy_(t, non_blocking=True)
 
 
 def _small_state(i: int, st: SmallTab) -> dict:

@@ -38,6 +38,22 @@ The full-result wrappers return the slot-mode outputs of
 page runs in slot order, padded to topk with -1 / 0 / 0, n_pages and
 n_hits, and the first hit_cap kept hits, INF32 padded; with tail=True
 the rank top-k of those runs (streams_topk_tail) replaces the runs.
+
+With sort_topk=False the four slot wrappers take their top-k-mode
+kernels instead (`_full_stream_call`, pallas_query.py:789), which end a
+row inside the kernel: the true top k over EVERY run of the row (counts
+int32), n_pages, n_hits and the first hit_cap kept hits. The two modes
+differ only on rows with n_pages > topk, which are flagged truncated.
+
+  sorted_and_locate_full_topk    pallas_query.py:498
+  variants_and_locate_full_topk  pallas_query.py:526
+  union_locate_full_topk         pallas_query.py:550 (any V >= 1)
+  single_locate_full_topk        pallas_query.py:218
+
+  merge_and_locate        W = 2, 2 cap <= 4096: the kept stream and the
+                          in-slot run streams at full width
+                          (pallas_query.py:2695), with the torch tails
+                          compact_streams_topk / locate_streams_topk
 """
 
 from __future__ import annotations
@@ -48,9 +64,11 @@ from docodo_tpu_torch.ops import _cuda
 from docodo_tpu_torch.ops.seqops import (
     INF32,
     combine_r,
+    compact_hits,
     fold_dups,
     locate_compact,
     page_runs,
+    run_starts,
     segment_and,
     select_slots,
     sort_tagged,
@@ -93,13 +111,18 @@ def _masked(a, na):
     return torch.where(lane < na[:, None], a, INF32)
 
 
-def _slots_glue(outs, topk: int, hit_cap: int, tail: bool):
+def _slots_glue(outs, topk: int, hit_cap: int, tail: bool,
+                sort_topk: bool = True):
     """Pad the kernel's first-kpad runs to topk (-1 / 0 / 0) and its
     first-hpad hits to hit_cap (INF32); with `tail`, finish the rank
-    top-k (pallas_query.py:875-899)."""
+    top-k (pallas_query.py:875-899). A top-k-mode kernel's runs
+    (sort_topk False) are finished already: only the hits are padded
+    (pallas_query.py:817-823)."""
     pg_c, rk_c, ct_c, n_pages, n_hits, hits = outs
     bsz, kpad = pg_c.shape
-    if kpad < topk:
+    if not sort_topk:
+        tail = False
+    elif kpad < topk:
         z = topk - kpad
         pg_c = torch.cat([pg_c, pg_c.new_full((bsz, z), -1)], dim=1)
         rk_c = torch.cat([rk_c, rk_c.new_zeros((bsz, z))], dim=1)
@@ -116,6 +139,21 @@ def _slots_glue(outs, topk: int, hit_cap: int, tail: bool):
     return pages, ranks, counts, n_pages, n_hits, hits
 
 
+def _check_mode(tail: bool, sort_topk: bool) -> None:
+    if not (tail or sort_topk):
+        raise ValueError("sort_topk=False ends the top k in the kernel: "
+                         "it has no tail=False form")
+
+
+def _full_topk(vals, keep, page, topk: int, hpad: int):
+    """Plain version of the kernels' locate_full_topk_tail: every run of
+    the masked stream ranked, the top `topk` by (rank descending, lane
+    ascending), the exact totals and the first hpad kept hits."""
+    pg, rk, ct, n_pages = page_runs(vals, keep, page, vals.shape[1])
+    hits, n_hits = compact_hits(vals, keep, hpad)
+    return (*runs_topk(pg, rk, ct, topk), n_pages, n_hits, hits)
+
+
 def _on_device(kernel, plain, *args):
     """The kernel for CUDA tensors, the plain version for CPU ones."""
     dev = args[0].device
@@ -130,14 +168,28 @@ def _on_device(kernel, plain, *args):
 # W = 2: sorted AND + locate
 # ---------------------------------------------------------------------------
 
-def _sorted_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad):
+def _sorted_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad,
+                      finish=locate_compact):
     """Plain version of docodo_sorted_and_locate_full: the plain merge
     (a stable sort on coord << 2 | tag), the plain AND keep, the locate
     tail."""
     vals, tag, page = _merge_tagged_plain(
         *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
     keep = _and_keep_plain(vals, tag, ra, rb) < INF32
-    return locate_compact(vals, keep, page, kpad, hpad)
+    return finish(vals, keep, page, kpad, hpad)
+
+
+def _sorted_and_topk_plain(a, a_pg, na, ra, b, b_pg, nb, rb, topk, hpad):
+    """Plain version of docodo_sorted_and_locate_full_topk."""
+    return _sorted_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, topk, hpad,
+                             finish=_full_topk)
+
+
+def _sorted_and_topk_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, topk, hpad):
+    return _cuda.full_result(_cuda.SORTED_AND_TOPK,
+                             [a, a_pg, na, ra, b, b_pg, nb, rb],
+                             2 * a.shape[1], 2 * MAX_SORTED_PALLAS_CAP,
+                             topk, hpad, topk_mode=True)
 
 
 def _sorted_and_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad):
@@ -148,7 +200,8 @@ def _sorted_and_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad):
 
 
 def _sorted_and_call(core, a, na, ra, b, nb, rb, bounds, topk, hit_cap,
-                     a_pg, b_pg, tail):
+                     a_pg, b_pg, tail, sort_topk=True):
+    _check_mode(tail, sort_topk)
     cap = a.shape[1]
     if cap > MAX_SORTED_PALLAS_CAP or b.shape[1] != cap:
         raise ValueError(f"W=2 kernel takes equal caps <= "
@@ -157,45 +210,60 @@ def _sorted_and_call(core, a, na, ra, b, nb, rb, bounds, topk, hit_cap,
         a_pg = shared_pg(_masked(a, na), bounds)
         b_pg = shared_pg(_masked(b, nb), bounds)
     n = 2 * cap
-    outs = core(a, a_pg, na, ra, b, b_pg, nb, rb, min(topk, n),
-                min(hit_cap, n))
-    return _slots_glue(outs, topk, hit_cap, tail)
+    outs = core(a, a_pg, na, ra, b, b_pg, nb, rb,
+                min(topk, n) if sort_topk else topk, min(hit_cap, n))
+    return _slots_glue(outs, topk, hit_cap, tail, sort_topk)
 
 
 def sorted_and_locate_full(a, na, ra, b, nb, rb, bounds, *, topk: int,
                            hit_cap: int, a_pg=None, b_pg=None,
-                           tail: bool = True):
+                           tail: bool = True, sort_topk: bool = True):
     """W = 2 full-result AND + locate over [B, cap] posting blocks
     a / b with lengths na / nb and windows ra / rb (all int32).
     a_pg / b_pg: the blocks' page streams, carried from the posting
     fetch; without them the pages are looked up here (shared_pg).
     Returns (pages, ranks, counts, n_pages, n_hits, hits[B, hit_cap]),
     or with tail=False the first-topk runs (pg_c, rk_c, ct_c) in place
-    of the first three."""
+    of the first three. The top k is that of the row's first topk runs;
+    with sort_topk=False (pallas_query.py:1232) it is the true top k of
+    every run, picked inside the top-k-mode kernel."""
+    kernel, plain = ((_sorted_and_kernel, _sorted_and_plain) if sort_topk
+                     else (_sorted_and_topk_kernel, _sorted_and_topk_plain))
     return _sorted_and_call(
-        lambda *x: _on_device(_sorted_and_kernel, _sorted_and_plain, *x),
-        a, na, ra, b, nb, rb, bounds, topk, hit_cap, a_pg, b_pg, tail)
+        lambda *x: _on_device(kernel, plain, *x), a, na, ra, b, nb, rb,
+        bounds, topk, hit_cap, a_pg, b_pg, tail, sort_topk)
 
 
 def sorted_and_locate_full_plain(a, na, ra, b, nb, rb, bounds, *,
                                  topk: int, hit_cap: int, a_pg=None,
-                                 b_pg=None, tail: bool = True):
+                                 b_pg=None, tail: bool = True,
+                                 sort_topk: bool = True):
     """sorted_and_locate_full through its plain version, on any device."""
-    return _sorted_and_call(_sorted_and_plain, a, na, ra, b, nb, rb, bounds,
-                            topk, hit_cap, a_pg, b_pg, tail)
+    plain = _sorted_and_plain if sort_topk else _sorted_and_topk_plain
+    return _sorted_and_call(plain, a, na, ra, b, nb, rb, bounds, topk,
+                            hit_cap, a_pg, b_pg, tail, sort_topk)
 
 
 # ---------------------------------------------------------------------------
 # W = 1: single word, and the V = 1 union
 # ---------------------------------------------------------------------------
 
-def _single_plain(a, a_pg, na, kpad, hpad):
+def _single_plain(a, a_pg, na, kpad, hpad, finish=locate_compact):
     """Plain version of docodo_single_locate_full: the block's first na
     slots are the kept stream."""
     lane = torch.arange(a.shape[1], device=a.device)[None, :]
     keep = lane < na[:, None]
-    return locate_compact(torch.where(keep, a, INF32), keep, a_pg, kpad,
-                          hpad)
+    return finish(torch.where(keep, a, INF32), keep, a_pg, kpad, hpad)
+
+
+def _single_topk_mode_plain(a, a_pg, na, topk, hpad):
+    """Plain version of docodo_single_locate_full_topk."""
+    return _single_plain(a, a_pg, na, topk, hpad, finish=_full_topk)
+
+
+def _single_topk_mode_kernel(a, a_pg, na, topk, hpad):
+    return _cuda.full_result(_cuda.SINGLE_TOPK, [a, a_pg, na], a.shape[1],
+                             MAX_PALLAS_CAP, topk, hpad, topk_mode=True)
 
 
 def _single_kernel(a, a_pg, na, kpad, hpad):
@@ -203,14 +271,14 @@ def _single_kernel(a, a_pg, na, kpad, hpad):
                              MAX_PALLAS_CAP, kpad, hpad)
 
 
-def _union_plain(a, a_pg, na, kpad, hpad):
+def _union_plain(a, a_pg, na, kpad, hpad, finish=locate_compact):
     """Plain version of docodo_union_locate_full: a slot is kept where it
     is valid and differs from the previous slot."""
     vals = _masked(a, na)
     prev = torch.cat([torch.full_like(vals[:, :1], -1), vals[:, :-1]],
                      dim=1)
     keep = (vals < INF32) & (vals != prev)
-    return locate_compact(vals, keep, a_pg, kpad, hpad)
+    return finish(vals, keep, a_pg, kpad, hpad)
 
 
 def _union_kernel(a, a_pg, na, kpad, hpad):
@@ -218,30 +286,36 @@ def _union_kernel(a, a_pg, na, kpad, hpad):
                              MAX_STREAM_WIDTH, kpad, hpad)
 
 
-def _w1_call(core, limit, a, na, bounds, topk, hit_cap, a_pg, tail):
+def _w1_call(core, limit, a, na, bounds, topk, hit_cap, a_pg, tail,
+             sort_topk=True):
+    _check_mode(tail, sort_topk)
     cap = a.shape[1]
     if cap > limit:
         raise ValueError(f"W=1 kernel takes caps <= {limit}, got {cap}")
     if a_pg is None:
         a_pg = shared_pg(_masked(a, na), bounds)
-    outs = core(a, a_pg, na, min(topk, cap), min(hit_cap, cap))
-    return _slots_glue(outs, topk, hit_cap, tail)
+    outs = core(a, a_pg, na, min(topk, cap) if sort_topk else topk,
+                min(hit_cap, cap))
+    return _slots_glue(outs, topk, hit_cap, tail, sort_topk)
 
 
 def single_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
-                       a_pg=None, tail: bool = True):
+                       a_pg=None, tail: bool = True, sort_topk: bool = True):
     """W = 1 full-result locate over [B, cap <= 128] posting blocks;
-    outputs as sorted_and_locate_full."""
-    return _w1_call(
-        lambda *x: _on_device(_single_kernel, _single_plain, *x),
-        MAX_PALLAS_CAP, a, na, bounds, topk, hit_cap, a_pg, tail)
+    outputs and modes as sorted_and_locate_full."""
+    kernel, plain = ((_single_kernel, _single_plain) if sort_topk else
+                     (_single_topk_mode_kernel, _single_topk_mode_plain))
+    return _w1_call(lambda *x: _on_device(kernel, plain, *x), MAX_PALLAS_CAP,
+                    a, na, bounds, topk, hit_cap, a_pg, tail, sort_topk)
 
 
 def single_locate_full_plain(a, na, bounds, *, topk: int, hit_cap: int,
-                             a_pg=None, tail: bool = True):
+                             a_pg=None, tail: bool = True,
+                             sort_topk: bool = True):
     """single_locate_full through its plain version, on any device."""
-    return _w1_call(_single_plain, MAX_PALLAS_CAP, a, na, bounds, topk,
-                    hit_cap, a_pg, tail)
+    plain = _single_plain if sort_topk else _single_topk_mode_plain
+    return _w1_call(plain, MAX_PALLAS_CAP, a, na, bounds, topk, hit_cap, a_pg,
+                    tail, sort_topk)
 
 
 def _v1(a, na, a_pg):
@@ -249,13 +323,16 @@ def _v1(a, na, a_pg):
 
 
 def union_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
-                      a_pg=None, tail: bool = True):
+                      a_pg=None, tail: bool = True, sort_topk: bool = True):
     """W = 1 full-result locate of one word's variant union: a [B, V, cap]
-    with V cap <= 1024, na [B, V]; outputs as sorted_and_locate_full.
-    V = 1 takes the union kernel, V > 1 union_merge_locate_full."""
-    if a.shape[1] > 1:
+    with V cap <= 1024, na [B, V]; outputs and modes as
+    sorted_and_locate_full. V = 1 takes the union kernel, V > 1
+    union_merge_locate_full; sort_topk=False the top-k-mode kernel at
+    any V."""
+    if not sort_topk or a.shape[1] > 1:
         return union_merge_locate_full(a, na, bounds, topk=topk,
-                                       hit_cap=hit_cap, a_pg=a_pg, tail=tail)
+                                       hit_cap=hit_cap, a_pg=a_pg, tail=tail,
+                                       sort_topk=sort_topk)
     a, na, a_pg = _v1(a, na, a_pg)
     return _w1_call(
         lambda *x: _on_device(_union_kernel, _union_plain, *x),
@@ -263,12 +340,13 @@ def union_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
 
 
 def union_locate_full_plain(a, na, bounds, *, topk: int, hit_cap: int,
-                            a_pg=None, tail: bool = True):
+                            a_pg=None, tail: bool = True,
+                            sort_topk: bool = True):
     """union_locate_full through its plain versions, on any device."""
-    if a.shape[1] > 1:
+    if not sort_topk or a.shape[1] > 1:
         return union_merge_locate_full_plain(a, na, bounds, topk=topk,
                                              hit_cap=hit_cap, a_pg=a_pg,
-                                             tail=tail)
+                                             tail=tail, sort_topk=sort_topk)
     a, na, a_pg = _v1(a, na, a_pg)
     return _w1_call(_union_plain, MAX_STREAM_WIDTH, a, na, bounds, topk,
                     hit_cap, a_pg, tail)
@@ -289,14 +367,22 @@ def _block_pages(a, na, a_pg, bounds):
     return shared_pg(variant_blocks(a, na), bounds).reshape(a.shape)
 
 
-def _variants_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, kpad, hpad):
+def _variants_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, kpad, hpad,
+                        finish=locate_compact):
     """Plain version of docodo_variants_and_locate_full: the variant
     blocks merge by one stable sort on coord << 2 | tag, then
     and_variants_sorted's run-dedupe and segmentation and the locate
     tail."""
     vals, tag, pg = _merge_tagged_plain(a, a_pg, na, b, b_pg, nb)
     keep = variants_keep_mask(vals, tag, ra, rb, bpad != 0)
-    return locate_compact(vals, keep, pg, kpad, hpad)
+    return finish(vals, keep, pg, kpad, hpad)
+
+
+def _variants_and_topk_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, topk,
+                             hpad):
+    """Plain version of docodo_variants_and_locate_full_topk."""
+    return _variants_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, topk,
+                               hpad, finish=_full_topk)
 
 
 def _check_blocks(rows, blocks):
@@ -306,29 +392,36 @@ def _check_blocks(rows, blocks):
 
 
 def _variants_and_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, kpad,
-                         hpad):
+                         hpad, kernel=_cuda.VARIANTS_AND):
     rows, va, cap = a.shape
     vb = b.shape[1]
     n = (va + vb) * cap
+    topk_mode = kernel is _cuda.VARIANTS_AND_TOPK
     if not 0 < n <= MAX_STREAM_WIDTH or va + vb > MAX_BLOCKS:
-        raise ValueError(f"docodo_variants_and_locate_full: {va} + {vb} "
-                         f"blocks of {cap} lanes")
-    if not (0 < kpad <= n and 0 < hpad <= n):
-        raise ValueError(f"kpad {kpad} / hpad {hpad} outside (0, {n}]")
+        raise ValueError(f"{kernel.symbol}: {va} + {vb} blocks of {cap} "
+                         f"lanes")
+    _cuda.check_budgets(kernel, n, kpad, hpad, topk_mode)
     _check_blocks(rows, [("a", a, va, cap), ("a_pg", a_pg, va, cap),
                          ("b", b, vb, cap), ("b_pg", b_pg, vb, cap)])
     _cuda.check(na, "na", torch.int32, (rows, va))
     _cuda.check(nb, "nb", torch.int32, (rows, vb))
     for name, t in (("ra", ra), ("rb", rb), ("bpad", bpad)):
         _cuda.check(t, name, torch.int32, (rows,))
-    outs = _cuda.full_result_outputs(rows, kpad, hpad, a.device)
-    _cuda.VARIANTS_AND.launch(a.device, a, a_pg, na, ra, b, b_pg, nb, rb,
-                              bpad, rows, va, vb, cap, kpad, hpad, *outs)
+    outs = _cuda.full_result_outputs(rows, kpad, hpad, a.device, topk_mode)
+    kernel.launch(a.device, a, a_pg, na, ra, b, b_pg, nb, rb, bpad, rows, va,
+                  vb, cap, kpad, hpad, *outs)
     return outs
 
 
+def _variants_and_topk_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, topk,
+                              hpad):
+    return _variants_and_kernel(a, a_pg, na, ra, b, b_pg, nb, rb, bpad, topk,
+                                hpad, kernel=_cuda.VARIANTS_AND_TOPK)
+
+
 def _variants_and_call(core, a, na, ra, b, nb, rb, bpad, bounds, topk,
-                       hit_cap, a_pg, b_pg, tail):
+                       hit_cap, a_pg, b_pg, tail, sort_topk=True):
+    _check_mode(tail, sort_topk)
     cap = a.shape[2]
     n = (a.shape[1] + b.shape[1]) * cap
     if n > MAX_STREAM_WIDTH or b.shape[2] != cap:
@@ -338,34 +431,39 @@ def _variants_and_call(core, a, na, ra, b, nb, rb, bpad, bounds, topk,
     a_pg = _block_pages(a, na, a_pg, bounds)
     b_pg = _block_pages(b, nb, b_pg, bounds)
     outs = core(a, a_pg, na, ra, b, b_pg, nb, rb, bpad.to(torch.int32),
-                min(topk, n), min(hit_cap, n))
-    return _slots_glue(outs, topk, hit_cap, tail)
+                min(topk, n) if sort_topk else topk, min(hit_cap, n))
+    return _slots_glue(outs, topk, hit_cap, tail, sort_topk)
 
 
 def variants_and_locate_full(a, na, ra, b, nb, rb, bpad, bounds, *,
                              topk: int, hit_cap: int, a_pg=None, b_pg=None,
-                             tail: bool = True):
+                             tail: bool = True, sort_topk: bool = True):
     """W = 2 full-result AND of two variant ORs
     (pallas_variants_and_locate_full): a [B, Va, cap] / b [B, Vb, cap]
     variant blocks with lengths na / nb, windows ra / rb [B], bpad [B]
     (word B is query padding: the result is word A's union),
     (Va + Vb) cap <= 1024. Pages carried in a_pg / b_pg or looked up.
-    Outputs as sorted_and_locate_full."""
+    Outputs and modes as sorted_and_locate_full."""
+    kernel, plain = ((_variants_and_kernel, _variants_and_plain) if sort_topk
+                     else (_variants_and_topk_kernel,
+                           _variants_and_topk_plain))
     return _variants_and_call(
-        lambda *x: _on_device(_variants_and_kernel, _variants_and_plain, *x),
-        a, na, ra, b, nb, rb, bpad, bounds, topk, hit_cap, a_pg, b_pg, tail)
+        lambda *x: _on_device(kernel, plain, *x), a, na, ra, b, nb, rb, bpad,
+        bounds, topk, hit_cap, a_pg, b_pg, tail, sort_topk)
 
 
 def variants_and_locate_full_plain(a, na, ra, b, nb, rb, bpad, bounds, *,
                                    topk: int, hit_cap: int, a_pg=None,
-                                   b_pg=None, tail: bool = True):
+                                   b_pg=None, tail: bool = True,
+                                   sort_topk: bool = True):
     """variants_and_locate_full through its plain version, on any
     device."""
-    return _variants_and_call(_variants_and_plain, a, na, ra, b, nb, rb,
-                              bpad, bounds, topk, hit_cap, a_pg, b_pg, tail)
+    plain = _variants_and_plain if sort_topk else _variants_and_topk_plain
+    return _variants_and_call(plain, a, na, ra, b, nb, rb, bpad, bounds,
+                              topk, hit_cap, a_pg, b_pg, tail, sort_topk)
 
 
-def _union_merge_plain(a, a_pg, na, kpad, hpad):
+def _union_merge_plain(a, a_pg, na, kpad, hpad, finish=locate_compact):
     """Plain version of docodo_union_merge_locate_full: one stable sort
     of the variant blocks (pages riding along), then the V = 1 union's
     plain version over the merged stream."""
@@ -374,53 +472,67 @@ def _union_merge_plain(a, a_pg, na, kpad, hpad):
     return _union_plain(torch.gather(vals, 1, order),
                         torch.gather(a_pg.reshape(vals.shape), 1, order),
                         (vals < INF32).sum(dim=1, dtype=torch.int32), kpad,
-                        hpad)
+                        hpad, finish=finish)
 
 
-def _union_merge_kernel(a, a_pg, na, kpad, hpad):
+def _union_topk_plain(a, a_pg, na, topk, hpad):
+    """Plain version of docodo_union_locate_full_topk."""
+    return _union_merge_plain(a, a_pg, na, topk, hpad, finish=_full_topk)
+
+
+def _union_merge_kernel(a, a_pg, na, kpad, hpad, kernel=_cuda.UNION_MERGE):
     rows, v, cap = a.shape
     n = v * cap
+    topk_mode = kernel is _cuda.UNION_TOPK
     if not 0 < n <= MAX_STREAM_WIDTH or v > MAX_BLOCKS:
-        raise ValueError(f"docodo_union_merge_locate_full: {v} blocks of "
-                         f"{cap} lanes")
-    if not (0 < kpad <= n and 0 < hpad <= n):
-        raise ValueError(f"kpad {kpad} / hpad {hpad} outside (0, {n}]")
+        raise ValueError(f"{kernel.symbol}: {v} blocks of {cap} lanes")
+    _cuda.check_budgets(kernel, n, kpad, hpad, topk_mode)
     _check_blocks(rows, [("a", a, v, cap), ("a_pg", a_pg, v, cap)])
     _cuda.check(na, "na", torch.int32, (rows, v))
-    outs = _cuda.full_result_outputs(rows, kpad, hpad, a.device)
-    _cuda.UNION_MERGE.launch(a.device, a, a_pg, na, rows, v, cap, kpad, hpad,
-                             *outs)
+    outs = _cuda.full_result_outputs(rows, kpad, hpad, a.device, topk_mode)
+    kernel.launch(a.device, a, a_pg, na, rows, v, cap, kpad, hpad, *outs)
     return outs
 
 
-def _union_merge_call(core, a, na, bounds, topk, hit_cap, a_pg, tail):
+def _union_topk_kernel(a, a_pg, na, topk, hpad):
+    return _union_merge_kernel(a, a_pg, na, topk, hpad,
+                               kernel=_cuda.UNION_TOPK)
+
+
+def _union_merge_call(core, a, na, bounds, topk, hit_cap, a_pg, tail,
+                      sort_topk=True):
+    _check_mode(tail, sort_topk)
     n = a.shape[1] * a.shape[2]
     if n > MAX_STREAM_WIDTH:
         raise ValueError(f"W=1 variant kernel takes V cap <= "
                          f"{MAX_STREAM_WIDTH}, got {tuple(a.shape)}")
-    outs = core(a, _block_pages(a, na, a_pg, bounds), na, min(topk, n),
-                min(hit_cap, n))
-    return _slots_glue(outs, topk, hit_cap, tail)
+    outs = core(a, _block_pages(a, na, a_pg, bounds), na,
+                min(topk, n) if sort_topk else topk, min(hit_cap, n))
+    return _slots_glue(outs, topk, hit_cap, tail, sort_topk)
 
 
 def union_merge_locate_full(a, na, bounds, *, topk: int, hit_cap: int,
-                            a_pg=None, tail: bool = True):
+                            a_pg=None, tail: bool = True,
+                            sort_topk: bool = True):
     """W = 1 full-result locate of one word's variant union
     (pallas_union_locate_full at V > 1): a [B, V, cap], na [B, V],
-    V cap <= 1024, the blocks merged in the kernel. Outputs as
-    sorted_and_locate_full."""
+    V cap <= 1024, the blocks merged in the kernel. Outputs and modes as
+    sorted_and_locate_full; the top-k-mode kernel also takes V = 1."""
+    kernel, plain = ((_union_merge_kernel, _union_merge_plain) if sort_topk
+                     else (_union_topk_kernel, _union_topk_plain))
     return _union_merge_call(
-        lambda *x: _on_device(_union_merge_kernel, _union_merge_plain, *x),
-        a, na, bounds, topk, hit_cap, a_pg, tail)
+        lambda *x: _on_device(kernel, plain, *x), a, na, bounds, topk,
+        hit_cap, a_pg, tail, sort_topk)
 
 
 def union_merge_locate_full_plain(a, na, bounds, *, topk: int,
                                   hit_cap: int, a_pg=None,
-                                  tail: bool = True):
+                                  tail: bool = True, sort_topk: bool = True):
     """union_merge_locate_full through its plain version, on any
     device."""
-    return _union_merge_call(_union_merge_plain, a, na, bounds, topk,
-                             hit_cap, a_pg, tail)
+    plain = _union_merge_plain if sort_topk else _union_topk_plain
+    return _union_merge_call(plain, a, na, bounds, topk, hit_cap, a_pg, tail,
+                             sort_topk)
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +581,93 @@ def merge_and_locate_topk_plain(a, na, ra, b, nb, rb, a_pg, b_pg, *,
     kernel's, at any width), on any device."""
     return _merge_and_locate_call(_sorted_and_plain, a, na, ra, b, nb, rb,
                                   a_pg, b_pg, topk, hit_cap)
+
+
+def _merge_and_locate_streams_plain(a, a_pg, na, ra, b, b_pg, nb, rb):
+    """Plain version of docodo_merge_and_locate: the plain merge and AND
+    keep, every run ranked (page_runs), each run's page, rank and count
+    put at the run's first lane."""
+    vals, tag, page = _merge_tagged_plain(
+        *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
+    hv = _and_keep_plain(vals, tag, ra, rb)
+    keep = hv < INF32
+    first, _ = run_starts(vals, keep, page)
+    _, rk, ct, _ = page_runs(vals, keep, page, vals.shape[1])
+    run = (torch.cumsum(first, dim=1) - 1).clamp_min(0)
+    return (hv, torch.where(first, page, -1),
+            torch.where(first, torch.gather(rk, 1, run), 0.0),
+            torch.where(first, torch.gather(ct, 1, run), 0).to(torch.float32))
+
+
+def _merge_and_locate_streams_kernel(a, a_pg, na, ra, b, b_pg, nb, rb):
+    rows, cap = a.shape
+    for name, t in (("a", a), ("a_pg", a_pg), ("b", b), ("b_pg", b_pg)):
+        _cuda.check(t, name, torch.int32, (rows, cap))
+    for name, t in (("na", na), ("ra", ra), ("nb", nb), ("rb", rb)):
+        _cuda.check(t, name, torch.int32, (rows,))
+    hits = torch.empty((rows, 2 * cap), dtype=torch.int32, device=a.device)
+    page_s = torch.empty_like(hits)
+    rank_s = torch.empty_like(hits, dtype=torch.float32)
+    cnt_s = torch.empty_like(rank_s)
+    _cuda.MERGE_AND_LOCATE_STREAMS.launch(
+        a.device, a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap, hits, page_s,
+        rank_s, cnt_s)
+    return hits, page_s, rank_s, cnt_s
+
+
+def _merge_and_locate_streams_call(core, a, na, ra, b, nb, rb, a_pg, b_pg):
+    cap = a.shape[1]
+    if not 0 < 2 * cap <= FUSED_AND_MAX or b.shape[1] != cap:
+        raise ValueError(f"fused W=2 kernel takes equal caps with 2 cap <= "
+                         f"{FUSED_AND_MAX}, got {cap}/{b.shape[1]}")
+    return core(a, a_pg, na, ra, b, b_pg, nb, rb)
+
+
+def merge_and_locate(a, na, ra, b, nb, rb, a_pg, b_pg):
+    """W = 2 merge + AND + locate of [B, cap] posting blocks with their
+    carried page streams, 2 cap <= 4096, at full width
+    (pallas_merge_and_locate): (hits, page_s, rank_s, cnt_s), each
+    [B, 2 cap]. hits is the kept stream in slot order (INF32 at dropped
+    lanes); a run's first lane carries its page, rank and count, every
+    other lane -1 / 0.0 / 0.0. compact_streams_topk or
+    locate_streams_topk finish the runs, compact_hits the hits."""
+    return _merge_and_locate_streams_call(
+        lambda *x: _on_device(_merge_and_locate_streams_kernel,
+                              _merge_and_locate_streams_plain, *x),
+        a, na, ra, b, nb, rb, a_pg, b_pg)
+
+
+def merge_and_locate_plain(a, na, ra, b, nb, rb, a_pg, b_pg):
+    """merge_and_locate through its plain version, on any device."""
+    return _merge_and_locate_streams_call(
+        _merge_and_locate_streams_plain, a, na, ra, b, nb, rb, a_pg, b_pg)
+
+
+def compact_streams_topk(page_s, rank_s, cnt_s, topk: int):
+    """In-slot run streams [B, n] (a run's page, rank and count at its
+    first lane, rank 0 elsewhere) -> the first `topk` runs in slot order
+    and the exact run count (pallas_query.compact_streams_topk): (pg_c
+    int32, rk_c f32, ct_c f32, each [B, topk], zeros past the row's
+    runs; n_pages int32[B])."""
+    start = rank_s > 0
+    run = torch.cumsum(start, dim=1) - 1
+    sel = torch.where(start & (run < topk), run, topk)
+
+    def put(x):
+        out = torch.zeros((x.shape[0], topk + 1), dtype=x.dtype,
+                          device=x.device)
+        return out.scatter(1, sel, x)[:, :topk]
+    return (put(page_s), put(rank_s), put(cnt_s),
+            start.sum(dim=1, dtype=torch.int32))
+
+
+def locate_streams_topk(page_s, rank_s, cnt_s, topk: int):
+    """The rank top-k over in-slot run streams
+    (pallas_query.locate_streams_topk): the first topk runs compacted,
+    then streams_topk_tail. Returns (pages -1 pad, ranks, counts int32,
+    each [B, topk]; n_pages)."""
+    return streams_topk_tail(*compact_streams_topk(page_s, rank_s, cnt_s,
+                                                   topk), topk)
 
 
 def _merge_tagged_plain(a, a_pg, na, b, b_pg, nb):

@@ -219,6 +219,23 @@ def or_variants_sorted(streams, ns):
     return vals, keep
 
 
+def run_starts(vals, keep, page):
+    """Where a masked ascending stream's page runs start, and each kept
+    slot's bonus: a run starts at a kept slot whose page differs from
+    the previous kept slot's; each later slot of the run adds
+    30 // max(5, gap). Returns (first bool[B, n], bonus int32[B, n])."""
+    lane = torch.arange(vals.shape[1], device=vals.device)[None, :]
+    last = torch.cummax(torch.where(keep, lane, -1), dim=1).values
+    prev_idx = _shift_right(last, -1)
+    has_prev = prev_idx >= 0
+    safe = prev_idx.clamp_min(0)
+    prev_val = torch.gather(vals, 1, safe)
+    prev_page = torch.where(has_prev, torch.gather(page, 1, safe), -1)
+    first = keep & (page != prev_page)
+    gap = torch.where(has_prev, vals - prev_val, 0)
+    return first, torch.where(keep & ~first, 30 // gap.clamp_min(5), 0)
+
+
 def page_runs(vals, keep, page, kpad: int):
     """Masked ascending stream -> its first `kpad` page runs in slot
     order; with kpad = n, every run of the row.
@@ -232,18 +249,9 @@ def page_runs(vals, keep, page, kpad: int):
 
     Returns (pages int32[B, kpad] (-1 pad), ranks f32[B, kpad] (0 pad),
     counts int32[B, kpad] (0 pad), n_pages int32[B])."""
-    bsz, n = vals.shape
+    bsz = vals.shape[0]
     dev = vals.device
-    lane = torch.arange(n, device=dev)[None, :]
-    last = torch.cummax(torch.where(keep, lane, -1), dim=1).values
-    prev_idx = _shift_right(last, -1)
-    has_prev = prev_idx >= 0
-    safe = prev_idx.clamp_min(0)
-    prev_val = torch.gather(vals, 1, safe)
-    prev_page = torch.where(has_prev, torch.gather(page, 1, safe), -1)
-    first = keep & (page != prev_page)
-    gap = torch.where(has_prev, vals - prev_val, 0)
-    bonus = torch.where(keep & ~first, 30 // gap.clamp_min(5), 0)
+    first, bonus = run_starts(vals, keep, page)
     run_id = torch.cumsum(first, dim=1) - 1
     n_pages = first.sum(dim=1, dtype=torch.int32)
     # runs past kpad and dropped slots land in the spare column kpad
@@ -260,6 +268,18 @@ def page_runs(vals, keep, page, kpad: int):
             torch.where(served, cnt, 0), n_pages)
 
 
+def compact_hits(vals, keep, hpad: int):
+    """The first `hpad` kept values of a masked stream in slot order,
+    INF32 after them, and the exact count: (hits int32[B, hpad],
+    n_hits int32[B])."""
+    slot = torch.cumsum(keep, dim=1) - 1
+    hsel = torch.where(keep & (slot < hpad), slot, hpad)
+    hits = torch.full((vals.shape[0], hpad + 1), INF32, dtype=torch.int32,
+                      device=vals.device)
+    return (hits.scatter(1, hsel, vals)[:, :hpad],
+            keep.sum(dim=1, dtype=torch.int32))
+
+
 def locate_compact(vals, keep, page, kpad: int, hpad: int):
     """Masked ascending stream -> the first `kpad` page runs in slot
     order (page_runs, counts as f32) and the first `hpad` kept hits,
@@ -268,12 +288,6 @@ def locate_compact(vals, keep, page, kpad: int, hpad: int):
     Returns (pg_c int32[B, kpad] (-1 pad), rk_c f32[B, kpad] (0 pad),
     ct_c f32[B, kpad] (0 pad), n_pages int32[B], n_hits int32[B],
     hits int32[B, hpad] (INF32 pad))."""
-    bsz = vals.shape[0]
     pg_c, rk_c, cnt, n_pages = page_runs(vals, keep, page, kpad)
-    n_hits = keep.sum(dim=1, dtype=torch.int32)
-    slot = torch.cumsum(keep, dim=1) - 1
-    hsel = torch.where(keep & (slot < hpad), slot, hpad)
-    hits = torch.full((bsz, hpad + 1), INF32, dtype=torch.int32,
-                      device=vals.device)
-    hits = hits.scatter(1, hsel, vals)[:, :hpad]
+    hits, n_hits = compact_hits(vals, keep, hpad)
     return pg_c, rk_c, cnt.to(torch.float32), n_pages, n_hits, hits

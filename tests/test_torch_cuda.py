@@ -333,3 +333,140 @@ def test_page_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         qk.sorted_and_locate(z(8, 64), z(8), z(8, 2)[:, 0], z(8, 64), z(8),
                              z(8), z(4), topk=8)
+
+
+def _assert_finished_equal(got, want):
+    """Top-k-mode outputs (pages, ranks, counts int32, n_pages, n_hits,
+    hits): ranks within 1 ulp, the rest exact."""
+    names = ("pages", "ranks", "counts", "n_pages", "n_hits", "hits")
+    for field, g, w in zip(names, got, want):
+        g, w = g.cpu(), w.cpu()
+        assert g.shape == w.shape and g.dtype == w.dtype, field
+        if field == "ranks":
+            d = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            assert int(d.abs().max()) <= 1, field
+        else:
+            assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cap,topk,hit_cap,carried", [
+    ("sorted_and_locate_full", 64, 16, 1024, True),
+    ("sorted_and_locate_full", 512, 64, 1024, False),
+    ("sorted_and_locate_full", 128, 2048, 8192, True),
+    ("single_locate_full", 64, 16, 32, True),
+    ("single_locate_full", 128, 64, 1024, False),
+    ("union_locate_full", 1024, 64, 1024, True),
+    ("union_locate_full", 256, 2048, 8192, False),
+])
+def test_topk_mode_kernel_matches_plain_on_card(cuda_device, name, cap, topk,
+                                                hit_cap, carried):
+    """The top-k-mode slot kernels (sort_topk=False) over rows with tied
+    runs, more runs than topk, empty rows, and topk / hit_cap past the
+    stream."""
+    rng = np.random.default_rng(cap + topk)
+    a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, 512, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    kw = dict(topk=topk, hit_cap=hit_cap, sort_topk=False)
+    if name == "sorted_and_locate_full":
+        args = (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(bounds))
+        if carried:
+            kw.update(a_pg=c(apg), b_pg=c(bpg))
+    elif name == "single_locate_full":
+        args = (c(a), c(na), c(bounds))
+        kw.update(a_pg=c(apg) if carried else None)
+    else:
+        args = (c(a)[:, None], c(na)[:, None], c(bounds))
+        kw.update(a_pg=c(apg)[:, None] if carried else None)
+    got = getattr(qk, name)(*args, **kw)
+    torch.cuda.synchronize()
+    want = getattr(qk, name + "_plain")(*args, **kw)
+    _assert_finished_equal(got, want)
+    width = cap * (2 if name == "sorted_and_locate_full" else 1)
+    if topk < width:
+        assert int(got[3].max()) > topk
+        full = want[0][:, -1] >= 0
+        assert bool((full & (want[1][:, -1] == want[1][:, -2])).any())
+    # the slot mode serves the same rows the same way
+    slot = getattr(qk, name)(*args, **dict(kw, sort_topk=True))
+    served = (got[3] <= topk).cpu()
+    for g, s in zip(got[:3], slot[:3]):
+        assert torch.equal(g.cpu()[served], s.cpu()[served].to(g.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("va,vb,cap,topk,carried", [
+    (2, 2, 128, 16, True), (4, 4, 128, 64, False), (1, 4, 64, 2048, True)])
+def test_variants_topk_mode_matches_plain_on_card(cuda_device, va, vb, cap,
+                                                  topk, carried):
+    x = _variant_blocks(np.random.default_rng(cap + va), 512, va, vb, cap,
+                        cuda_device)
+    args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bpad"],
+            x["bounds"])
+    kw = dict(topk=topk, hit_cap=1024, sort_topk=False)
+    if carried:
+        kw.update(a_pg=x["a_pg"], b_pg=x["b_pg"])
+    got = qk.variants_and_locate_full(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_finished_equal(got,
+                           qk.variants_and_locate_full_plain(*args, **kw))
+    assert int(got[3].max()) > 16 and int(got[4].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,cap,topk", [(2, 512, 64), (4, 256, 16),
+                                        (8, 128, 2048)])
+def test_union_topk_mode_matches_plain_on_card(cuda_device, v, cap, topk):
+    x = _variant_blocks(np.random.default_rng(v), 512, v, 1, cap,
+                        cuda_device)
+    kw = dict(topk=topk, hit_cap=8192, sort_topk=False, a_pg=x["a_pg"])
+    got = qk.union_locate_full(x["a"], x["na"], x["bounds"], **kw)
+    torch.cuda.synchronize()
+    _assert_finished_equal(got, qk.union_locate_full_plain(
+        x["a"], x["na"], x["bounds"], **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [64, 1024, 2048])
+def test_merge_and_locate_matches_plain_on_card(cuda_device, cap):
+    """The full-width streams, then the torch tails over them against
+    merge_and_locate_topk's outputs (its three-step form)."""
+    x = _merged(np.random.default_rng(cap), 256, cap, cuda_device)
+    args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["a_pg"],
+            x["b_pg"])
+    got = qk.merge_and_locate(*args)
+    torch.cuda.synchronize()
+    want = qk.merge_and_locate_plain(*args)
+    for field, g, w in zip(("hits", "page_s", "rank_s", "cnt_s"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, field
+        if field == "rank_s":
+            d = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            assert int(d.abs().max()) <= 1, field
+        else:
+            assert torch.equal(g, w), field
+    assert int((got[0] < INF32).sum()) > 0 and int((got[2] > 0).sum()) > 0
+    fused = qk.merge_and_locate_topk(*args, topk=16, hit_cap=1000)
+    pg_c, rk_c, ct_c, n_pages = qk.compact_streams_topk(*got[1:], 16)
+    live = rk_c > 0
+    assert torch.equal(n_pages, fused[3])
+    assert torch.equal(pg_c[live], fused[0][live])
+    assert torch.equal(ct_c, fused[2])
+    d = rk_c.view(torch.int32).long() - fused[1].view(torch.int32).long()
+    assert int(d.abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_cannot_take(cuda_device):
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="2 cap <= 4096"):
+        qk.merge_and_locate(z(8, 4096), z(8), z(8), z(8, 4096), z(8), z(8),
+                            z(8, 4096), z(8, 4096))
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.merge_and_locate(z(8, 128)[:, ::2], z(8), z(8), z(8, 64), z(8),
+                            z(8), z(8, 64), z(8, 64))
+    with pytest.raises(ValueError, match="caps <= 128"):
+        qk.single_locate_full(z(8, 256), z(8), z(4), topk=8, hit_cap=64,
+                              a_pg=z(8, 256), sort_topk=False)
+    with pytest.raises(ValueError, match="tail=False"):
+        qk.single_locate_full(z(8, 64), z(8), z(4), topk=8, hit_cap=64,
+                              a_pg=z(8, 64), sort_topk=False, tail=False)

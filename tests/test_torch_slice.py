@@ -182,9 +182,10 @@ def test_plain_route_equals_jax(corpus):
 
 def test_port_imports_no_jax():
     """The port's host build (with a vocabulary too), both searches
-    (standard and wide rows, the page level), and chip_smoke's
-    CPU-runnable helpers (the mixes, the oracles) run without loading
-    jax, the JAX package or the benchmarks."""
+    (standard and wide rows, the page level, the per-bucket serving
+    shape with its deferred finish), and chip_smoke's CPU-runnable
+    helpers (the mixes, the oracles) run without loading jax, the JAX
+    package or the benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -200,6 +201,15 @@ def test_port_imports_no_jax():
             [[(words[0], 260)], [(words[0], 260), (words[1], 260)]],
             use_kernels=True)
         assert out["pages"].shape == (2, 64)
+        finish = dix.search_batch_full(
+            [[(words[0], 260)], [(words[0], 260), (words[1], 260)]],
+            use_kernels=True, cap_ladder=(128, 1024), fused=False,
+            deferred=True, clamp_budgets=True, sort_topk=False)
+        served = finish()
+        assert (served["n_pages"] == out["n_pages"]).all()
+        assert served["topk_eff"].tolist() == [64, 64]
+        from docodo_tpu_torch.ops.device_index import batched_query_full
+        from docodo_tpu_torch.ops.query_kernels import merge_and_locate
         pages, ranks, counts = dix.search_batch(
             [[(words[0], 260)], [(words[0], 260), (words[1], 260)]])
         assert pages.shape == (2, 16) and pages[0, 0] >= 0

@@ -3,9 +3,17 @@ search_batch_full (--leg full: topk 64, hit_cap 1024) over the standard
 10k mix or the wide 10k mix (benchmarks/common.wide_mix, seed 77, as
 bench.py serves it), or its page-level search_batch (--leg page: topk
 16, the standard mix), on a seeded Zipf corpus (the corpus and mixes of
-chip_smoke.py), on the kernel route and the plain (torch) route.
+chip_smoke.py), on the kernel route and the plain (torch) route. With
+--leg serve the mix goes through search_batch_full in the shape a server
+sends it (batcher.py:701-768): waves of 512 rows, fused=False, the cap
+ladder, deferred=True with one wave in flight while the next is
+dispatched, then the truncated rows of cap <= 2048 once more at the
+escalated budgets (topk 2048, hit_cap 8192, clamp_budgets=True); its two
+routes are sort_topk True (each bucket's first-topk runs, then the torch
+tail) and False (the top-k-mode kernels).
 
-    python3 tools/profile_batch.py [--leg full|page] [--mix standard|wide]
+    python3 tools/profile_batch.py [--leg full|page|serve]
+                                   [--mix standard|wide]
                                    [--corpus-mb 64] [--seed 0] [--out FILE]
 
 Prints, per route:
@@ -22,7 +30,10 @@ Prints, per route:
     share, the largest device items and each CUDA kernel's device time.
 The phase split synchronises once, after dispatch, so a batch reads a
 little slower than unsplit. The last line is one JSON object with all of
-it, also written to --out. Imports no jax.
+it, also written to --out. The serve leg prints per route the pass and
+its per-wave medians instead (the whole deferred call, the part of it
+inside the buckets' launches, finish), buckets and kernel launches per
+wave, the escalated pass, and the profiler's figures. Imports no jax.
 """
 
 from __future__ import annotations
@@ -67,8 +78,16 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "variants_and_locate_full": "variants_and_locate_full_kernel",
                 "union_merge_locate_full": "union_merge_locate_full_kernel",
                 "variants_keep": "keep_kernel<true>",
-                "and_locate_topk": "and_locate_topk_kernel",
-                "single_locate_topk": "single_locate_topk_kernel"}
+                "and_locate_topk": "::and_locate_topk_kernel",
+                "single_locate_topk": "single_locate_topk_kernel",
+                "merge_and_locate": "merge_and_locate_kernel"}
+# the slot kernels are one template each, instantiated for both tails
+for _name in ("sorted_and_locate_full", "single_locate_full",
+              "variants_and_locate_full", "union_merge_locate_full"):
+    _fn = KERNEL_NAMES[_name]
+    KERNEL_NAMES[_name] = _fn + "<docodo::SlotsTail>"
+    KERNEL_NAMES[_name.replace("union_merge", "union") + "_topk"] = (
+        _fn + "<docodo::TopkTail>")
 WIDE_SEED = 77  # bench.py:353
 
 
@@ -80,7 +99,134 @@ def card() -> str:
     return smi.splitlines()[0]
 
 
+# the shape a server sends (batcher.py:399, :606-612, :746)
+SERVE_WAVE = 512
+CAP_LADDER = (128, 1024, 16384, 1 << 17)
+ESC_TOPK = 2048
+ESC_HIT_CAP = 1 << 13
+ESC_CAP_MAX = 2048
+SERVE_ROUTES = {"slot tail": True, "kernel top-k": False}
+
+
+def serve_waves(dix, queries, *, topk: int, hit_cap: int,
+                sort_topk: bool = True, clamp: bool = False,
+                wave: int = SERVE_WAVE):
+    """`queries` in waves of `wave` rows through search_batch_full as a
+    server sends them: fused=False, the cap ladder, deferred=True, each
+    wave's finish() called after the next wave is dispatched. Returns
+    (the waves' results joined, one dict per wave: rows, buckets, their
+    shapes as "cap W V rows topk hit_cap", the buckets served by the
+    plain route as (W, V) pairs, kernel launches,
+    call_ms for the deferred call, launch_ms for the part of it inside
+    batched_query_full, finish_ms; the pass's seconds)."""
+    from docodo_tpu_torch.ops import _cuda
+
+    stats, outs = [], []
+    inner, plain_inner = tdi.batched_query_full, tdi.query_step_full
+    cur = {}
+
+    def bucket(*a, **k):
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        cur["launch_ms"] += (time.perf_counter() - t0) * 1e3
+        cur["buckets"] += 1
+        tq = a[5]
+        cur["shapes"].append(f"{k['cap']} {tq.shape[1]} {tdi._variants(tq)} "
+                             f"{tq.shape[0]} {k['topk']} {k['hit_cap']}")
+        return out
+
+    def plain(*a, **k):
+        tq = a[5]
+        cur["plain"].append((int(tq.shape[1]), tdi._variants(tq)))
+        return plain_inner(*a, **k)
+
+    def launches():
+        return sum(k.launches for k in _cuda.KERNELS.values())
+
+    def finish_last(pending):
+        t0 = time.perf_counter()
+        outs.append(pending())
+        stats[-1]["finish_ms"] = (time.perf_counter() - t0) * 1e3
+
+    tdi.batched_query_full, tdi.query_step_full = bucket, plain
+    try:
+        pending = None
+        start = time.perf_counter()
+        for lo in range(0, len(queries), wave):
+            rows = queries[lo: lo + wave]
+            cur = {"rows": len(rows), "buckets": 0, "plain": [],
+                   "shapes": [], "launch_ms": 0.0}
+            before = launches()
+            t0 = time.perf_counter()
+            finish = dix.search_batch_full(
+                rows, topk=topk, hit_cap=hit_cap, cap_ladder=CAP_LADDER,
+                fused=False, deferred=True, clamp_budgets=clamp,
+                sort_topk=sort_topk)
+            cur["call_ms"] = (time.perf_counter() - t0) * 1e3
+            cur["launches"] = launches() - before
+            if pending is not None:
+                finish_last(pending)
+            stats.append(cur)
+            pending = finish
+        if pending is not None:
+            finish_last(pending)
+        secs = time.perf_counter() - start
+    finally:
+        tdi.batched_query_full, tdi.query_step_full = inner, plain_inner
+    joined = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]} \
+        if outs else {}
+    return joined, stats, secs
+
+
+def serve_pass(dix, queries, sort_topk: bool, topk: int = TOPK,
+               hit_cap: int = HIT_CAP) -> dict:
+    """The serving path once: every wave at the normal budgets, then the
+    truncated rows whose longest list is within ESC_CAP_MAX once more at
+    the escalated budgets. Returns out / stats / secs of the first pass,
+    esc_rows (indices into `queries`) and esc_out / esc_stats / esc_secs
+    of the second."""
+    out, stats, secs = serve_waves(dix, queries, topk=topk, hit_cap=hit_cap,
+                                   sort_topk=sort_topk)
+    cut = np.flatnonzero((out["n_pages"] > topk) | (out["n_hits"] > hit_cap))
+    esc_rows = [int(i) for i in cut
+                if dix.compile_group_query(queries[i])[4] <= ESC_CAP_MAX]
+    esc_out, esc_stats, esc_secs = serve_waves(
+        dix, [queries[i] for i in esc_rows], topk=ESC_TOPK,
+        hit_cap=ESC_HIT_CAP, sort_topk=sort_topk, clamp=True)
+    return dict(out=out, stats=stats, secs=secs, truncated=int(cut.size),
+                esc_rows=esc_rows, esc_out=esc_out, esc_stats=esc_stats,
+                esc_secs=esc_secs)
+
+
+def still_truncated(esc_out) -> int:
+    """Escalated rows that overflow their clamped budgets too."""
+    if not esc_out:
+        return 0
+    return int(((esc_out["n_pages"] > esc_out["topk_eff"])
+                | (esc_out["n_hits"] > esc_out["hit_cap_eff"])).sum())
+
+
+def shape_counts(stats) -> dict:
+    """How many buckets of each "cap W V rows topk hit_cap" a pass
+    launched."""
+    counts: dict = {}
+    for s in stats:
+        for shape in s["shapes"]:
+            counts[shape] = counts.get(shape, 0) + 1
+    return dict(sorted(counts.items(),
+                       key=lambda kv: [int(x) for x in kv[0].split()]))
+
+
+def wave_medians(stats) -> dict:
+    keys = ("rows", "buckets", "launches", "call_ms", "launch_ms",
+            "finish_ms")
+    return {k: statistics.median(s[k] for s in stats) for k in keys} \
+        if stats else {}
+
+
 def run_batch(dix, queries, use_kernels: bool, leg: str):
+    if leg == "serve":  # the route is the sort_topk mode
+        return serve_pass(dix, queries, use_kernels)
     if leg == "page":
         return dix.search_batch(queries, topk=PAGE_TOPK,
                                 use_kernels=use_kernels)
@@ -233,7 +379,8 @@ def summarize(runs: list) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--leg", choices=("full", "page"), default="full")
+    ap.add_argument("--leg", choices=("full", "page", "serve"),
+                    default="full")
     ap.add_argument("--mix", choices=("standard", "wide"),
                     default="standard")
     ap.add_argument("--corpus-mb", type=float, default=64.0)
@@ -263,6 +410,9 @@ def main() -> None:
     report = {"card": smi, "leg": leg, "mix": args.mix,
               "corpus_mb": args.corpus_mb,
               "seed": args.seed, "runs": RUNS, "routes": {}}
+    if leg == "serve":
+        serve_report(dix, queries, report, smi)
+        return finish_report(report, args.out)
     for use in ROUTES.values():  # warm both routes
         run_batch(dix, queries, use, leg)
     phased = {name: [] for name in ROUTES}
@@ -293,11 +443,72 @@ def main() -> None:
             print(f"    {t['ms']:9.3f} ms {t['calls']:6d}x {t['name']}")
         for k, ms in p["kernels_ms"].items():
             print(f"    kernel {k}: {ms:.3f} ms of device time")
+    finish_report(report, args.out)
+
+
+def finish_report(report: dict, out) -> None:
     line = json.dumps(report)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
     print(line)
+
+
+def serve_report(dix, queries, report: dict, smi: str) -> None:
+    """The serve leg: RUNS passes per sort_topk mode, alternating, and
+    one profiled pass each."""
+    for st in SERVE_ROUTES.values():  # warm both modes
+        serve_pass(dix, queries, st)
+    passes = {name: [] for name in SERVE_ROUTES}
+    for i in range(RUNS):
+        order = list(SERVE_ROUTES) if i % 2 == 0 else list(SERVE_ROUTES)[::-1]
+        for name in order:
+            passes[name].append(serve_pass(dix, queries, SERVE_ROUTES[name]))
+    for name, st in SERVE_ROUTES.items():
+        runs = passes[name]
+        last = runs[-1]
+        per_run = [dict(pass_ms=r["secs"] * 1e3,
+                        qps=len(queries) / r["secs"],
+                        esc_pass_ms=r["esc_secs"] * 1e3,
+                        **{"wave_" + k: v
+                           for k, v in wave_medians(r["stats"]).items()},
+                        **{"esc_wave_" + k: v
+                           for k, v in wave_medians(r["esc_stats"]).items()})
+                   for r in runs]
+        rep = {"phases_ms": summarize(per_run),
+               "waves": len(last["stats"]),
+               "buckets": sum(s["buckets"] for s in last["stats"]),
+               "launches": sum(s["launches"] for s in last["stats"]),
+               "plain_buckets": sum(len(s["plain"]) for s in last["stats"]
+                                    + last["esc_stats"]),
+               "truncated": last["truncated"],
+               "escalated": len(last["esc_rows"]),
+               "esc_waves": len(last["esc_stats"]),
+               "esc_buckets": sum(s["buckets"] for s in last["esc_stats"]),
+               "still_truncated": still_truncated(last["esc_out"]),
+               "bucket_shapes": shape_counts(last["stats"]),
+               "esc_bucket_shapes": shape_counts(last["esc_stats"]),
+               "profile": profiled_batch(dix, queries, st, "serve")}
+        report["routes"][name] = rep
+        print(f"== serving path, {name} (sort_topk={st}) ({smi})")
+        for key in ("waves", "buckets", "launches", "plain_buckets",
+                    "truncated", "escalated", "esc_waves", "esc_buckets",
+                    "still_truncated"):
+            print(f"  {key:16s} {rep[key]}")
+        for key, v in rep["phases_ms"].items():
+            print(f"  {key:22s} median {v['median']:10.3f} "
+                  f"(min {v['min']:.3f}, max {v['max']:.3f})")
+        for key in ("bucket_shapes", "esc_bucket_shapes"):
+            print(f"  {key} (cap W V rows topk hit_cap: buckets): {rep[key]}")
+        p = rep["profile"]
+        print(f"  profiler: device {p['device_ms']:.3f} ms of "
+              f"{p['wall_ms']:.3f} ms wall, busy share "
+              f"{p['busy_share']:.3f}")
+        for t in p["top"]:
+            print(f"    {t['ms']:9.3f} ms {t['calls']:6d}x {t['name']}")
+        for k, ms in p["kernels_ms"].items():
+            if ms:
+                print(f"    kernel {k}: {ms:.3f} ms of device time")
 
 
 if __name__ == "__main__":
