@@ -112,6 +112,8 @@ TOPK_MODE_KERNELS = ("sorted_and_locate_full_topk",
                      "variants_and_locate_full_topk",
                      "union_locate_full_topk", "single_locate_full_topk")
 SERVE_KERNELS = TOPK_MODE_KERNELS + ("merge_and_locate",)
+# the kernels that give a row many blocks (tiles of _cuda.tile_lanes())
+TILED = ("and_keep", "variants_keep", "locate_runs")
 PAGE_CAPS = {"and_locate_topk": (64, 128, 256, 512),
              "single_locate_topk": (64, 128)}
 SLOT_CAPS = {
@@ -237,34 +239,49 @@ def phase_build() -> None:
         say(f"  ptxas {ln}")
 
 
-def _parity_inputs(rng, rows: int, cap: int, dev, spread: bool = False):
+def _parity_inputs(rng, rows: int, cap: int, dev, spread: bool = False,
+                   full_first: bool = False):
     """Seeded posting blocks at a bucket's shape: two ascending subsets
     of one per-row pool (so the operands share coordinates), lengths
     0..cap with empty and full rows, both window signs, and the pages of
     256-char pages, so that long rows hold more runs than topk. With
     `spread`, every third row steps 200-300 chars (one hit on most
     pages: its runs tie at rank 1.0) and every third 40-120 (runs of a
-    few hits, tying in groups)."""
+    few hits, tying in groups); with `full_first` (the few rows of a
+    wide bucket), row 0 is full (so a batch of one row keeps hits) and
+    ordered with a window of 263, the pool jumps 400-699 chars at about
+    one step in 8000 and word A skips the next 1000-3999 steps: gap
+    segments that open there reach their first word-A mark (an ordered
+    cut) hundreds of lanes on, often in a later tile."""
     lo, hi = 1, 40
     if spread:
         kind = np.arange(rows)[:, None] % 3
         lo = np.choose(kind, [1, 200, 40])
         hi = np.choose(kind, [40, 300, 120])
-    pool = np.cumsum(rng.integers(lo, hi, size=(rows, 2 * cap)), axis=1)
+    steps = rng.integers(lo, hi, size=(rows, 2 * cap))
+    skip = np.zeros((rows, 2 * cap))
+    if full_first:
+        for i, j in zip(*np.nonzero(rng.random((rows, 2 * cap)) < 1 / 8000)):
+            steps[i, j] += rng.integers(400, 700)
+            skip[i, j: j + rng.integers(1000, 4000)] = 2.0
+    pool = np.cumsum(steps, axis=1)
     pool += rng.integers(0, 1 << 20, size=(rows, 1))
 
-    def subset():
-        pick = np.sort(np.argsort(rng.random((rows, 2 * cap)), axis=1)[:, :cap],
-                       axis=1)
+    def subset(avoid=0.0):
+        key = rng.random((rows, 2 * cap)) + avoid
+        pick = np.sort(np.argsort(key, axis=1)[:, :cap], axis=1)
         return np.take_along_axis(pool, pick, axis=1).astype(np.int32)
 
-    a, b = subset(), subset()
+    a, b = subset(skip), subset()
     na = rng.integers(0, cap + 1, size=rows).astype(np.int32)
     nb = rng.integers(0, cap + 1, size=rows).astype(np.int32)
     na[0::7], nb[1::7] = 0, 0
     na[2::5], nb[2::5] = cap, cap
     ra = np.where(np.arange(rows) % 2 == 0, 260, -12).astype(np.int32)
     rb = np.where(np.arange(rows) % 2 == 0, 263, -10).astype(np.int32)
+    if full_first:
+        na[0] = nb[0] = cap
+        ra[0], rb[0] = -260, -263
     top = int(pool.max()) + 1
     bounds = np.arange(256, top + 256, 256, dtype=np.int64).astype(np.int32)
 
@@ -278,25 +295,36 @@ def _parity_inputs(rng, rows: int, cap: int, dev, spread: bool = False):
 
 
 def _variant_inputs(rng, rows: int, va: int, vb: int, cap: int, dev,
-                    spacing: int = 12):
+                    spacing: int = 12, gaps: bool = False):
     """Seeded variant blocks of two words at a bucket's shape, all drawn
     from one per-row pool, so variants and words share coordinates
     (runs of up to va + vb lanes): ragged lengths with empty variants
     and full blocks, word B empty and flagged bpad on every fifth row,
-    ordered windows on every second row, and 256-char pages."""
-    pool = np.cumsum(rng.integers(1, spacing, size=(rows, 2 * cap)), axis=1)
+    ordered windows on every second row, and 256-char pages. With
+    `gaps`, the pool jumps 100-299 chars at about one step in 8000 and
+    word A's variants skip the next 1000-3999 steps, so gap segments
+    open on word-B lanes and reach their first word-A mark (an ordered
+    cut) thousands of lanes on."""
+    steps = rng.integers(1, spacing, size=(rows, 2 * cap))
+    skip = np.zeros((rows, 2 * cap), bool)
+    if gaps:
+        for i, j in zip(*np.nonzero(rng.random((rows, 2 * cap)) < 1 / 8000)):
+            steps[i, j] += rng.integers(100, 300)
+            skip[i, j: j + rng.integers(1000, 4000)] = True
+    pool = np.cumsum(steps, axis=1)
     pool += rng.integers(0, 1 << 20, size=(rows, 1))
 
-    def blocks(v):
-        pick = np.sort(np.argsort(rng.random((rows, v, 2 * cap)), axis=2)
-                       [:, :, :cap], axis=2)
+    def blocks(v, holed=False):
+        key = rng.random((rows, v, 2 * cap)) + (2.0 * skip[:, None, :]
+                                                if holed else 0.0)
+        pick = np.sort(np.argsort(key, axis=2)[:, :, :cap], axis=2)
         x = np.take_along_axis(pool[:, None, :], pick, axis=2)
         n = rng.integers(0, cap + 1, (rows, v)).astype(np.int32)
         n[0::7, 0] = 0
         n[2::5] = cap
         return x.astype(np.int32), n
 
-    a, na = blocks(va)
+    a, na = blocks(va, holed=True)
     b, nb = blocks(vb)
     bpad = np.arange(rows) % 5 == 3
     nb[bpad] = 0
@@ -315,15 +343,50 @@ def _variant_inputs(rng, rows: int, va: int, vb: int, cap: int, dev,
                 b_pg=t(pages(b)))
 
 
+def _tile_edges(vals, tag, ra, rb, variants: bool):
+    """Of a merged stream [B, n]: the runs of equal coordinates that
+    cross an edge of the tiled kernels' tiles, and the ordered cuts (a
+    gap segment's first word-A mark, both windows < 0) in a later tile
+    than their segment's gap start (segment_and's rule, seqops.py)."""
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.ops.seqops import INF32, combine_r, fold_dups, \
+        run_marks
+
+    tile = _cuda.tile_lanes()
+    n = vals.shape[1]
+    valid = vals < INF32
+    edge = torch.arange(tile, max(n, tile), tile, device=vals.device)
+    crossing = int(((vals[:, edge] == vals[:, edge - 1])
+                    & valid[:, edge]).sum())
+    if variants:
+        isa = run_marks(vals, tag)[0]
+    else:
+        isa = fold_dups(vals, (tag == 0) & valid, (tag == 1) & valid,
+                        valid)[0]
+    r = combine_r(ra, rb)
+    idx = torch.arange(n, device=vals.device)[None, :]
+    prev = torch.cat([torch.zeros_like(vals[:, :1]), vals[:, :-1]], dim=1)
+    gap = (r.abs()[:, None] != 0) & (vals - prev > r.abs()[:, None]) & valid
+    start = (idx == 0) | gap
+    start_idx = torch.cummax(torch.where(start, idx, -1), dim=1).values
+    before = torch.cumsum(isa.long(), dim=1) - isa.long()
+    at_start = torch.cummax(torch.where(start, before, -1), dim=1).values
+    cut = (isa & (before == at_start) & (idx != start_idx)
+           & (r < 0)[:, None])
+    return crossing, int((cut & (idx // tile != start_idx // tile)).sum())
+
+
 def phase_parity(rng) -> dict:
     """Each kernel against its plain version on seeded inputs at the
     main path's shapes and wider: ints exact, ranks within 1 ulp.
     Returns the largest rank difference per kernel."""
+    from docodo_tpu_torch.ops import _cuda
     from docodo_tpu_torch.ops import query_kernels as qk
     from docodo_tpu_torch.ops.seqops import INF32
 
     dev = torch.device("cuda")
     err = {name: 0.0 for name in KERNELS}
+    tile = _cuda.tile_lanes()
 
     def check(name, what, kern, plain, *args, **kw):
         got = getattr(qk, kern)(*args, **kw)
@@ -359,9 +422,11 @@ def phase_parity(rng) -> dict:
                   x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"],
                   x["a_pg"], x["b_pg"], topk=topk, hit_cap=HIT_CAP)
 
+    # W = 2 bucket shapes, and cap 262144 (n 524288, 128 tiles a row) at
+    # the one to eight rows of a wide bucket
     for cap, rows in ((1024, 1024), (2048, 1024), (4096, 1024),
-                      (32768, 256)):
-        x = _parity_inputs(rng, rows, cap, dev)
+                      (32768, 256), (262144, 1), (262144, 3), (262144, 8)):
+        x = _parity_inputs(rng, rows, cap, dev, full_first=rows < 8)
         n = 2 * cap
         for paged in (True, False):
             pgs = (x["a_pg"], x["b_pg"]) if paged else (None, None)
@@ -384,12 +449,18 @@ def phase_parity(rng) -> dict:
                     f"and_keep n {n} differs")
             kept = int((hv < INF32).sum())
             require(kept > 0, f"and_keep n {n} kept nothing")
-            got = qk.and_keep_compact(vals, tag, x["ra"], x["rb"], pg)
-            torch.cuda.synchronize()
-            same_result("and_keep", got, qk.and_keep_compact_plain(
-                vals, tag, x["ra"], x["rb"], pg), f"and_keep compact n {n}")
+            for cpg in ((pg, None) if cap > 32768 else (pg,)):
+                got = qk.and_keep_compact(vals, tag, x["ra"], x["rb"], cpg)
+                torch.cuda.synchronize()
+                same_result("and_keep", got, qk.and_keep_compact_plain(
+                    vals, tag, x["ra"], x["rb"], cpg),
+                    f"and_keep compact n {n} pages {cpg is not None}")
+            runs, cuts = _tile_edges(vals, tag, x["ra"], x["rb"], False)
+            require(n <= tile or cuts > 0, f"and_keep n {n}: no ordered "
+                    "cut across a tile edge")
             say(f"parity: and_keep n {n} B {rows}: equal, and its compacted "
-                f"fold operand ({kept} kept)")
+                f"fold operand ({kept} kept, {cuts} ordered cuts across "
+                f"tile edges)")
             if n < 8192:
                 continue
             for carried in (True, False):
@@ -399,6 +470,15 @@ def phase_parity(rng) -> dict:
                       "locate_runs", "locate_runs_plain", hv, x["bounds"],
                       topk=TOPK, hit_cap=HIT_CAP,
                       pg=pg if carried else None)
+    # the W = 1 form: a posting block, INF32 after its length
+    x = _parity_inputs(rng, 8, 262144, dev, full_first=True)
+    lane = torch.arange(262144, device=dev)[None, :]
+    block = torch.where(lane < x["na"][:, None], x["a"], INF32)
+    for carried in (True, False):
+        check("locate_runs", f"locate_runs on a posting block n 262144 B 8 "
+              f"{'carried' if carried else 'shared'} pages", "locate_runs",
+              "locate_runs_plain", block, x["bounds"], topk=TOPK,
+              hit_cap=HIT_CAP, pg=x["a_pg"] if carried else None)
 
     for va, vb, cap in ((2, 2, 128), (4, 4, 128)):
         x = _variant_inputs(rng, SLOT_ROWS, va, vb, cap, dev)
@@ -421,8 +501,9 @@ def phase_parity(rng) -> dict:
                   x["a"], x["na"], x["bounds"], topk=TOPK, hit_cap=HIT_CAP,
                   tail=False, a_pg=x["a_pg"] if carried else None)
     for va, vb, cap, rows in ((2, 2, 512, 1024), (2, 2, 1024, 1024),
-                              (4, 4, 4096, 128), (4, 4, 32768, 16)):
-        x = _variant_inputs(rng, rows, va, vb, cap, dev, spacing=4)
+                              (4, 4, 4096, 128), (4, 4, 32768, 3)):
+        x = _variant_inputs(rng, rows, va, vb, cap, dev, spacing=4,
+                            gaps=(va + vb) * cap > tile)
         vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"],
                                         x["a_pg"], x["b_pg"])
         torch.cuda.synchronize()
@@ -434,16 +515,16 @@ def phase_parity(rng) -> dict:
         torch.cuda.synchronize()
         same_result("variants_keep", hv, qk.variants_keep_plain(
             vals, tag, x["ra"], x["rb"], x["bpad"]), f"variants_keep n {n}")
-        edge = torch.arange(1024, n, 1024, device=dev)
-        crossing = int(((vals[:, edge] == vals[:, edge - 1])
-                        & (vals[:, edge] < INF32)).sum())
-        require(n <= 1024 or crossing > 0, f"variants_keep n {n}: no run "
-                "crosses a chunk")
+        crossing, cuts = _tile_edges(vals, tag, x["ra"], x["rb"], True)
+        require(n <= tile or (crossing > 0 and cuts > 0),
+                f"variants_keep n {n}: {crossing} runs and {cuts} ordered "
+                "cuts across tile edges")
         kept = int((hv < INF32).sum())
         require(kept > 0, f"variants_keep n {n} kept nothing")
         say(f"parity: merge_tagged of {va}+{vb} variant blocks and "
             f"variants_keep n {n} B {rows}: equal ({kept} kept, {crossing} "
-            f"runs across chunk edges, {int(x['bpad'].sum())} bpad rows)")
+            f"runs and {cuts} ordered cuts across tile edges, "
+            f"{int(x['bpad'].sum())} bpad rows)")
 
     def check_topk(name, what, *args, **kw):
         # the bounds form of the W = 2 kernel goes through its own
@@ -985,10 +1066,12 @@ def _bytes_moved(name: str, args) -> int:
             per = 8 if args[4] is None else 12     # vals, tag (, pages)
             return per * valid + (per - 4) * vals.numel() + 12 * rows
         return 8 * valid + 4 * vals.numel() + 12 * rows
-    hv, pg, bounds, kpad, hpad = args  # locate_runs
+    # locate_runs: the whole stream (dropped lanes are read to find the
+    # kept ones), and the kept lanes' pages or the bounds once
+    hv, pg, bounds, kpad, hpad = args
     kept = int((hv < INF32).sum())
-    read = 8 * kept if pg is not None else 4 * kept + 4 * bounds.numel()
-    return read + hv.shape[0] * (12 * kpad + 4 * hpad + 8)
+    pages = 4 * kept if pg is not None else 4 * bounds.numel()
+    return 4 * hv.numel() + pages + hv.shape[0] * (12 * kpad + 4 * hpad + 8)
 
 
 def _ops(name: str, args, outs=None) -> int:
@@ -1057,6 +1140,7 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
     (a stable sort of the packed coord << 2 | tag key). With `most`, at
     most that many of a core's calls, evenly spaced over the batches,
     are timed."""
+    from docodo_tpu_torch.ops import _cuda
     from docodo_tpu_torch.ops import query_kernels as qk
 
     calls = {core: [] for name in names
@@ -1118,6 +1202,14 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
             f"library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
             f"equal to the plain version")
+        if name in TILED:
+            rows, n = max((tuple(a[0].shape) for _, _, cs in runs
+                           for a in cs), key=lambda shape: shape[::-1])
+            tiles = -(-n // _cuda.tile_lanes())
+            say(f"blocks per launch: {name}, widest call n {n} B {rows}: "
+                f"{tiles} tiles a row x {rows} rows = {tiles * rows} blocks"
+                + ("" if name == "locate_runs" else
+                   ", in each of its two launches"))
         if name in FORMS:
             # the same launches in the kernel's other input form
             label, form = FORMS[name]

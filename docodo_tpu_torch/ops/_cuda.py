@@ -16,6 +16,7 @@ main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu",
            CSRC / "variants.cu", CSRC / "locate_topk.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "slot_row.cuh")
+HEADERS = (CSRC / "common.cuh", CSRC / "slot_row.cuh",
+           CSRC / "tile_scan.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "docodo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -186,6 +188,31 @@ def check_budgets(kernel: Kernel, n: int, kpad: int, hpad: int,
                          f"outside (0, {n}]")
 
 
+@functools.cache
+def tile_lanes() -> int:
+    """Lanes of a row one block of the tiled kernels (and_keep,
+    variants_keep, locate_runs) owns: a row of n lanes launches
+    ceil(n / tile_lanes()) blocks."""
+    return int(library().docodo_tile_lanes())
+
+
+def tile_scratch(symbol: str, dev, rows: int, n: int, *dims) -> tuple:
+    """The scratch a tiled entry point takes for `rows` rows of n lanes,
+    sized by its C function `symbol` (which takes rows, n, *dims):
+    (zeroed, work), int32. `zeroed` holds the look-back's status words
+    and tickets; a row of one tile reads none of them, so for n <=
+    tile_lanes() it is left unset, which saves the fill's launch.
+    `work` holds the tile summaries, uninitialised."""
+    fn = getattr(library(), symbol)
+    fn.restype = None
+    zeroed, work = ctypes.c_longlong(), ctypes.c_longlong()
+    fn(*(ctypes.c_int(int(d)) for d in (rows, n, *dims)),
+       ctypes.byref(zeroed), ctypes.byref(work))
+    alloc = torch.zeros if n > tile_lanes() else torch.empty
+    return (alloc(zeroed.value, dtype=torch.int32, device=dev),
+            torch.empty(work.value, dtype=torch.int32, device=dev))
+
+
 def full_result_outputs(rows: int, kpad: int, hpad: int, dev,
                         topk_mode: bool = False):
     """Uninitialised (pg_c, rk_c, ct_c, n_pages, n_hits, hits); the
@@ -207,14 +234,15 @@ SINGLE = Kernel("docodo_single_locate_full", _W1)
 UNION = Kernel("docodo_union_locate_full", _W1)
 MERGE_AND_LOCATE = Kernel("docodo_merge_and_locate_topk", _FULL)
 MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "iiiii" + "ppp")
-AND_KEEP = Kernel("docodo_and_keep", "ppppp" + "ii" + "ppppp")
+AND_KEEP = Kernel("docodo_and_keep", "ppppp" + "ii" + "ppppp" + "pp")
 LOCATE_RUNS = Kernel("docodo_locate_runs",
-                     "ppp" + "i" + "iiii" + "pppppp")
+                     "ppp" + "i" + "iiii" + "pppppp" + "pp")
 VARIANTS_AND = Kernel("docodo_variants_and_locate_full",
                       "ppppppppp" + "iiiiii" + "pppppp")
 UNION_MERGE = Kernel("docodo_union_merge_locate_full",
                      "ppp" + "iiiii" + "pppppp")
-VARIANTS_KEEP = Kernel("docodo_variants_keep", "pppppp" + "ii" + "ppppp")
+VARIANTS_KEEP = Kernel("docodo_variants_keep",
+                       "pppppp" + "ii" + "ppppp" + "pp")
 AND_LOCATE_TOPK = Kernel("docodo_and_locate_topk",
                          "ppppppppp" + "iiii" + "ppp")
 SINGLE_LOCATE_TOPK = Kernel("docodo_single_locate_topk",

@@ -788,7 +788,9 @@ def _keep_launch(kernel, vals, tag, ra, rb, bpad, pg, compact: bool):
         count = torch.empty((rows,), dtype=torch.int32, device=dev)
     args = (vals, tag, ra, rb) + ((bpad,) if kernel is _cuda.VARIANTS_KEEP
                                   else ())
-    kernel.launch(dev, *args, pg, rows, n, hv, seg, cvals, cpg, count)
+    scratch = _cuda.tile_scratch("docodo_keep_scratch", dev, rows, n)
+    kernel.launch(dev, *args, pg, rows, n, hv, seg, cvals, cpg, count,
+                  *scratch)
     return (cvals, cpg, count) if compact else hv
 
 
@@ -878,8 +880,10 @@ def _locate_runs_kernel(hv, pg, bounds, kpad, hpad):
         _cuda.check(pg, "pg", torch.int32, (rows, n))
     _cuda.check(bounds, "bounds", torch.int32, (bounds.shape[0],))
     outs = _cuda.full_result_outputs(rows, kpad, hpad, hv.device)
+    scratch = _cuda.tile_scratch("docodo_locate_runs_scratch", hv.device,
+                                 rows, n, kpad)
     _cuda.LOCATE_RUNS.launch(hv.device, hv, pg, bounds, bounds.shape[0],
-                             rows, n, kpad, hpad, *outs)
+                             rows, n, kpad, hpad, *outs, *scratch)
     return outs
 
 

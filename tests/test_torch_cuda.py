@@ -91,12 +91,20 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
                               a_pg=a[:, ::2])
 
 
-def _merged(rng, bsz, cap, dev):
-    """_batch's blocks with pages, merged on the card."""
+def _merged(rng, bsz, cap, dev, page=None):
+    """_batch's blocks with pages: of BOUNDS, or with `page` of pages of
+    that many coordinates over the whole pool."""
     a, na, ra, b, nb, rb = _batch(rng, bsz, cap)
+    bounds = BOUNDS
+    if page is not None:  # and a full first row, so that B = 1 keeps hits
+        na[0] = nb[0] = cap
+        top = int(max(a.max(), b.max())) + 1
+        bounds = np.arange(page, top + page, page).astype(np.int32)
+    pages = lambda x: np.minimum(np.searchsorted(bounds, x, side="right"),
+                                 bounds.size - 1).astype(np.int32)
     c = lambda x: torch.as_tensor(x, device=dev)
     return dict(a=c(a), na=c(na), ra=c(ra), b=c(b), nb=c(nb), rb=c(rb),
-                a_pg=c(_pages(a)), b_pg=c(_pages(b)), bounds=c(BOUNDS))
+                a_pg=c(pages(a)), b_pg=c(pages(b)), bounds=c(bounds))
 
 
 def _assert_fields_equal(got, want):
@@ -122,13 +130,20 @@ def test_merge_and_locate_topk_matches_plain_on_card(cuda_device, cap, topk):
     assert int(got[4].max()) > 0
 
 
+# (cap, carried pages, rows): the W = 2 bucket shapes, and cap 262144
+# (n = 524288, 128 tiles a row) at the few rows of a wide bucket
+CHUNKED_SHAPES = [(512, True, 128), (4096, True, 128), (4096, False, 128),
+                  (262144, True, 1), (262144, False, 1), (262144, True, 3),
+                  (262144, False, 3), (262144, True, 8), (262144, False, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,paged", [(512, True), (4096, True),
-                                       (4096, False)])
-def test_chunked_kernels_match_plain_on_card(cuda_device, cap, paged):
+@pytest.mark.parametrize("cap,paged,bsz", CHUNKED_SHAPES)
+def test_chunked_kernels_match_plain_on_card(cuda_device, cap, paged, bsz):
     """merge_tagged -> and_keep -> locate_runs, each against its plain
     version on the same inputs."""
-    x = _merged(np.random.default_rng(cap + paged), 128, cap, cuda_device)
+    x = _merged(np.random.default_rng(cap + paged + bsz), bsz, cap,
+                cuda_device, page=256 if cap > 4096 else None)
     apg, bpg = (x["a_pg"], x["b_pg"]) if paged else (None, None)
     vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"], apg,
                                     bpg)
@@ -210,13 +225,14 @@ def test_union_merge_locate_full_matches_plain_on_card(cuda_device, v, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("va,vb,cap", [(2, 2, 512), (4, 4, 4096),
-                                       (8, 0, 256)])
+@pytest.mark.parametrize("va,vb,cap,bsz", [(2, 2, 512, 64), (4, 4, 4096, 64),
+                                           (8, 0, 256, 64),
+                                           (4, 4, 32768, 3)])
 def test_variants_merge_and_keep_match_plain_on_card(cuda_device, va, vb,
-                                                     cap):
+                                                     cap, bsz):
     """merge_tagged over variant blocks, then variants_keep, each
     against its plain version; vb = 0 is a word's union alone."""
-    x = _variant_blocks(np.random.default_rng(va * cap), 64, va, max(vb, 1),
+    x = _variant_blocks(np.random.default_rng(va * cap), bsz, va, max(vb, 1),
                         cap, cuda_device, spacing=4)
     b, nb, b_pg = ((x["b"], x["nb"], x["b_pg"]) if vb
                    else (None, None, None))
@@ -236,15 +252,40 @@ def test_variants_merge_and_keep_match_plain_on_card(cuda_device, va, vb,
 
 
 @pytest.mark.cuda
-def test_and_keep_compact_matches_plain_on_card(cuda_device):
-    x = _merged(np.random.default_rng(5), 128, 2048, cuda_device)
+@pytest.mark.parametrize("cap,paged,bsz", [(2048, True, 128),
+                                           (262144, True, 1),
+                                           (262144, False, 3),
+                                           (262144, True, 8)])
+def test_and_keep_compact_matches_plain_on_card(cuda_device, cap, paged,
+                                                bsz):
+    x = _merged(np.random.default_rng(5 + bsz), bsz, cap, cuda_device,
+                page=256 if cap > 4096 else None)
     vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"],
                                     x["a_pg"], x["b_pg"])
+    pg = pg if paged else None
     got = qk.and_keep_compact(vals, tag, x["ra"], x["rb"], pg)
     torch.cuda.synchronize()
     want = qk.and_keep_compact_plain(vals, tag, x["ra"], x["rb"], pg)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(g is w is None or torch.equal(g, w) for g, w in zip(got, want))
     assert int(got[2].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,carried", [(1, True), (3, False), (8, True),
+                                         (8, False)])
+def test_locate_runs_on_posting_block_matches_plain_on_card(cuda_device, bsz,
+                                                            carried):
+    """The W = 1 form of locate_runs: a posting block of n = 262144
+    lanes (64 tiles a row), INF32 after its length."""
+    x = _merged(np.random.default_rng(bsz), bsz, 262144, cuda_device,
+                page=256)
+    lane = torch.arange(262144, device=cuda_device)[None, :]
+    block = torch.where(lane < x["na"][:, None], x["a"], INF32)
+    kw = dict(topk=64, hit_cap=1024, pg=x["a_pg"] if carried else None)
+    got = qk.locate_runs(block, x["bounds"], **kw)
+    torch.cuda.synchronize()
+    _assert_fields_equal(got, qk.locate_runs_plain(block, x["bounds"], **kw))
+    assert int(got[3].max()) > 64
 
 
 def _spread_batch(rng, bsz, cap):

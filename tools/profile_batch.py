@@ -67,17 +67,20 @@ PAGE_TOPK = 16  # bench.py:41
 N_QUERIES = 10_000
 RUNS = 5
 ROUTES = {"kernel": True, "plain": False}
-# each CUDA kernel's name in the profiler's device events
+# each CUDA kernel's name in the profiler's device events (the keep
+# kernels launch two each)
 KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "single_locate_full": "single_locate_full_kernel",
                 "union_locate_full": "union_locate_full_kernel",
                 "merge_and_locate_topk": "merge_and_locate_topk_kernel",
                 "merge_tagged": "merge_tagged_kernel",
-                "and_keep": "keep_kernel<false>",
+                "and_keep": ("keep_marks_kernel<false>",
+                             "keep_resolve_kernel<false>"),
                 "locate_runs": "locate_runs_kernel",
                 "variants_and_locate_full": "variants_and_locate_full_kernel",
                 "union_merge_locate_full": "union_merge_locate_full_kernel",
-                "variants_keep": "keep_kernel<true>",
+                "variants_keep": ("keep_marks_kernel<true>",
+                                  "keep_resolve_kernel<true>"),
                 "and_locate_topk": "::and_locate_topk_kernel",
                 "single_locate_topk": "single_locate_topk_kernel",
                 "merge_and_locate": "merge_and_locate_kernel"}
@@ -361,7 +364,9 @@ def profiled_batch(dix, queries, use_kernels: bool, leg: str,
                     if e.device_type != DeviceType.CPU and dev_us(e) > 0),
                    reverse=True)
     device_ms = sum(us for us, _, _ in items) / 1e3
-    kernels = {name: sum(us for us, _, k in items if fn in k) / 1e3
+    kernels = {name: sum(us for us, _, k in items
+                         if any(f in k for f in ((fn,) if isinstance(fn, str)
+                                                 else fn))) / 1e3
                for name, fn in KERNEL_NAMES.items()}
     return {"device_ms": device_ms, "wall_ms": wall,
             "busy_share": device_ms / wall,
