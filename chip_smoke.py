@@ -212,6 +212,24 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def profiled_ms(fn) -> float:
+    """Device ms of one fn() after a warm-up: the sum of the device
+    events of torch.profiler's trace (a host event carries the device
+    time of what it launched, so those are left out)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(float(getattr(e, "self_device_time_total", 0)
+                     or getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / 1e3
+
+
 def phase_device() -> tuple:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -526,6 +544,40 @@ def phase_parity(rng) -> dict:
             f"runs and {cuts} ordered cuts across tile edges, "
             f"{int(x['bpad'].sum())} bpad rows)")
 
+    # merge_tagged's pairwise tree and its other shapes: 8 blocks at n
+    # 2,097,152 (V 4+4 at cap 262144, the widest W = 2 bucket) and in rows
+    # that one block merges (n <= 2048), a fold step's running stream
+    # against the next word's narrower block, and a word's union alone
+    # (vb = 0)
+    for va, vb, cap, rows in ((4, 4, 262144, 8), (8, 0, 32768, 8),
+                              (4, 4, 256, 512), (8, 0, 128, 512)):
+        x = _variant_inputs(rng, rows, va, max(vb, 1), cap, dev, spacing=4)
+        b, nb, b_pg = ((x["b"], x["nb"], x["b_pg"]) if vb
+                       else (None, None, None))
+        got = qk.merge_tagged(x["a"], x["na"], b, nb, x["a_pg"], b_pg)
+        torch.cuda.synchronize()
+        same_result("merge_tagged", got, qk.merge_tagged_plain(
+            x["a"], x["na"], b, nb, x["a_pg"], b_pg),
+            f"merge_tagged of {va}+{vb} blocks n {got[0].shape[1]}")
+        passes = _cuda.merge_passes(va, cap, vb, cap)
+        say(f"parity: merge_tagged of {va}+{vb} blocks n {got[0].shape[1]} "
+            f"B {rows} ({f'{passes} passes' if passes else 'one block a row'}"
+            f"): equal")
+    for cap_a, cap_b, rows in ((65536, 32768, 16), (4096, 1024, 512)):
+        x = _parity_inputs(rng, rows, cap_a, dev)
+        b = x["b"][:, :cap_b].contiguous()
+        b_pg = x["b_pg"][:, :cap_b].contiguous()
+        nb = x["nb"].clamp(max=cap_b)
+        for pgs in ((x["a_pg"], b_pg), (None, None)):
+            got = qk.merge_tagged(x["a"], x["na"], b, nb, *pgs)
+            torch.cuda.synchronize()
+            same_result("merge_tagged", got, qk.merge_tagged_plain(
+                x["a"], x["na"], b, nb, *pgs),
+                f"merge_tagged caps {cap_a} + {cap_b}")
+        say(f"parity: merge_tagged of a fold step's stream (cap {cap_a}) "
+            f"and a block of cap {cap_b}, B {rows}, paged and unpaged: "
+            f"equal")
+
     def check_topk(name, what, *args, **kw):
         # the bounds form of the W = 2 kernel goes through its own
         # wrapper, batched_and_locate (pallas_batched_and_locate)
@@ -651,6 +703,22 @@ def phase_parity(rng) -> dict:
             dict(a_pg=x["a_pg"], b_pg=x["b_pg"]))
     require(min(seen) > 0, f"top-k-mode parity: {seen[0]} rows tied at the "
             f"cut, {seen[1]} empty rows")
+    # the W = 2 slot kernel's row groups (8, 8, 4 and 2 rows a block at
+    # caps 64-512) with the last block part-filled, in both tails
+    for cap in (64, 128, 256, 512):
+        rows = SLOT_ROWS - 3
+        x = _parity_inputs(rng, rows, cap, dev, spread=True)
+        args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"],
+                x["bounds"])
+        pgs = dict(a_pg=x["a_pg"], b_pg=x["b_pg"])
+        check("sorted_and_locate_full",
+              f"sorted_and_locate_full cap {cap} B {rows}",
+              "sorted_and_locate_full", "sorted_and_locate_full_plain",
+              *args, topk=TOPK, hit_cap=HIT_CAP, tail=False, **pgs)
+        check_mode("sorted_and_locate_full_topk",
+                   f"sorted_and_locate_full_topk cap {cap} B {rows}",
+                   "sorted_and_locate_full", args, TOPK, HIT_CAP, **pgs)
+        say(f"parity: sorted_and_locate_full_topk cap {cap} B {rows}: equal")
 
     for cap in (1024, 2048):
         x = _parity_inputs(rng, 1024, cap, dev)
@@ -1003,6 +1071,18 @@ def _valid(n, cap: int) -> int:
     return int(n.clamp(0, cap).sum())
 
 
+def _blocks3(args):
+    """merge_tagged's core arguments (a, a_pg, na, b, b_pg, nb) with a
+    word's one block [B, cap] (lengths [B]) as [B, 1, cap] ([B, 1])."""
+    a, a_pg, na, b, b_pg, nb = args
+    one = lambda x: None if x is None else x.unsqueeze(1)
+    if a.dim() == 2:
+        a, a_pg, na = one(a), one(a_pg), one(na)
+    if b.dim() == 2:
+        b, b_pg, nb = one(b), one(b_pg), one(nb)
+    return a, a_pg, na, b, b_pg, nb
+
+
 def _bytes_moved(name: str, args) -> int:
     """Bytes a kernel core's function must move for these inputs: each
     input lane it needs read once (only the valid lanes of a posting
@@ -1053,7 +1133,7 @@ def _bytes_moved(name: str, args) -> int:
         return (8 * _valid(na, cap) + 4 * na.numel()
                 + rows * (12 * kpad + 4 * hpad + 8))
     if name == "merge_tagged":
-        a, a_pg, na, b, _, nb = args
+        a, a_pg, na, b, _, nb = _blocks3(args)
         per = 4 if a_pg is None else 8
         width = a.shape[1] * a.shape[2] + b.shape[1] * b.shape[2]
         return (per * (_valid(na, a.shape[2]) + _valid(nb, b.shape[2]))
@@ -1093,7 +1173,8 @@ def _ops(name: str, args, outs=None) -> int:
     if name in ("merge_tagged", "variants_and_locate_full",
                 "union_merge_locate_full"):
         if name == "merge_tagged":
-            blocks = [(args[0], args[2]), (args[3], args[5])]
+            a, _, na, b, _, nb = _blocks3(args)
+            blocks = [(a, na), (b, nb)]
         elif name == "variants_and_locate_full":
             blocks = [(args[0], args[2]), (args[4], args[6])]
         else:
@@ -1121,7 +1202,7 @@ def _library_call(name: str, calls):
     if name != "merge_tagged":
         return None
     keys = []
-    for a, _, na, b, _, nb in calls:
+    for a, _, na, b, _, nb in map(_blocks3, calls):
         av, bv = variant_blocks(a, na), variant_blocks(b, nb)
         vals = torch.cat([av, bv], dim=1)
         tag = torch.cat([torch.where(av < INF32, 0, 2),
@@ -1192,6 +1273,12 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
                          bound_by="bytes" if byte_ms >= op_ms
                          else "operations",
                          library_ms=library_ms)
+        if lib is not None:  # both sides on the profiler's device clock
+            kdev = profiled_ms(lambda: [kern(*a) for kern, _, cs in runs
+                                        for a in cs])
+            say(f"device time: {name} {kdev:.4f} ms, library "
+                f"{profiled_ms(lib):.4f} ms, on the same {n_calls} calls "
+                "(torch.profiler)")
         shapes = sorted({tuple(a[0].shape) for _, _, cs in runs for a in cs})
         n_made = sum(made[core] for core, _ in cores)
         say(f"kernel time: {name}: {n_calls} "
@@ -1241,6 +1328,11 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
     return res
 
 
+def _n_blocks(args) -> int:
+    a, _, _, b, _, _ = _blocks3(args)
+    return a.shape[1] + b.shape[1]
+
+
 # and_locate_topk without its page streams is the counterpart of
 # _and_locate_kernel (pallas_query.py:133, PERF.md's row 17): the batch's
 # calls (a, a_pg, na, ra, b, b_pg, nb, rb, bounds, topk) with the pages
@@ -1260,6 +1352,13 @@ SPLITS = {
                       ("n > 4096", lambda a: a[0].shape[1] > 4096)),
     "union_merge_locate_full": (("V = 2", lambda a: a[0].shape[1] == 2),
                                 ("V > 2", lambda a: a[0].shape[1] > 2)),
+    # one pass, or a tree of passes
+    "merge_tagged": (("2 blocks", lambda a: _n_blocks(a) <= 2),
+                     ("more than 2 blocks", lambda a: _n_blocks(a) > 2)),
+    # the W = 2 slot kernel's four stream widths
+    "sorted_and_locate_full": tuple(
+        (f"cap {cap}", lambda a, cap=cap: a[0].shape[1] == cap)
+        for cap in (64, 128, 256, 512)),
 }
 
 

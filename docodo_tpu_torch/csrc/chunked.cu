@@ -55,10 +55,28 @@
 // between the two, found by a 32-way warp search (3 rounds for 22k
 // pages).
 //
+// merge_tagged is bound by bytes too: each block lane is read once and
+// each output lane (value, tag, page) written once, a few compares a lane.
 // The TPU's bitonic merge network and its sorts of already sorted blocks
-// become a merge by binary-search rank (each element's slot is its index
-// plus its rank in every other block), and the compare-all compactions
-// become scatters at prefix-sum slots.
+// become a merge-path merge in output tiles: a block owns kMergeTile =
+// 2048 lanes of the merged row, two of its warps find where the tile's
+// first and last lanes split the two input runs (a 32-way co-rank search,
+// once a tile, not once an element), the tile's inputs are staged in
+// shared memory with 16-byte loads, each thread merges 8 lanes there from
+// its own co-rank, and the tile goes out as 16-byte stores. All padding
+// lanes are equal, so the output is the merge of the real elements
+// followed by a constant fill, which the tiles past the real elements
+// write without searching. More than two blocks (k = va + vb) merge as a
+// pairwise tree, ties to the left so that block order holds: ceil(log2 k)
+// launches, each moving the row once (k = 8: three times the one-pass
+// bytes). A row of at most 2048 lanes, or 8192 lanes of more than two
+// blocks, and at most 32 blocks runs the whole tree in one block's shared
+// memory in one launch (merge_row_kernel): such rows are bound by
+// launches and latency, not by bytes. A k-way co-rank in one pass would need, per tile, a search over
+// the value range with a rank in every block at each step (about
+// 31 x k x log2(cap) dependent loads), where a pass costs one stream read
+// and write; so the tree. The compare-all compactions become scatters at
+// prefix-sum slots.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError(). The tiled ones take two scratch
@@ -81,67 +99,426 @@ constexpr int kLanes = 16;                // consecutive lanes a thread owns
 constexpr int kTile = kThreads * kLanes;  // lanes a block owns
 constexpr int kWindow = 2048;             // page bounds a tile can stage
 constexpr int kMergeThreads = 256;
+constexpr int kMergeIpt = 8;  // output lanes a thread of merge_tagged merges
+constexpr int kMergeTile = kMergeThreads * kMergeIpt;
+constexpr int kRowBlocks = 32;  // blocks a row merged in one block may have
+constexpr int kRowThreadsMax = 1024;  // threads of that block, at most
+constexpr int kStageUnits = 2;  // loads in flight a thread when staging
 
-// merge_tagged: the row's va blocks of word A (tag 0) and vb blocks of word
-// B (tag 1), block k of word A at a[row, k, :cap_a] with its length in
-// na_[row, k] (word B likewise), merge into one (coord, tag) stream. An
-// element of block k lands at its index plus its rank in every other block,
-// counting equal coords of earlier blocks (word A's before word B's) as
-// before it and those of later blocks as after: a bijection onto the first
-// sum(len) slots. Padding lanes (INF32, tag 2, page 0) follow in block
-// order. pg / a_pg / b_pg may all be null (no page payload).
-__global__ void __launch_bounds__(kMergeThreads) merge_tagged_kernel(
-    const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, const int* __restrict__ b,
-    const int* __restrict__ b_pg, const int* __restrict__ nb_, int va,
-    int cap_a, int vb, int cap_b, int* __restrict__ vals,
-    int* __restrict__ tag, int* __restrict__ pg) {
-  const size_t row = blockIdx.x;
-  const int k = blockIdx.z;
-  const int i = blockIdx.y * kMergeThreads + threadIdx.x;
-  const bool in_a = k < va;
-  const int cap = in_a ? cap_a : cap_b;
-  if (i >= cap) return;
-  const int nblk = va + vb;
-  const size_t out = row * ((size_t)va * cap_a + (size_t)vb * cap_b);
-  auto block = [&](int j) -> const int* {
+// ---------------------------------------------------------------------------
+// merge_tagged
+// ---------------------------------------------------------------------------
+
+// The row's va blocks of word A (tag 0) and vb blocks of word B (tag 1),
+// block j of word A at a[row, j, :cap_a] with its length in na_[row, j]
+// (word B likewise), as merge_tagged sees them: block j at offset off(j)
+// of the merged row, which is the blocks' concatenation. `vec`: every
+// block row and page row may be read with 16-byte loads.
+struct MergeBlocks {
+  const int* a;
+  const int* a_pg;
+  const int* na;
+  const int* b;
+  const int* b_pg;
+  const int* nb;
+  int va, cap_a, vb, cap_b, n;
+  bool vec;
+  __host__ __device__ int off(int j) const {
+    return j < va ? j * cap_a : va * cap_a + (j - va) * cap_b;
+  }
+  __device__ int len(size_t row, int j) const {
+    return j < va ? clamp_len(na[row * va + j], cap_a)
+                  : clamp_len(nb[row * vb + j - va], cap_b);
+  }
+  __device__ const int* vals(size_t row, int j) const {
     return j < va ? a + (row * va + j) * cap_a
                   : b + (row * vb + j - va) * cap_b;
-  };
-  auto length = [&](int j) -> int {
-    return j < va ? clamp_len(na_[row * va + j], cap_a)
-                  : clamp_len(nb_[row * vb + j - va], cap_b);
-  };
-  const int len = length(k);
-  if (i < len) {
-    const int v = block(k)[i];
-    size_t p = i;
-    for (int j = 0; j < nblk; ++j) {
-      if (j < k) p += upper_bound(block(j), length(j), v);
-      else if (j > k) p += lower_bound(block(j), length(j), v);
-    }
-    vals[out + p] = v;
-    tag[out + p] = in_a ? 0 : 1;
-    if (pg) pg[out + p] = in_a ? a_pg[(row * va + k) * cap_a + i]
-                               : b_pg[(row * vb + k - va) * cap_b + i];
+  }
+  __device__ const int* pages(size_t row, int j) const {
+    if (!a_pg) return nullptr;
+    return j < va ? a_pg + (row * va + j) * cap_a
+                  : b_pg + (row * vb + j - va) * cap_b;
+  }
+};
+
+// One [rows, n] stream: values, tags and pages (null for none).
+struct Stream {
+  int* vals;
+  int* tag;
+  int* pg;
+};
+
+// Merge-path co-rank: how many of the first d outputs of the merge of the
+// ascending runs l [la] and r [lb], ties to l, come from l. One warp
+// searches together, 32 probes a round (4 rounds for 2^18 candidates).
+__device__ inline int warp_corank(const int* l, int la, const int* r, int lb,
+                                  int d) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - lb), hi = min(d, la);  // the co-rank is in [lo, hi]
+  while (lo < hi) {
+    const int len = hi - lo;
+    const int step = (len + 31) / 32;
+    const int probe = lo + min(len, (lane + 1) * step) - 1;
+    const int c = __popc(
+        __ballot_sync(kFullMask, l[probe] <= r[d - 1 - probe]));
+    if (c == 32) return hi;
+    hi = lo + min(len, (c + 1) * step) - 1;  // probe c is false
+    lo += c * step;
+  }
+  return lo;
+}
+
+// w (4 or 1) consecutive ints of src from lane q * w on: one 16-byte
+// load for w = 4.
+__device__ inline void load_unit(const int* __restrict__ src, int q, int w,
+                                 int (&x)[4]) {
+  if (w == 4) {
+    const int4 v = reinterpret_cast<const int4*>(src)[q];
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
   } else {
-    size_t p = i - len;
-    for (int j = 0; j < nblk; ++j) {
-      const int lj = length(j);
-      p += lj;
-      if (j < k) p += (j < va ? cap_a : cap_b) - lj;
-    }
-    vals[out + p] = kInf;
-    tag[out + p] = 2;
-    if (pg) pg[out + p] = 0;
+    x[0] = src[q];
   }
 }
 
-int tiles_of(int n) { return (n + kTile - 1) / kTile; }
-
-bool aligned16(const void* p) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// A merge pass's two input segments into shared memory: left run lanes
+// i0 .. i0 + ca - 1 to 0 .. ca - 1 and right run lanes j0 .. j0 + cb - 1
+// after them, values, pages (lp / rp, or none) and tags (lt / rt, or the
+// constants tl / tr) in the same round of loads. Each thread takes units
+// of w lanes: quads read as 16-byte loads where `vec` (the runs' rows
+// 16-byte aligned, their widths multiples of 4), single lanes otherwise.
+__device__ inline void stage_pair(
+    const int* lv, const int* lp, const int* lt, unsigned char tl, int i0,
+    int ca, const int* rv, const int* rp, const int* rt, unsigned char tr,
+    int j0, int cb, bool vec, int* s_val, int* s_pg,
+    unsigned char* s_tag) {
+  const int w = vec ? 4 : 1;
+  const int l0 = i0 / w, nl = ca ? (i0 + ca + w - 1) / w - l0 : 0;
+  const int r0 = j0 / w, nr = cb ? (j0 + cb + w - 1) / w - r0 : 0;
+  // kStageUnits units a thread with all their loads in flight together
+  for (int u0 = threadIdx.x; u0 < nl + nr;
+       u0 += kStageUnits * kMergeThreads) {
+    int v[kStageUnits][4], pg[kStageUnits][4], tg[kStageUnits][4];
+#pragma unroll
+    for (int k = 0; k < kStageUnits; ++k) {
+      const int u = u0 + k * kMergeThreads;
+      if (u < nl + nr) {
+        const bool left = u < nl;
+        const int q = left ? l0 + u : r0 + u - nl;
+        const int* p = left ? lp : rp;
+        const int* t = left ? lt : rt;
+        load_unit(left ? lv : rv, q, w, v[k]);
+        if (p) load_unit(p, q, w, pg[k]);
+        if (t) load_unit(t, q, w, tg[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageUnits; ++k) {
+      const int u = u0 + k * kMergeThreads;
+      if (u < nl + nr) {
+        const bool left = u < nl;
+        const int q = left ? l0 + u : r0 + u - nl;
+        const int from = left ? i0 : j0;
+        const int count = left ? ca : cb;
+        const int base = left ? 0 : ca;
+        const bool paged = (left ? lp : rp) != nullptr;
+        const bool tagged = (left ? lt : rt) != nullptr;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = q * w + e - from;
+          if (e < w && x >= 0 && x < count) {
+            s_val[base + x] = v[k][e];
+            if (paged) s_pg[base + x] = pg[k][e];
+            s_tag[base + x] = tagged ? tg[k][e] : (left ? tl : tr);
+          }
+        }
+      }
+    }
+  }
 }
+
+// dst[0 .. count) from the tile staged in shared memory, with 16-byte
+// stores where `vec` (dst 16-byte aligned) and scalar ones after.
+template <int T = kMergeThreads, class S>
+__device__ inline void store_tile(int* __restrict__ dst, const S* src,
+                                  int count, bool vec) {
+  const int quads = vec ? count >> 2 : 0;
+  for (int q = threadIdx.x; q < quads; q += T)
+    reinterpret_cast<int4*>(dst)[q] =
+        make_int4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
+  for (int x = 4 * quads + threadIdx.x; x < count; x += T) dst[x] = src[x];
+}
+
+// One pass of merge_tagged's pairwise tree. Run r of `level` holds the
+// row's blocks r << level .. ((r + 1) << level) - 1, merged, at their
+// offset: the blocks themselves at level 0, `src` after. Pair q (grid z)
+// merges runs 2q and 2q + 1, ties to the left, into the next level's run q
+// in `dst`, at the same offset; a run without a partner is copied. Equal
+// coords therefore keep block order at every level. Each block (grid y)
+// owns kMergeTile lanes of its pair's output: two warps find the tile's
+// first and last co-ranks by warp_corank over the runs in device memory,
+// the tile's two input segments are staged in shared memory, each thread
+// merges kMergeIpt lanes from its own co-rank there, and the tile is
+// stored from shared memory. With `last` (the pass that writes the
+// output; its one pair spans the row) lanes past the real elements get
+// INF32, tag 2, page 0; before it they are left as they are.
+__global__ void __launch_bounds__(kMergeThreads) merge_pass_kernel(
+    MergeBlocks m, int level, Stream src, Stream dst, bool last,
+    bool vec_out) {
+  __shared__ __align__(16) int s_val[kMergeTile];
+  __shared__ __align__(16) int s_pg[kMergeTile];
+  __shared__ unsigned char s_tag[kMergeTile];
+  __shared__ int s_cut[2], s_len[2];
+  const size_t row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nblk = m.va + m.vb;
+  const int f0 = (2 * blockIdx.z) << level;
+  const int f1 = min(f0 + (1 << level), nblk);
+  const int f2 = min(f1 + (1 << level), nblk);
+  const int out = m.off(f0);
+  const int width = m.off(f2) - out;
+  const int d0 = blockIdx.y * kMergeTile;
+  if (d0 >= width) return;
+  if (tid < 32) {  // the two runs' lengths, a block a lane
+    int sa = 0, sb = 0;
+    for (int j = f0 + tid; j < f2; j += 32) {
+      const int len = m.len(row, j);
+      if (j < f1) sa += len; else sb += len;
+    }
+    sa = __reduce_add_sync(kFullMask, sa);
+    sb = __reduce_add_sync(kFullMask, sb);
+    if (tid == 0) {
+      s_len[0] = sa;
+      s_len[1] = sb;
+    }
+  }
+  __syncthreads();
+  const int la = s_len[0], lb = s_len[1];
+  const int total = la + lb;
+  if (!last && d0 >= total) return;
+  const bool paged = dst.pg != nullptr;
+  // the left and right runs
+  const int *lv, *rv, *lp = nullptr, *rp = nullptr, *lt = nullptr,
+                       *rt = nullptr;
+  if (level == 0) {
+    lv = m.vals(row, f0);
+    rv = f1 < f2 ? m.vals(row, f1) : lv;
+    lp = m.pages(row, f0);
+    rp = f1 < f2 ? m.pages(row, f1) : lp;
+  } else {
+    const size_t at = row * m.n;
+    lv = src.vals + at + out;
+    rv = src.vals + at + m.off(f1);
+    lt = src.tag + at + out;
+    rt = src.tag + at + m.off(f1);
+    if (paged) {
+      lp = src.pg + at + out;
+      rp = src.pg + at + m.off(f1);
+    }
+  }
+  const bool real = d0 < total;
+  const int d1 = real ? min(d0 + kMergeTile, total) : d0;
+  if (real && tid < 64) {
+    const int c = warp_corank(lv, la, rv, lb, tid < 32 ? d0 : d1);
+    if ((tid & 31) == 0) s_cut[tid >> 5] = c;
+  }
+  __syncthreads();
+  const int i0 = real ? s_cut[0] : 0;
+  const int ca = real ? s_cut[1] - i0 : 0;  // lanes from the left run
+  const int j0 = d0 - i0;
+  const int cb = d1 - d0 - ca;               // and from the right run
+  stage_pair(lv, lp, lt, f0 < m.va ? 0 : 1, i0, ca, rv, rp, rt,
+             f1 < m.va ? 0 : 1, j0, cb, level == 0 ? m.vec : vec_out, s_val,
+             s_pg, s_tag);
+  __syncthreads();
+
+  const int cnt = d1 - d0;
+  const int d = tid * kMergeIpt;
+  int ov[kMergeIpt], op[kMergeIpt];
+  unsigned char ot[kMergeIpt];
+  if (d < cnt) {
+    int lo = max(0, d - cb), hi = min(d, ca);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_val[mid] <= s_val[ca + d - 1 - mid]) lo = mid + 1; else hi = mid;
+    }
+    int i = lo, j = d - lo;
+#pragma unroll
+    for (int k = 0; k < kMergeIpt; ++k) {
+      if (d + k < cnt) {
+        const bool left =
+            j >= cb || (i < ca && s_val[i] <= s_val[ca + j]);
+        const int x = left ? i++ : ca + j++;
+        ov[k] = s_val[x];
+        op[k] = paged ? s_pg[x] : 0;
+        ot[k] = s_tag[x];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kMergeIpt; ++k) {
+    if (d + k < cnt) {
+      s_val[d + k] = ov[k];
+      s_pg[d + k] = op[k];
+      s_tag[d + k] = ot[k];
+    }
+  }
+  const int w = last ? min(kMergeTile, width - d0) : cnt;
+  for (int x = cnt + tid; x < w; x += kMergeThreads) {
+    s_val[x] = kInf;
+    s_pg[x] = 0;
+    s_tag[x] = 2;
+  }
+  __syncthreads();
+  const size_t at = row * m.n + out + d0;
+  store_tile(dst.vals + at, s_val, w, vec_out);
+  store_tile(dst.tag + at, s_tag, w, vec_out);
+  if (paged) store_tile(dst.pg + at, s_pg, w, vec_out);
+}
+
+// merge_tagged of a row that fits one block of T threads: n <= T *
+// kMergeIpt lanes, at most kRowBlocks blocks, caps multiples of
+// kMergeIpt. A row of many blocks that is not wide would pay a launch and
+// a trip through device memory for every level of the tree, so here the
+// whole tree runs in shared memory in one launch: the blocks are staged
+// at their offsets, each level merges in place (a thread merges its
+// kMergeIpt output lanes of its pair, ties to the left, from its own
+// co-rank into registers, and the block writes them back), and the merged
+// row and its fill are stored once. The thread owning lanes x .. x +
+// kMergeIpt - 1 serves the pair that holds lane x at every level: pair
+// widths are whole blocks. T = 256 (2048 lanes, static shared memory) or
+// 1024 (8192 lanes, 72 KB of dynamic shared memory).
+template <int T>
+__global__ void __launch_bounds__(T) merge_row_kernel(MergeBlocks m,
+                                                      Stream dst,
+                                                      bool vec_out) {
+  constexpr int kLanesRow = T * kMergeIpt;
+  extern __shared__ __align__(16) int smem_row[];
+  int* s_val = smem_row;
+  int* s_pg = s_val + kLanesRow;
+  int* s_pre = s_pg + kLanesRow;  // the blocks' lengths, summed
+  unsigned char* s_tag =
+      reinterpret_cast<unsigned char*>(s_pre + kRowBlocks + 1);
+  const size_t row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nblk = m.va + m.vb;
+  const bool paged = dst.pg != nullptr;
+  if (tid < 32) {  // the lengths' prefix sums, by one warp
+    int sum = tid < nblk ? m.len(row, tid) : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, sum, d);
+      if (tid >= d) sum += y;
+    }
+    s_pre[tid + 1] = sum;
+    if (tid == 0) s_pre[0] = 0;
+  }
+  __syncthreads();
+  const int split = m.va * m.cap_a;
+  auto block_of = [&](int x) {
+    return x < split ? x / m.cap_a : m.va + (x - split) / m.cap_b;
+  };
+  // the blocks at their offsets in units of w lanes (never across blocks:
+  // caps are multiples of kMergeIpt), kStageUnits units a thread with
+  // their loads in flight together
+  const int w = m.vec ? 4 : 1;
+  for (int u0 = tid; u0 * w < m.n; u0 += kStageUnits * T) {
+    int v[kStageUnits][4], pg[kStageUnits][4], blk_of[kStageUnits];
+#pragma unroll
+    for (int k = 0; k < kStageUnits; ++k) {
+      const int x = (u0 + k * T) * w;
+      blk_of[k] = x < m.n ? block_of(x) : nblk;
+      const int j = blk_of[k];
+      if (j < nblk && x - m.off(j) < s_pre[j + 1] - s_pre[j]) {
+        load_unit(m.vals(row, j) + x - m.off(j), 0, w, v[k]);
+        if (paged) load_unit(m.pages(row, j) + x - m.off(j), 0, w, pg[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageUnits; ++k) {
+      const int x = (u0 + k * T) * w;
+      const int j = blk_of[k];
+      if (j >= nblk) continue;
+      const int i = x - m.off(j);
+      const int len = s_pre[j + 1] - s_pre[j];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e < w && i + e < len) {
+          s_val[x + e] = v[k][e];
+          if (paged) s_pg[x + e] = pg[k][e];
+          s_tag[x + e] = j < m.va ? 0 : 1;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int x0 = tid * kMergeIpt;
+  const int blk = x0 < m.n ? block_of(x0) : nblk;
+  for (int level = 0; (1 << level) < nblk; ++level) {
+    int ov[kMergeIpt], op[kMergeIpt];
+    unsigned char ot[kMergeIpt];
+    int cnt = 0;
+    if (blk < nblk) {
+      const int f0 = (blk >> (level + 1)) << (level + 1);
+      const int f1 = min(f0 + (1 << level), nblk);
+      const int f2 = min(f1 + (1 << level), nblk);
+      const int la = s_pre[f1] - s_pre[f0];
+      const int lb = s_pre[f2] - s_pre[f1];
+      const int* l = s_val + m.off(f0);
+      const int* r = s_val + m.off(f1);
+      const int d = x0 - m.off(f0);
+      cnt = min(kMergeIpt, la + lb - d);
+      if (cnt > 0) {
+        int lo = max(0, d - lb), hi = min(d, la);
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (l[mid] <= r[d - 1 - mid]) lo = mid + 1; else hi = mid;
+        }
+        int i = lo, j = d - lo;
+#pragma unroll
+        for (int k = 0; k < kMergeIpt; ++k) {
+          if (k < cnt) {
+            const bool left = j >= lb || (i < la && l[i] <= r[j]);
+            const int x = left ? m.off(f0) + i++ : m.off(f1) + j++;
+            ov[k] = s_val[x];
+            op[k] = paged ? s_pg[x] : 0;
+            ot[k] = s_tag[x];
+          }
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kMergeIpt; ++k) {
+      if (k < cnt) {
+        s_val[x0 + k] = ov[k];
+        s_pg[x0 + k] = op[k];
+        s_tag[x0 + k] = ot[k];
+      }
+    }
+    __syncthreads();
+  }
+  for (int x = s_pre[nblk] + tid; x < m.n; x += T) {
+    s_val[x] = kInf;
+    s_pg[x] = 0;
+    s_tag[x] = 2;
+  }
+  __syncthreads();
+  const size_t at = row * m.n;
+  store_tile<T>(dst.vals + at, s_val, m.n, vec_out);
+  store_tile<T>(dst.tag + at, s_tag, m.n, vec_out);
+  if (paged) store_tile<T>(dst.pg + at, s_pg, m.n, vec_out);
+}
+
+// Shared memory of merge_row_kernel<T>.
+constexpr size_t row_smem(int threads) {
+  return (size_t)threads * kMergeIpt * 9 + (kRowBlocks + 1) * 4;
+}
+
+int tiles_of(int n) { return (n + kTile - 1) / kTile; }
 
 // Lanes base .. base + kLanes - 1 of a row of n lanes, `fill` past n; as
 // 16-byte loads where `vec` (the row starts 16-byte aligned, n % 4 == 0).
@@ -757,21 +1134,108 @@ int launch_keep(const int* vals, const int* tag, const int* ra,
 
 }  // namespace
 
+// Launches of docodo_merge_tagged for va blocks of cap_a and vb of cap_b:
+// 0 for a row that one block merges in shared memory (merge_row_kernel:
+// up to 2048 lanes, or 8192 for more than two blocks, which it spares
+// passes), else ceil(log2(va + vb)) passes of the pairwise tree, at least
+// one.
+extern "C" int docodo_merge_tagged_passes(int va, int cap_a, int vb,
+                                          int cap_b) {
+  const int nblk = va + vb;
+  const int ca = va > 0 ? cap_a : 0;
+  const int cb = vb > 0 ? cap_b : 0;
+  const long long n = (long long)va * ca + (long long)vb * cb;
+  // two blocks wider than one tile merge faster in one pass of many
+  // tiles than in one block (H100, tools/tile_kernel_times.py --batch)
+  const int lanes = nblk > 2 ? kRowThreadsMax * kMergeIpt : kMergeTile;
+  if (n <= lanes && nblk <= kRowBlocks && ca % kMergeIpt == 0 &&
+      cb % kMergeIpt == 0)
+    return 0;
+  int passes = 1;
+  while ((1 << passes) < nblk) ++passes;
+  return passes;
+}
+
+// scratch: where docodo_merge_tagged_passes gives more than one pass,
+// [2 or 3, rows, n] int32 (values, tags, and pages when pg is given),
+// which the tree's passes and the outputs take in turns so that the last
+// pass writes the outputs; may be null otherwise.
 extern "C" int docodo_merge_tagged(const int* a, const int* a_pg,
                                    const int* na, const int* b,
                                    const int* b_pg, const int* nb, int rows,
                                    int va, int cap_a, int vb, int cap_b,
                                    int* vals, int* tag, int* pg,
-                                   void* stream) {
-  const int ca = va > 0 ? cap_a : 0;
-  const int cb = vb > 0 ? cap_b : 0;
-  const int cap = ca > cb ? ca : cb;
-  if (va + vb > 65535) return (int)cudaErrorInvalidValue;
-  if (rows > 0 && cap > 0) {
-    const dim3 grid(rows, (cap + kMergeThreads - 1) / kMergeThreads,
-                    va + vb);
-    merge_tagged_kernel<<<grid, kMergeThreads, 0, (cudaStream_t)stream>>>(
-        a, a_pg, na, b, b_pg, nb, va, cap_a, vb, cap_b, vals, tag, pg);
+                                   int* scratch, void* stream) {
+  MergeBlocks m;
+  m.a = a;
+  m.a_pg = a_pg;
+  m.na = na;
+  m.b = b;
+  m.b_pg = b_pg;
+  m.nb = nb;
+  m.va = va;
+  m.vb = vb;
+  m.cap_a = va > 0 ? cap_a : 0;
+  m.cap_b = vb > 0 ? cap_b : 0;
+  const int nblk = va + vb;
+  const long long n = (long long)va * m.cap_a + (long long)vb * m.cap_b;
+  if (va < 0 || vb < 0 || nblk > 65535 || n > 65535LL * kMergeTile)
+    return (int)cudaErrorInvalidValue;
+  m.n = (int)n;
+  if (rows <= 0 || n == 0) return (int)cudaGetLastError();
+  const int passes = docodo_merge_tagged_passes(va, cap_a, vb, cap_b);
+  if (passes > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const bool caps4 = m.cap_a % 4 == 0 && m.cap_b % 4 == 0;
+  m.vec = caps4 && aligned16(a) && aligned16(a_pg) && aligned16(b) &&
+          aligned16(b_pg);
+  const Stream out{vals, tag, pg};
+  const bool vec_dst =
+      caps4 && aligned16(vals) && aligned16(tag) && aligned16(pg);
+  if (passes == 0 && m.n <= kMergeTile) {
+    merge_row_kernel<kMergeThreads>
+        <<<rows, kMergeThreads, row_smem(kMergeThreads),
+           (cudaStream_t)stream>>>(m, out, vec_dst);
+    return (int)cudaGetLastError();
+  }
+  if (passes == 0) {
+    static bool sized = false;
+    if (!sized) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          merge_row_kernel<kRowThreadsMax>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)row_smem(kRowThreadsMax));
+      if (e != cudaSuccess) return (int)e;
+      sized = true;
+    }
+    merge_row_kernel<kRowThreadsMax>
+        <<<rows, kRowThreadsMax, row_smem(kRowThreadsMax),
+           (cudaStream_t)stream>>>(m, out, vec_dst);
+    return (int)cudaGetLastError();
+  }
+  const size_t plane = (size_t)rows * m.n;
+  const Stream tmp =
+      scratch ? Stream{scratch, scratch + plane, pg ? scratch + 2 * plane
+                                                    : nullptr}
+              : Stream{nullptr, nullptr, nullptr};
+  const bool vec_out = vec_dst && aligned16(tmp.vals) &&
+                       aligned16(tmp.tag) && aligned16(tmp.pg);
+  Stream src{nullptr, nullptr, nullptr};
+  for (int p = 0; p < passes; ++p) {
+    const Stream dst = (passes - 1 - p) % 2 == 0 ? out : tmp;
+    const int pairs = (((nblk + (1 << p) - 1) >> p) + 1) / 2;
+    int widest = 0;
+    for (int q = 0; q < pairs; ++q) {
+      const int f0 = (2 * q) << p;
+      const int f2 = f0 + (2 << p) < nblk ? f0 + (2 << p) : nblk;
+      const int w = m.off(f2) - m.off(f0);
+      widest = w > widest ? w : widest;
+    }
+    const dim3 grid(rows, (widest + kMergeTile - 1) / kMergeTile, pairs);
+    merge_pass_kernel<<<grid, kMergeThreads, 0, (cudaStream_t)stream>>>(
+        m, p, src, dst, p == passes - 1, vec_out);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    src = dst;
   }
   return (int)cudaGetLastError();
 }

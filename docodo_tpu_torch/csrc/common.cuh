@@ -1,16 +1,19 @@
-// Shared device helpers of docodo_tpu_torch's kernels (sm_90a): block
-// scans over lanes owned by threads, binary searches, and the six-field
-// full-result output of a query row.
+// Shared device helpers of docodo_tpu_torch's kernels (sm_90a): scans
+// over lanes owned by the threads of a row, binary searches, and the
+// six-field full-result output of a query row.
 //
-// Lane layout: a block of T threads holds a row (or a chunk of one) of at
-// most T * L lanes; thread t owns the ipt <= L consecutive lanes
-// t * ipt .. t * ipt + ipt - 1, kept in register arrays of L.
+// Lane layout: a row group of T threads (a whole block, BlockRow, or a
+// warp-aligned group of a block that holds several rows, GroupRow) holds
+// a row (or a chunk of one) of at most T * L lanes; its thread t owns the
+// ipt <= L consecutive lanes t * ipt .. t * ipt + ipt - 1, kept in
+// register arrays of L.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace docodo {
 
@@ -23,24 +26,64 @@ struct Max {
   __device__ int operator()(int a, int b) const { return a > b ? a : b; }
 };
 
-// Block-wide exclusive scan of one value per thread; *total receives the
-// reduction over the whole block. Every thread of the block must call it;
-// s_warp holds at least T / 32 ints.
-template <int T, class Op>
-__device__ int block_exclusive(int v, int identity, Op op, int* s_warp,
-                               int* total) {
-  constexpr int kWarps = T / 32;
+// The threads that hold one row: rank() of kThreads, the row's index,
+// and a barrier over exactly those threads.
+template <int T>
+struct BlockRow {  // the whole block, one row a block
+  static constexpr int kThreads = T;
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ size_t row() const { return blockIdx.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+// G threads (whole warps), blockDim.x / G rows a block; groups of more
+// than one warp use named barriers 1 .. 15, so at most 15 such a block.
+template <int G>
+struct GroupRow {
+  static_assert(G % 32 == 0, "whole warps");
+  static constexpr int kThreads = G;
+  __device__ int group() const { return threadIdx.x / G; }
+  __device__ int rank() const { return threadIdx.x % G; }
+  __device__ size_t row() const {
+    return (size_t)blockIdx.x * (blockDim.x / G) + group();
+  }
+  // a warp's own barrier, or named barrier 1 + group over the group's
+  // warps (barrier 0 is __syncthreads')
+  __device__ void sync() const {
+    if (G == 32)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(group() + 1), "r"(G)
+                   : "memory");
+  }
+};
+
+// Exclusive scan of one value per thread of the row group g; *total
+// receives the reduction over the group. Every thread of the group must
+// call it; s_warp holds at least kThreads / 32 ints. A one-warp group
+// scans in registers; every form ends with a barrier of the group.
+template <class Grp, class Op>
+__device__ int group_exclusive(const Grp& g, int v, int identity, Op op,
+                               int* s_warp, int* total) {
+  constexpr int kWarps = Grp::kThreads / 32;
   static_assert(kWarps >= 1 && kWarps <= 32, "1..1024 threads");
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int lane = g.rank() & 31;
+  const int warp = g.rank() >> 5;
   int x = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     int y = __shfl_up_sync(0xffffffffu, x, d);
     if (lane >= d) x = op(x, y);
   }
+  int in_warp = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) in_warp = identity;
+  if (kWarps == 1) {
+    *total = __shfl_sync(0xffffffffu, x, 31);
+    g.sync();
+    return in_warp;
+  }
   if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
+  g.sync();
   if (warp == 0) {
     int t = lane < kWarps ? s_warp[lane] : identity;
 #pragma unroll
@@ -50,27 +93,25 @@ __device__ int block_exclusive(int v, int identity, Op op, int* s_warp,
     }
     if (lane < kWarps) s_warp[lane] = t;
   }
-  __syncthreads();
+  g.sync();
   const int before_warp = warp > 0 ? s_warp[warp - 1] : identity;
-  int in_warp = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) in_warp = identity;
   *total = s_warp[kWarps - 1];
-  __syncthreads();
+  g.sync();
   return op(before_warp, in_warp);
 }
 
 // Scan over the lanes this thread owns (x[k] belongs to lane
-// threadIdx.x * ipt + k), in place: the exclusive prefix, or the inclusive
-// one. Lanes past the row must hold the identity. Returns the block total.
-template <int T, int L, class Op>
-__device__ int scan_lanes(int (&x)[L], int ipt, int identity, Op op,
-                          bool inclusive, int* s_warp) {
+// g.rank() * ipt + k), in place: the exclusive prefix, or the inclusive
+// one. Lanes past the row must hold the identity. Returns the group total.
+template <class Grp, int L, class Op>
+__device__ int scan_lanes(const Grp& g, int (&x)[L], int ipt, int identity,
+                          Op op, bool inclusive, int* s_warp) {
   int agg = identity;
 #pragma unroll
   for (int k = 0; k < L; ++k)
     if (k < ipt) agg = op(agg, x[k]);
   int total;
-  int run = block_exclusive<T>(agg, identity, op, s_warp, &total);
+  int run = group_exclusive(g, agg, identity, op, s_warp, &total);
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     if (k < ipt) {
@@ -85,6 +126,11 @@ __device__ int scan_lanes(int (&x)[L], int ipt, int identity, Op op,
     }
   }
   return total;
+}
+
+// A null pointer, or one a 16-byte load or store may use.
+__host__ __device__ inline bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 __device__ inline int clamp_len(int v, int cap) {

@@ -39,10 +39,20 @@
 // What bounds them on this card: bytes, not arithmetic. Each row is read
 // once (values and pages, 8 bytes a lane) and 3 * kpad + hpad + 2 values are
 // written; in between, each lane costs a few dozen integer operations and
-// a handful of block scans. The design keeps everything between that read
-// and those writes on chip: one thread block per row, each thread owning a
-// few consecutive lanes, the row's values, pages and per-run sums in shared
-// memory, and no intermediate in device memory. The W = 2 kernels merge
+// a handful of scans. The design keeps everything between that read and
+// those writes on chip: one row group per row (slot_row.cuh), each thread
+// owning a few consecutive lanes, the row's values, pages and per-run sums
+// in shared memory, and no intermediate in device memory. A narrow row
+// cannot fill a block, and a block that waits at ~20 block-wide barriers
+// for a row of 128 lanes is bound by those barriers, not by bytes: so the
+// W = 2 slot kernel is compiled for stream widths N = 128, 256, 512 and
+// 1024, dispatched on cap, and gives a row N / 4 threads: one warp at
+// N = 128 (8 rows a block of 256 threads, warp-shuffle scans, __syncwarp),
+// 2 and 4 warps at N = 256 and 512 (named barriers over the row's own
+// warps) and the block at 1024, with the shared memory of N lanes a row;
+// its operands and pages come in as 16-byte loads and its hits go out
+// from shared memory, consecutive threads on consecutive slots. The other
+// kernels give a row a whole block. The W = 2 kernels merge
 // their two posting blocks by rank in shared memory, so the separate sort
 // launch of the TPU route disappears. The TPU kernels' lane-roll log-step
 // scans, packed scan pairs, bitonic merge network and log-shift compaction
@@ -63,18 +73,18 @@ namespace {
 using namespace docodo;
 
 // W = 2: merge_and_keep, then the row's tail (SlotsTail or TopkTail).
-template <int T, int L, int N, class Tail>
+template <class Grp, int L, int N, class Tail>
 __device__ void sorted_and_body(
-    AndSmem<N>& sm, const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, const int* __restrict__ ra_,
-    const int* __restrict__ b, const int* __restrict__ b_pg,
-    const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
-    const Tail& tail) {
+    const Grp& g, AndSmem<N>& sm, const int* __restrict__ a,
+    const int* __restrict__ a_pg, const int* __restrict__ na_,
+    const int* __restrict__ ra_, const int* __restrict__ b,
+    const int* __restrict__ b_pg, const int* __restrict__ nb_,
+    const int* __restrict__ rb_, int cap, const Tail& tail) {
   const int n = 2 * cap;
   bool keep[L];
-  merge_and_keep<T, L, N>(sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr,
-                          0, cap, keep);
-  tail.template run<T, L, N>(sm.row, keep, n, (n + T - 1) / T);
+  merge_and_keep(g, sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr, 0,
+                 cap, keep);
+  tail.run(g, sm.row, keep, n, (n + Grp::kThreads - 1) / Grp::kThreads);
 }
 
 constexpr int kSlotThreads = 256;
@@ -86,16 +96,33 @@ constexpr int kFusedLanes = 4096;  // FUSED_AND_MAX, pallas_query.py:2478
 constexpr int kFusedIpt = kFusedLanes / kFusedThreads;
 constexpr size_t kFusedSmem = sizeof(AndSmem<kFusedLanes>);
 
-template <class Tail>
+// The W = 2 slot kernel at stream width N (2 cap <= N): a row group of
+// N / 4 threads, each 4 lanes, and 256 / group rows a block (8, 4, 2 and 1
+// at N = 128, 256, 512, 1024), each row in its own AndSmem<N>. On an H100
+// this beat one warp a row at N = 256 and two or four warps at N = 512 and
+// 1024 with 8 lanes a thread (96-101 registers, 2 blocks an SM; PERF.md).
+template <int N>
+struct W2Shape {
+  static constexpr int kGroup = N / 4;
+  static constexpr int kRows = kSlotThreads / kGroup;
+  static constexpr int kIpt = N / kGroup;
+  static constexpr size_t kSmem = kRows * sizeof(AndSmem<N>);
+};
+
+template <class Tail, int N>
 __global__ void __launch_bounds__(kSlotThreads) sorted_and_locate_full_kernel(
     const int* __restrict__ a, const int* __restrict__ a_pg,
     const int* __restrict__ na_, const int* __restrict__ ra_,
     const int* __restrict__ b, const int* __restrict__ b_pg,
-    const int* __restrict__ nb_, const int* __restrict__ rb_, int cap,
-    Tail tail) {
-  __shared__ AndSmem<kSlotLanes> sm;
-  sorted_and_body<kSlotThreads, kSlotIpt, kSlotLanes>(
-      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, tail);
+    const int* __restrict__ nb_, const int* __restrict__ rb_, int rows,
+    int cap, Tail tail) {
+  using S = W2Shape<N>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GroupRow<S::kGroup> g{};
+  if (g.row() >= (size_t)rows) return;  // the last block's spare groups
+  auto& sm = reinterpret_cast<AndSmem<N>*>(smem_raw)[g.group()];
+  sorted_and_body<GroupRow<S::kGroup>, S::kIpt>(
+      g, sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, tail);
 }
 
 __global__ void __launch_bounds__(kFusedThreads) merge_and_locate_topk_kernel(
@@ -106,8 +133,9 @@ __global__ void __launch_bounds__(kFusedThreads) merge_and_locate_topk_kernel(
     SlotsTail tail) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<AndSmem<kFusedLanes>*>(smem_raw);
-  sorted_and_body<kFusedThreads, kFusedIpt, kFusedLanes>(
-      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, cap, tail);
+  sorted_and_body<BlockRow<kFusedThreads>, kFusedIpt>(
+      BlockRow<kFusedThreads>{}, sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_,
+      cap, tail);
 }
 
 // merge_and_locate_topk's row body with its streams written at full width:
@@ -123,17 +151,17 @@ __global__ void __launch_bounds__(kFusedThreads) merge_and_locate_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<AndSmem<kFusedLanes>*>(smem_raw);
   RowSmem<kFusedLanes>& s = sm.row;
+  const BlockRow<kFusedThreads> g{};
   const int tid = threadIdx.x;
   const int n = 2 * cap;
   const int ipt = (n + kFusedThreads - 1) / kFusedThreads;
   const int base = tid * ipt;
   const size_t o = (size_t)blockIdx.x * n;
   bool keep[kFusedIpt];
-  merge_and_keep<kFusedThreads, kFusedIpt, kFusedLanes>(
-      sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr, 0, cap, keep);
+  merge_and_keep(g, sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, nullptr, 0,
+                 cap, keep);
   // every run's sums, and its first lane in s.tmp
-  const int runs = sum_runs<kFusedThreads, kFusedIpt, kFusedLanes>(
-      s, keep, n, ipt, n, s.tmp);
+  const int runs = sum_runs(g, s, keep, n, ipt, n, s.tmp);
   for (int l = tid; l < n; l += kFusedThreads) {
     page_s[o + l] = -1;
     rank_s[o + l] = 0.0f;
@@ -181,7 +209,7 @@ __global__ void __launch_bounds__(kSlotThreads) single_locate_full_kernel(
   bool keep[kSlotIpt];
 #pragma unroll
   for (int k = 0; k < kSlotIpt; ++k) keep[k] = k < ipt && base + k < na;
-  tail.template run<kSlotThreads, kSlotIpt, kSlotLanes>(s, keep, cap, ipt);
+  tail.run(BlockRow<kSlotThreads>{}, s, keep, cap, ipt);
 }
 
 // W = 1 union of one variant: a slot is kept where it is valid and
@@ -203,14 +231,55 @@ __global__ void __launch_bounds__(kSlotThreads) union_locate_full_kernel(
       keep[k] = v < kInf && v != (l > 0 ? s.val[l - 1] : -1);
     }
   }
-  tail.template run<kSlotThreads, kSlotIpt, kSlotLanes>(s, keep, cap, ipt);
+  tail.run(BlockRow<kSlotThreads>{}, s, keep, cap, ipt);
 }
 
-// Raises a kernel's dynamic shared memory limit to the fused row's size.
+// Raises a kernel's dynamic shared memory limit, once per kernel.
 template <class K>
-cudaError_t size_fused(K kernel) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFusedSmem);
+cudaError_t size_smem(K kernel, size_t bytes, bool* sized) {
+  if (*sized) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  *sized = e == cudaSuccess;
+  return e;
+}
+
+template <int N, class Tail>
+int launch_w2(const int* a, const int* a_pg, const int* na, const int* ra,
+              const int* b, const int* b_pg, const int* nb, const int* rb,
+              int rows, int cap, const Tail& tail, void* stream) {
+  using S = W2Shape<N>;
+  static bool sized = false;
+  const cudaError_t e =
+      size_smem(sorted_and_locate_full_kernel<Tail, N>, S::kSmem, &sized);
+  if (e != cudaSuccess) return (int)e;
+  if (rows > 0)
+    sorted_and_locate_full_kernel<Tail, N>
+        <<<(rows + S::kRows - 1) / S::kRows, kSlotThreads, S::kSmem,
+           (cudaStream_t)stream>>>(a, a_pg, na, ra, b, b_pg, nb, rb, rows,
+                                   cap, tail);
+  return (int)cudaGetLastError();
+}
+
+// The W = 2 slot kernel at the narrowest width N that holds 2 cap lanes.
+template <class Tail>
+int launch_sorted_and(const int* a, const int* a_pg, const int* na,
+                      const int* ra, const int* b, const int* b_pg,
+                      const int* nb, const int* rb, int rows, int cap,
+                      const Tail& tail, void* stream) {
+  const int n = 2 * cap;
+  if (cap <= 0 || n > kSlotLanes) return (int)cudaErrorInvalidValue;
+  if (n <= 128)
+    return launch_w2<128>(a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap, tail,
+                          stream);
+  if (n <= 256)
+    return launch_w2<256>(a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap, tail,
+                          stream);
+  if (n <= 512)
+    return launch_w2<512>(a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap, tail,
+                          stream);
+  return launch_w2<1024>(a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap, tail,
+                         stream);
 }
 
 }  // namespace
@@ -220,12 +289,10 @@ extern "C" int docodo_sorted_and_locate_full(
     const int* b, const int* b_pg, const int* nb, const int* rb, int rows,
     int cap, int kpad, int hpad, int* pg_c, float* rk_c, float* ct_c,
     int* n_pages, int* n_hits, int* hits, void* stream) {
-  if (rows > 0)
-    sorted_and_locate_full_kernel<<<rows, kSlotThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        a, a_pg, na, ra, b, b_pg, nb, rb, cap,
-        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
-  return (int)cudaGetLastError();
+  return launch_sorted_and(
+      a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap,
+      slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits),
+      stream);
 }
 
 extern "C" int docodo_sorted_and_locate_full_topk(
@@ -233,12 +300,10 @@ extern "C" int docodo_sorted_and_locate_full_topk(
     const int* b, const int* b_pg, const int* nb, const int* rb, int rows,
     int cap, int topk, int hpad, int* pages, float* ranks, int* counts,
     int* n_pages, int* n_hits, int* hits, void* stream) {
-  if (rows > 0)
-    sorted_and_locate_full_kernel<<<rows, kSlotThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        a, a_pg, na, ra, b, b_pg, nb, rb, cap,
-        topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits));
-  return (int)cudaGetLastError();
+  return launch_sorted_and(
+      a, a_pg, na, ra, b, b_pg, nb, rb, rows, cap,
+      topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits),
+      stream);
 }
 
 extern "C" int docodo_merge_and_locate_topk(
@@ -247,11 +312,9 @@ extern "C" int docodo_merge_and_locate_topk(
     int cap, int kpad, int hpad, int* pg_c, float* rk_c, float* ct_c,
     int* n_pages, int* n_hits, int* hits, void* stream) {
   static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = size_fused(merge_and_locate_topk_kernel);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e =
+      size_smem(merge_and_locate_topk_kernel, kFusedSmem, &sized);
+  if (e != cudaSuccess) return (int)e;
   if (rows > 0)
     merge_and_locate_topk_kernel<<<rows, kFusedThreads, kFusedSmem,
                                    (cudaStream_t)stream>>>(
@@ -267,11 +330,8 @@ extern "C" int docodo_merge_and_locate(
     void* stream) {
   if (cap <= 0 || 2 * cap > kFusedLanes) return (int)cudaErrorInvalidValue;
   static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = size_fused(merge_and_locate_kernel);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e = size_smem(merge_and_locate_kernel, kFusedSmem, &sized);
+  if (e != cudaSuccess) return (int)e;
   if (rows > 0)
     merge_and_locate_kernel<<<rows, kFusedThreads, kFusedSmem,
                               (cudaStream_t)stream>>>(

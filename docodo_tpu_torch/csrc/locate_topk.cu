@@ -53,10 +53,11 @@ __global__ void __launch_bounds__(kThreads) and_locate_topk_kernel(
   __shared__ AndSmem<kLanes> sm;
   const int n = 2 * cap;
   bool keep[kIpt];
-  merge_and_keep<kThreads, kIpt, kLanes>(sm, a, a_pg, na_, ra_, b, b_pg, nb_,
-                                         rb_, bounds, p_bounds, cap, keep);
-  locate_topk_tail<kThreads, kIpt, kLanes>(
-      sm.row, keep, n, (n + kThreads - 1) / kThreads, topk, out);
+  const BlockRow<kThreads> g{};
+  merge_and_keep(g, sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, bounds,
+                 p_bounds, cap, keep);
+  locate_topk_tail(g, sm.row, keep, n, (n + kThreads - 1) / kThreads, topk,
+                   out);
 }
 
 // W = 1: the posting block's first na lanes are the kept stream; one lane
@@ -77,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) single_locate_topk_kernel(
   }
   __syncthreads();
   const bool keep[1] = {(int)threadIdx.x < na};
-  locate_topk_tail<kThreads, 1, kThreads>(s, keep, cap, 1, topk, out);
+  locate_topk_tail(BlockRow<kThreads>{}, s, keep, cap, 1, topk, out);
 }
 
 TopkOutputs topk_outputs(int* pages, float* ranks, int* counts) {

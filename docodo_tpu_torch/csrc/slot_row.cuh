@@ -1,9 +1,11 @@
-// The row-per-block pieces shared by the slot kernels of locate_full.cu,
-// variants.cu and locate_topk.cu (sm_90a): a query row held in shared
-// memory, the W = 2 merge and the AND's segmentation over it, the locate
-// tail that writes the row's full-result outputs (its first kpad runs), the
-// page-level tail that ranks every run and writes the row's top k, and the
-// full-result tail that ends a row with that top k inside the kernel.
+// The row pieces shared by the slot kernels of locate_full.cu,
+// variants.cu and locate_topk.cu (sm_90a), each run by the row group that
+// holds the row (a block, or a few warps of one; common.cuh): a query row
+// held in shared memory, the W = 2 merge and the AND's segmentation over
+// it, the locate tail that writes the row's full-result outputs (its first
+// kpad runs), the page-level tail that ranks every run and writes the
+// row's top k, and the full-result tail that ends a row with that top k
+// inside the kernel.
 
 #pragma once
 
@@ -24,16 +26,17 @@ struct RowSmem {
 
 // The AND's segmentation over a merged row held in s.val: seg holds each
 // lane's gap cut (a gap wider than |R|, and lane 0); with `ordered` (both
-// windows negative; uniform over the block) each gap segment's first
+// windows negative; uniform over the row) each gap segment's first
 // word-A mark also opens a segment unless it starts one already. A
 // segment keeps its eligible lanes (eff) only if it holds a word-A mark
-// (isa) and a word-B mark (isb). s.tmp is scratch. Called by every thread.
-template <int T, int L, int N>
-__device__ void segment_keep(RowSmem<N>& s, const bool (&isa)[L],
-                             const bool (&isb)[L], const bool (&eff)[L],
-                             bool (&seg)[L], bool ordered, int n, int ipt,
-                             bool (&keep)[L]) {
-  const int base = threadIdx.x * ipt;
+// (isa) and a word-B mark (isb). s.tmp is scratch. Called by every thread
+// of the row group g.
+template <class Grp, int L, int N>
+__device__ void segment_keep(const Grp& g, RowSmem<N>& s,
+                             const bool (&isa)[L], const bool (&isb)[L],
+                             const bool (&eff)[L], bool (&seg)[L],
+                             bool ordered, int n, int ipt, bool (&keep)[L]) {
+  const int base = g.rank() * ipt;
   if (ordered) {
     int before[L], start[L];
 #pragma unroll
@@ -42,14 +45,14 @@ __device__ void segment_keep(RowSmem<N>& s, const bool (&isa)[L],
       before[k] = isa[k] ? 1 : 0;
       start[k] = (k < ipt && l < n && seg[k]) ? l : -1;
     }
-    scan_lanes<T>(before, ipt, 0, Sum(), false, s.warp);
-    scan_lanes<T>(start, ipt, -1, Max(), true, s.warp);
+    scan_lanes(g, before, ipt, 0, Sum(), false, s.warp);
+    scan_lanes(g, start, ipt, -1, Max(), true, s.warp);
 #pragma unroll
     for (int k = 0; k < L; ++k) {
       const int l = base + k;
       if (k < ipt && l < n) s.tmp[l] = before[k];
     }
-    __syncthreads();
+    g.sync();
 #pragma unroll
     for (int k = 0; k < L; ++k) {
       const int l = base + k;
@@ -57,19 +60,19 @@ __device__ void segment_keep(RowSmem<N>& s, const bool (&isa)[L],
           before[k] == s.tmp[start[k]])
         seg[k] = true;
     }
-    __syncthreads();
+    g.sync();
   }
   int sid[L];
 #pragma unroll
   for (int k = 0; k < L; ++k) sid[k] = seg[k] ? 1 : 0;
-  scan_lanes<T>(sid, ipt, 0, Sum(), true, s.warp);
-  for (int l = threadIdx.x; l < n; l += T) s.tmp[l] = 0;
-  __syncthreads();
+  scan_lanes(g, sid, ipt, 0, Sum(), true, s.warp);
+  for (int l = g.rank(); l < n; l += Grp::kThreads) s.tmp[l] = 0;
+  g.sync();
 #pragma unroll
   for (int k = 0; k < L; ++k)
     if (isa[k] || isb[k])
       atomicOr(&s.tmp[sid[k] - 1], (isa[k] ? 1 : 0) | (isb[k] ? 2 : 0));
-  __syncthreads();
+  g.sync();
 #pragma unroll
   for (int k = 0; k < L; ++k) keep[k] = eff[k] && s.tmp[sid[k] - 1] == 3;
 }
@@ -81,14 +84,42 @@ __device__ inline int page_of_coord(const int* __restrict__ bounds, int p,
   return pg < p - 1 ? pg : p - 1;
 }
 
-// Shared memory of the W = 2 kernels: the row, both operands, the tags.
+// Shared memory of the W = 2 kernels: the row and the tags. The two
+// operands are staged in the row's run arrays (run_bonus, run_count),
+// which the tail needs only after the merge.
 template <int N>
 struct AndSmem {
   RowSmem<N> row;
-  int a[N / 2];
-  int b[N / 2];
   unsigned char tag[N];
 };
+
+// Four consecutive ints of a row from i on, of which those at i + j < len
+// are read: one 16-byte load where `vec` (the row 16-byte aligned, its
+// width a multiple of 4, so the load stays inside it).
+__device__ inline void load4(const int* __restrict__ src, int i, int len,
+                             bool vec, int (&x)[4]) {
+  if (vec) {
+    const int4 q = *reinterpret_cast<const int4*>(src + i);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = i + j < len ? src[i + j] : kInf;
+  }
+}
+
+// #{j in [lo, m): s[j] < v} + lo, or with `upper` s[j] <= v; s ascends.
+__device__ inline int rank_from(const int* s, int lo, int m, int v,
+                                bool upper) {
+  int hi = m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] < v || (upper && s[mid] == v)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
 
 // W = 2 proximity/phrase AND (pallas_query._sorted_and_keep) of one row's
 // two posting blocks, into sm.row.val / sm.row.page and this thread's keep
@@ -97,20 +128,26 @@ struct AndSmem {
 // first slot, gaps wider than |R| cut segments, both R < 0 adds the ordered
 // cut at each segment's first word-A slot, and a segment keeps its slots
 // only if it holds both words. Pages come from the blocks' page streams
-// a_pg / b_pg, or with a_pg null from `bounds` [p]. Called by every thread.
-template <int T, int L, int N>
+// a_pg / b_pg, or with a_pg null from `bounds` [p]. Each thread takes
+// quads of four consecutive elements: one 16-byte load of values and of
+// pages where the row allows it, and each element's rank in the other
+// operand searched from the previous one's. Called by every thread of the
+// row group g.
+template <class Grp, int L, int N>
 __device__ void merge_and_keep(
-    AndSmem<N>& sm, const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, const int* __restrict__ ra_,
-    const int* __restrict__ b, const int* __restrict__ b_pg,
-    const int* __restrict__ nb_, const int* __restrict__ rb_,
-    const int* __restrict__ bounds, int p_bounds, int cap, bool (&keep)[L]) {
+    const Grp& g, AndSmem<N>& sm, const int* __restrict__ a,
+    const int* __restrict__ a_pg, const int* __restrict__ na_,
+    const int* __restrict__ ra_, const int* __restrict__ b,
+    const int* __restrict__ b_pg, const int* __restrict__ nb_,
+    const int* __restrict__ rb_, const int* __restrict__ bounds,
+    int p_bounds, int cap, bool (&keep)[L]) {
+  constexpr int T = Grp::kThreads;
   RowSmem<N>& s = sm.row;
-  int* s_a = sm.a;
-  int* s_b = sm.b;
+  int* s_a = s.run_bonus;
+  int* s_b = s.run_count;
   unsigned char* s_tag = sm.tag;
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
+  const int tid = g.rank();
+  const size_t row = g.row();
   const int n = 2 * cap;
   const int ipt = (n + T - 1) / T;
   const int base = tid * ipt;
@@ -118,27 +155,46 @@ __device__ void merge_and_keep(
   const int nb = clamp_len(nb_[row], cap);
   const int* arow = a + row * cap;
   const int* brow = b + row * cap;
-  for (int i = tid; i < cap; i += T) {
-    s_a[i] = i < na ? arow[i] : kInf;
-    s_b[i] = i < nb ? brow[i] : kInf;
+  const int* apg = a_pg ? a_pg + row * cap : nullptr;
+  const int* bpg = b_pg ? b_pg + row * cap : nullptr;
+  const bool vec = cap % 4 == 0 && aligned16(arow) && aligned16(brow) &&
+                   aligned16(apg) && aligned16(bpg);
+  const int quads = (cap + 3) / 4;
+  for (int q = tid; q < 2 * quads; q += T) {
+    const bool in_a = q < quads;
+    const int i = 4 * (in_a ? q : q - quads);
+    const int len = in_a ? na : nb;
+    if (i >= len) continue;
+    int x[4];
+    load4(in_a ? arow : brow, i, len, vec, x);
+    int* dst = in_a ? s_a : s_b;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i + j < len) dst[i + j] = x[j];
   }
-  __syncthreads();
-  for (int i = tid; i < cap; i += T) {
-    if (i < na) {
-      const int v = s_a[i];
-      const int p = i + lower_bound(s_b, nb, v);
+  g.sync();
+  for (int q = tid; q < 2 * quads; q += T) {
+    const bool in_a = q < quads;
+    const int i = 4 * (in_a ? q : q - quads);
+    const int len = in_a ? na : nb;
+    if (i >= len) continue;
+    const int* own = in_a ? s_a : s_b;
+    const int* other = in_a ? s_b : s_a;
+    const int m = in_a ? nb : na;
+    const int* pgs = in_a ? apg : bpg;
+    int pq[4];
+    if (pgs) load4(pgs, i, len, vec, pq);
+    int r = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i + j >= len) break;
+      const int v = own[i + j];
+      // word A's lanes go before equal word-B lanes, B's after equal A's
+      r = rank_from(other, r, m, v, !in_a);
+      const int p = i + j + r;
       s.val[p] = v;
-      s.page[p] = a_pg ? a_pg[row * cap + i]
-                       : page_of_coord(bounds, p_bounds, v);
-      s_tag[p] = 0;
-    }
-    if (i < nb) {
-      const int v = s_b[i];
-      const int p = i + upper_bound(s_a, na, v);
-      s.val[p] = v;
-      s.page[p] = b_pg ? b_pg[row * cap + i]
-                       : page_of_coord(bounds, p_bounds, v);
-      s_tag[p] = 1;
+      s.page[p] = pgs ? pq[j] : page_of_coord(bounds, p_bounds, v);
+      s_tag[p] = in_a ? 0 : 1;
     }
   }
   for (int p = na + nb + tid; p < n; p += T) {
@@ -146,7 +202,7 @@ __device__ void merge_and_keep(
     s.page[p] = 0;
     s_tag[p] = 2;
   }
-  __syncthreads();
+  g.sync();
 
   const int r1 = ra_[row];
   const int r2 = rb_[row];
@@ -177,7 +233,7 @@ __device__ void merge_and_keep(
   bool eff[L];
 #pragma unroll
   for (int k = 0; k < L; ++k) eff[k] = valid[k] && !ghost[k];
-  segment_keep<T, L, N>(s, isa, isb, eff, seg, ordered, n, ipt, keep);
+  segment_keep(g, s, isa, isb, eff, seg, ordered, n, ipt, keep);
 }
 
 // The page runs of the row held in s.val / s.page, given the keep mask of
@@ -186,14 +242,14 @@ __device__ void merge_and_keep(
 // 30 / max(5, gap). For every run of ordinal < limit, s.run_page,
 // s.run_count and s.run_bonus (exact integer sums) are filled, and with
 // run_lane (a shared array of `limit` ints; s.tmp is free for it) the run's
-// first lane. Returns the row's number of runs. Called by every thread; ends
-// synchronised.
-template <int T, int L, int N>
-__device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
-                        int limit, int* run_lane = nullptr) {
-  const int tid = threadIdx.x;
+// first lane. Returns the row's number of runs. Called by every thread of
+// the row group g; ends synchronised.
+template <class Grp, int L, int N>
+__device__ int sum_runs(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
+                        int n, int ipt, int limit, int* run_lane = nullptr) {
+  const int tid = g.rank();
   const int base = tid * ipt;
-  for (int r = tid; r < limit; r += T) {
+  for (int r = tid; r < limit; r += Grp::kThreads) {
     s.run_bonus[r] = 0;
     s.run_count[r] = 0;
   }
@@ -204,7 +260,7 @@ __device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
     const int l = base + k;
     prev[k] = (k < ipt && l < n && keep[k]) ? l : -1;
   }
-  scan_lanes<T>(prev, ipt, -1, Max(), false, s.warp);
+  scan_lanes(g, prev, ipt, -1, Max(), false, s.warp);
 
   int rid[L], bonus[L];
   bool first[L];
@@ -225,7 +281,7 @@ __device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
     rid[k] = first[k] ? 1 : 0;
   }
   // run ordinal + 1 of every kept lane
-  const int runs = scan_lanes<T>(rid, ipt, 0, Sum(), true, s.warp);
+  const int runs = scan_lanes(g, rid, ipt, 0, Sum(), true, s.warp);
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     const int l = base + k;
@@ -239,45 +295,51 @@ __device__ int sum_runs(RowSmem<N>& s, const bool (&keep)[L], int n, int ipt,
       }
     }
   }
-  __syncthreads();
+  g.sync();
   return runs;
 }
 
-// The row's first hpad kept values, in lane order, into hits[0 .. hpad), and
-// INF32 after them. Returns the row's number of kept values. Called by every
-// thread.
-template <int T, int L, int N>
-__device__ int compact_hits(RowSmem<N>& s, const bool (&keep)[L], int n,
-                            int ipt, int hpad, int* __restrict__ hits) {
-  const int tid = threadIdx.x;
+// The row's first hpad (<= N) kept values, in lane order, into hits[0 ..
+// hpad), and INF32 after them: gathered in s.tmp, then written with
+// consecutive threads on consecutive slots. Returns the row's number of
+// kept values. Called by every thread of the row group g.
+template <class Grp, int L, int N>
+__device__ int compact_hits(const Grp& g, RowSmem<N>& s,
+                            const bool (&keep)[L], int n, int ipt, int hpad,
+                            int* __restrict__ hits) {
+  const int tid = g.rank();
   const int base = tid * ipt;
   int slot[L];
 #pragma unroll
   for (int k = 0; k < L; ++k)
     slot[k] = (k < ipt && base + k < n && keep[k]) ? 1 : 0;
-  const int total = scan_lanes<T>(slot, ipt, 0, Sum(), false, s.warp);
+  const int total = scan_lanes(g, slot, ipt, 0, Sum(), false, s.warp);
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     const int l = base + k;
     if (k < ipt && l < n && keep[k] && slot[k] < hpad)
-      hits[slot[k]] = s.val[l];
+      s.tmp[slot[k]] = s.val[l];
   }
-  for (int r = total + tid; r < hpad; r += T) hits[r] = kInf;
+  g.sync();
+  for (int r = tid; r < hpad; r += Grp::kThreads)
+    hits[r] = r < total ? s.tmp[r] : kInf;
   return total;
 }
 
 // Locate, rank and both compactions over the row held in s.val / s.page,
 // given the keep mask of this thread's lanes: the row's first kpad runs in
-// slot order and its first hpad kept values. Called by every thread.
-template <int T, int L, int N>
-__device__ void locate_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
-                            int ipt, int kpad, int hpad, const Outputs& out) {
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
-  const int total_pages = sum_runs<T, L, N>(s, keep, n, ipt, kpad);
+// slot order and its first hpad kept values. Called by every thread of the
+// row group g.
+template <class Grp, int L, int N>
+__device__ void locate_tail(const Grp& g, RowSmem<N>& s,
+                            const bool (&keep)[L], int n, int ipt, int kpad,
+                            int hpad, const Outputs& out) {
+  const int tid = g.rank();
+  const size_t row = g.row();
+  const int total_pages = sum_runs(g, s, keep, n, ipt, kpad);
   const int total_hits =
-      compact_hits<T, L, N>(s, keep, n, ipt, hpad, out.hits + row * hpad);
-  for (int r = tid; r < kpad; r += T) {
+      compact_hits(g, s, keep, n, ipt, hpad, out.hits + row * hpad);
+  for (int r = tid; r < kpad; r += Grp::kThreads) {
     const size_t o = row * kpad + r;
     if (r < total_pages) {
       const int c = s.run_count[r];
@@ -311,16 +373,19 @@ struct TopkOutputs {
 // positive f32 orders as its bit pattern): a run's output slot is the number
 // of runs that precede it in that order, counted against every run of the
 // row. Slots past the row's run count get -1 / 0 / 0. Returns the row's
-// number of runs. Called by every thread; N lanes hold at most N runs.
-template <int T, int L, int N>
-__device__ int locate_topk_tail(RowSmem<N>& s, const bool (&keep)[L], int n,
-                                 int ipt, int topk, const TopkOutputs& out) {
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
-  const int runs = sum_runs<T, L, N>(s, keep, n, ipt, n);
+// number of runs. Called by every thread of the row group g; N lanes hold
+// at most N runs.
+template <class Grp, int L, int N>
+__device__ int locate_topk_tail(const Grp& g, RowSmem<N>& s,
+                                const bool (&keep)[L], int n, int ipt,
+                                int topk, const TopkOutputs& out) {
+  constexpr int T = Grp::kThreads;
+  const int tid = g.rank();
+  const size_t row = g.row();
+  const int runs = sum_runs(g, s, keep, n, ipt, n);
   for (int r = tid; r < runs; r += T)
     s.tmp[r] = __float_as_int(run_rank(s.run_bonus[r], s.run_count[r]));
-  __syncthreads();
+  g.sync();
   for (int r = tid; r < runs; r += T) {
     const int mine = s.tmp[r];
     int before = 0;
@@ -354,16 +419,17 @@ struct FullTopkOutputs {
 // The full-result tail that ends a row inside the kernel
 // (pallas_query._full_stream_call with _locate_rank_topk): the row's first
 // hpad kept values, the top `topk` of ALL its page runs (locate_topk_tail)
-// and the exact totals. Called by every thread.
-template <int T, int L, int N>
-__device__ void locate_full_topk_tail(RowSmem<N>& s, const bool (&keep)[L],
-                                      int n, int ipt, int topk, int hpad,
+// and the exact totals. Called by every thread of the row group g.
+template <class Grp, int L, int N>
+__device__ void locate_full_topk_tail(const Grp& g, RowSmem<N>& s,
+                                      const bool (&keep)[L], int n, int ipt,
+                                      int topk, int hpad,
                                       const FullTopkOutputs& out) {
-  const size_t row = blockIdx.x;
+  const size_t row = g.row();
   const int total_hits =
-      compact_hits<T, L, N>(s, keep, n, ipt, hpad, out.hits + row * hpad);
-  const int runs = locate_topk_tail<T, L, N>(s, keep, n, ipt, topk, out.top);
-  if (threadIdx.x == 0) {
+      compact_hits(g, s, keep, n, ipt, hpad, out.hits + row * hpad);
+  const int runs = locate_topk_tail(g, s, keep, n, ipt, topk, out.top);
+  if (g.rank() == 0) {
     out.n_pages[row] = runs;
     out.n_hits[row] = total_hits;
   }
@@ -375,20 +441,20 @@ __device__ void locate_full_topk_tail(RowSmem<N>& s, const bool (&keep)[L],
 struct SlotsTail {
   int kpad, hpad;
   Outputs out;
-  template <int T, int L, int N>
-  __device__ void run(RowSmem<N>& s, const bool (&keep)[L], int n,
-                      int ipt) const {
-    locate_tail<T, L, N>(s, keep, n, ipt, kpad, hpad, out);
+  template <class Grp, int L, int N>
+  __device__ void run(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
+                      int n, int ipt) const {
+    locate_tail(g, s, keep, n, ipt, kpad, hpad, out);
   }
 };
 
 struct TopkTail {
   int topk, hpad;
   FullTopkOutputs out;
-  template <int T, int L, int N>
-  __device__ void run(RowSmem<N>& s, const bool (&keep)[L], int n,
-                      int ipt) const {
-    locate_full_topk_tail<T, L, N>(s, keep, n, ipt, topk, hpad, out);
+  template <class Grp, int L, int N>
+  __device__ void run(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
+                      int n, int ipt) const {
+    locate_full_topk_tail(g, s, keep, n, ipt, topk, hpad, out);
   }
 };
 

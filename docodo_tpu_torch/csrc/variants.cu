@@ -156,13 +156,13 @@ __global__ void __launch_bounds__(kThreads) variants_and_locate_full_kernel(
     }
   }
   bool keep[kIpt];
-  segment_keep<kThreads, kIpt, kLanes>(s.row, isa, isb, start, seg, ordered,
-                                       n, ipt, keep);
+  segment_keep(BlockRow<kThreads>{}, s.row, isa, isb, start, seg, ordered,
+               n, ipt, keep);
   if (bpad) {
 #pragma unroll
     for (int k = 0; k < kIpt; ++k) keep[k] = start[k];
   }
-  tail.template run<kThreads, kIpt, kLanes>(s.row, keep, n, ipt);
+  tail.run(BlockRow<kThreads>{}, s.row, keep, n, ipt);
 }
 
 // W = 1, one word's V variants: the merged row keeps each run's first lane.
@@ -185,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) union_merge_locate_full_kernel(
       keep[k] = x < kInf && x != (l > 0 ? s.row.val[l - 1] : -1);
     }
   }
-  tail.template run<kThreads, kIpt, kLanes>(s.row, keep, n, ipt);
+  tail.run(BlockRow<kThreads>{}, s.row, keep, n, ipt);
 }
 
 bool shape_ok(int nblk, int cap) {

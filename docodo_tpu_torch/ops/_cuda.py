@@ -146,11 +146,16 @@ class Kernel:
         if len(args) != len(self.signature):
             raise TypeError(f"{self.symbol} takes {len(self.signature)} "
                             f"arguments, got {len(args)}")
-        conv = [(None if a is None else a.data_ptr()) if kind == "p"
-                else int(a) for kind, a in zip(self.signature, args)]
-        fn = self._bound()
-        with torch.cuda.device(device):
+        conv = [int(a) if kind == "i" else None if a is None
+                else a.data_ptr() for kind, a in zip(self.signature, args)]
+        fn = self._fn or self._bound()
+        # the device context costs microseconds; enter it only to change
+        # the current device
+        if device.index is None or device.index == torch.cuda.current_device():
             rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             msg = library().docodo_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: {msg} ({rc})")
@@ -196,6 +201,17 @@ def tile_lanes() -> int:
     return int(library().docodo_tile_lanes())
 
 
+@functools.cache
+def merge_passes(va: int, cap_a: int, vb: int, cap_b: int) -> int:
+    """Launches docodo_merge_tagged makes for va blocks of cap_a and vb of
+    cap_b: 0 for a row one block merges in shared memory, else the passes
+    of its pairwise tree, which need scratch when there are two or more."""
+    fn = library().docodo_merge_tagged_passes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(va, cap_a, vb, cap_b)
+
+
 def tile_scratch(symbol: str, dev, rows: int, n: int, *dims) -> tuple:
     """The scratch a tiled entry point takes for `rows` rows of n lanes,
     sized by its C function `symbol` (which takes rows, n, *dims):
@@ -233,7 +249,7 @@ SORTED_AND = Kernel("docodo_sorted_and_locate_full", _FULL)
 SINGLE = Kernel("docodo_single_locate_full", _W1)
 UNION = Kernel("docodo_union_locate_full", _W1)
 MERGE_AND_LOCATE = Kernel("docodo_merge_and_locate_topk", _FULL)
-MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "iiiii" + "ppp")
+MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "iiiii" + "pppp")
 AND_KEEP = Kernel("docodo_and_keep", "ppppp" + "ii" + "ppppp" + "pp")
 LOCATE_RUNS = Kernel("docodo_locate_runs",
                      "ppp" + "i" + "iiii" + "pppppp" + "pp")

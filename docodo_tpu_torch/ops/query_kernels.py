@@ -173,8 +173,7 @@ def _sorted_and_plain(a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad,
     """Plain version of docodo_sorted_and_locate_full: the plain merge
     (a stable sort on coord << 2 | tag), the plain AND keep, the locate
     tail."""
-    vals, tag, page = _merge_tagged_plain(
-        *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
+    vals, tag, page = _merge_tagged_plain(a, a_pg, na, b, b_pg, nb)
     keep = _and_keep_plain(vals, tag, ra, rb) < INF32
     return finish(vals, keep, page, kpad, hpad)
 
@@ -587,8 +586,7 @@ def _merge_and_locate_streams_plain(a, a_pg, na, ra, b, b_pg, nb, rb):
     """Plain version of docodo_merge_and_locate: the plain merge and AND
     keep, every run ranked (page_runs), each run's page, rank and count
     put at the run's first lane."""
-    vals, tag, page = _merge_tagged_plain(
-        *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
+    vals, tag, page = _merge_tagged_plain(a, a_pg, na, b, b_pg, nb)
     hv = _and_keep_plain(vals, tag, ra, rb)
     keep = hv < INF32
     first, _ = run_starts(vals, keep, page)
@@ -674,6 +672,10 @@ def _merge_tagged_plain(a, a_pg, na, b, b_pg, nb):
     """Plain version of docodo_merge_tagged: one stable sort on the
     packed key coord << 2 | tag (tag 0 = word A, 1 = word B, 2 =
     padding), the pages riding along."""
+    if a.dim() == 2:
+        a, a_pg, na = map(_as_blocks, (a, a_pg, na))
+    if b.dim() == 2:
+        b, b_pg, nb = map(_as_blocks, (b, b_pg, nb))
     av, bv = variant_blocks(a, na), variant_blocks(b, nb)
     vals = torch.cat([av, bv], dim=1)
     tag = torch.cat([torch.where(av < INF32, 0, 2),
@@ -686,21 +688,28 @@ def _merge_tagged_plain(a, a_pg, na, b, b_pg, nb):
 
 
 def _merge_tagged_kernel(a, a_pg, na, b, b_pg, nb):
-    rows, va, cap_a = a.shape
-    _, vb, cap_b = b.shape
+    rows = a.shape[0]
+    (va, cap_a), (vb, cap_b) = (
+        (1, x.shape[1]) if x.dim() == 2 else x.shape[1:] for x in (a, b))
     if va + vb > 65535:
         raise ValueError(f"docodo_merge_tagged: {va} + {vb} blocks")
-    _check_blocks(rows, [("a", a, va, cap_a), ("a_pg", a_pg, va, cap_a),
-                         ("b", b, vb, cap_b), ("b_pg", b_pg, vb, cap_b)])
-    _cuda.check(na, "na", torch.int32, (rows, va))
-    _cuda.check(nb, "nb", torch.int32, (rows, vb))
+    for name, t, shape in (("a", a, a.shape), ("a_pg", a_pg, a.shape),
+                           ("na", na, a.shape[:-1]), ("b", b, b.shape),
+                           ("b_pg", b_pg, b.shape), ("nb", nb, b.shape[:-1])):
+        if t is not None:
+            _cuda.check(t, name, torch.int32, shape)
     dev = a.device
     vals = torch.empty((rows, va * cap_a + vb * cap_b), dtype=torch.int32,
                        device=dev)
     tag = torch.empty_like(vals)
     pg = None if a_pg is None else torch.empty_like(vals)
+    # a tree of passes takes turns with the outputs in a second stream of
+    # the same planes; a view of a shared buffer is made on the host like
+    # a tensor of its own, so these stay separate allocations
+    scratch = (None if _cuda.merge_passes(va, cap_a, vb, cap_b) <= 1 else
+               vals.new_empty((2 if pg is None else 3,) + vals.shape))
     _cuda.MERGE_TAGGED.launch(dev, a, a_pg, na, b, b_pg, nb, rows, va, cap_a,
-                              vb, cap_b, vals, tag, pg)
+                              vb, cap_b, vals, tag, pg, scratch)
     return vals, tag, pg
 
 
@@ -710,14 +719,10 @@ def _as_blocks(x):
 
 
 def _merge_tagged_call(core, a, na, b, nb, a_pg, b_pg):
-    if a.dim() == 2:
-        a, na, a_pg = _as_blocks(a), _as_blocks(na), _as_blocks(a_pg)
     if b is None:
         b = a.new_empty((a.shape[0], 0, 1))
         nb = na.new_empty((a.shape[0], 0))
         b_pg = None if a_pg is None else b
-    elif b.dim() == 2:
-        b, nb, b_pg = _as_blocks(b), _as_blocks(nb), _as_blocks(b_pg)
     if (a_pg is None) != (b_pg is None) or a.shape[0] != b.shape[0]:
         raise ValueError("merge_tagged takes blocks of one batch and both "
                          "page streams or neither")
@@ -941,8 +946,7 @@ def _and_topk_plain(a, a_pg, na, ra, b, b_pg, nb, rb, bounds, topk):
     """Plain version of docodo_and_locate_topk: the plain merge, the
     plain AND keep, every run ranked, the plain top-k. Without page
     streams the merged lanes' pages are looked up in bounds."""
-    vals, tag, page = _merge_tagged_plain(
-        *map(_as_blocks, (a, a_pg, na, b, b_pg, nb)))
+    vals, tag, page = _merge_tagged_plain(a, a_pg, na, b, b_pg, nb)
     if page is None:
         page = shared_pg(vals, bounds)
     keep = _and_keep_plain(vals, tag, ra, rb) < INF32

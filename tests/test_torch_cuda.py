@@ -511,3 +511,102 @@ def test_new_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="tail=False"):
         qk.single_locate_full(z(8, 64), z(8), z(4), topk=8, hit_cap=64,
                               a_pg=z(8, 64), sort_topk=False, tail=False)
+
+
+def _tagged_blocks(rng, rows, v, cap, pool):
+    """v ascending blocks a row from the row's pool, INF32 past lengths
+    that are ragged, 0 on every fifth row, the cap on every third and
+    past it (clamped) on every seventh."""
+    x = np.full((rows, v, cap), INF32, np.int64)
+    n = rng.integers(0, cap + 1, (rows, v))
+    n[::3], n[1::7], n[2::5] = cap, cap + 5, 0
+    for i in range(rows):
+        for j in range(v):
+            k = min(int(n[i, j]), cap)
+            x[i, j, :k] = np.sort(rng.choice(pool[i], k, replace=False))
+    return x.astype(np.int32), n.astype(np.int32)
+
+
+# (va, vb, cap_a, cap_b, rows, paged): k = 2, 3, 8 and 16 blocks, rows of
+# one tile and of many, and a fold step's running stream (cap_a) against
+# the next word's block (cap_b); rows of at most 32 blocks whose caps are
+# multiples of 8 merge in one block up to 2048 lanes (256 threads), or
+# 8192 of more than two blocks (1024 threads; up to 5 levels), the rest
+# in passes
+MERGE_TAGGED_SHAPES = [
+    (1, 1, 512, 512, 300, True), (1, 1, 512, 512, 300, False),
+    (4, 4, 256, 256, 100, True), (8, 0, 64, 1, 50, False),
+    (4, 4, 1024, 1024, 40, True),
+    (2, 1, 40, 24, 70, True), (16, 16, 64, 64, 20, False),
+    (17, 16, 8, 8, 30, True),
+    (1, 1, 32768, 32768, 8, True), (1, 1, 262144, 262144, 3, False),
+    (2, 1, 4096, 4096, 16, True), (1, 2, 1000, 1000, 9, False),
+    (4, 4, 32768, 32768, 3, True), (4, 4, 512, 512, 128, False),
+    (8, 8, 1024, 1024, 64, True), (8, 8, 4096, 4096, 4, False),
+    (1, 1, 65536, 32768, 4, True), (1, 1, 8192, 1024, 40, False),
+    (3, 0, 2048, 1, 33, True), (0, 2, 1, 777, 10, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("va,vb,cap_a,cap_b,rows,paged", MERGE_TAGGED_SHAPES)
+def test_merge_tagged_shapes_match_plain_on_card(cuda_device, va, vb, cap_a,
+                                                 cap_b, rows, paged):
+    """The merge-path kernel, one pass or a tree of passes, against the
+    stable sort of its plain version: values and tags everywhere, pages
+    at the real lanes."""
+    rng = np.random.default_rng(va * 31 + vb * 7 + cap_a + cap_b)
+    size = 2 * max(cap_a, cap_b)
+    pool = np.cumsum(rng.integers(1, 4, size=(rows, size)), axis=1)
+    a, na = _tagged_blocks(rng, rows, va, cap_a, pool)
+    b, nb = _tagged_blocks(rng, rows, vb, cap_b, pool)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    pgs = ((c(a // 60), c(b // 60 + 1)) if paged else (None, None))
+    args = (c(a), c(na), c(b), c(nb)) + pgs
+    vals, tag, pg = qk.merge_tagged(*args)
+    torch.cuda.synchronize()
+    wv, wt, wp = qk.merge_tagged_plain(*args)
+    assert torch.equal(vals, wv) and torch.equal(tag, wt)
+    live = wv < INF32
+    assert int(live.sum()) > 0
+    if paged:
+        assert torch.equal(pg[live], wp[live])
+        assert int(pg[~live].abs().sum()) == 0
+    else:
+        assert pg is None
+
+
+# (cap, rows): each stream width the W = 2 slot kernel is compiled for
+# (N = 128, 256, 512, 1024), with row counts that leave the last block
+# part-filled (8, 8, 4 and 2 rows a block) or hold one row
+SLOT_ROW_SHAPES = [(64, 1), (64, 1003), (37, 77), (128, 9), (128, 517),
+                   (256, 5), (256, 4099), (200, 31), (512, 3), (512, 1025)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,rows", SLOT_ROW_SHAPES)
+@pytest.mark.parametrize("sort_topk", [True, False])
+def test_w2_slot_kernel_row_groups_match_plain_on_card(cuda_device, cap,
+                                                       rows, sort_topk):
+    """The W = 2 slot kernel with several rows a block and both tails:
+    empty word A or word B rows, full rows, ordered windows (both R < 0)
+    on every second row, pages carried on half the shapes."""
+    rng = np.random.default_rng(cap * rows)
+    a, na, ra, b, nb, rb = _batch(rng, rows, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(BOUNDS))
+    kw = dict(topk=16, hit_cap=1024, sort_topk=sort_topk)
+    if rows % 2:
+        kw.update(a_pg=c(_pages(a)), b_pg=c(_pages(b)))
+    if sort_topk:
+        kw["tail"] = False
+    got = qk.sorted_and_locate_full(*args, **kw)
+    torch.cuda.synchronize()
+    want = qk.sorted_and_locate_full_plain(*args, **kw)
+    if sort_topk:
+        _assert_fields_equal(got, want)
+    else:
+        _assert_finished_equal(got, want)
+    if rows > 8:
+        assert int(got[3].max()) > 16 and int(got[4].max()) > 0
+        assert int((got[4] == 0).sum()) > 0

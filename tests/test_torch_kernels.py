@@ -77,6 +77,8 @@ J = jnp.asarray
     (128, 512, False, "shared"),
     (128, 512, True, "carried"),
     (64, 100, False, "none"),
+    (256, 512, True, "carried"),
+    (512, 1024, False, "shared"),
 ])
 def test_sorted_and_locate_full_matches_pallas(rng, cap, hit_cap, tail,
                                                pages):

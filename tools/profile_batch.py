@@ -73,7 +73,8 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "single_locate_full": "single_locate_full_kernel",
                 "union_locate_full": "union_locate_full_kernel",
                 "merge_and_locate_topk": "merge_and_locate_topk_kernel",
-                "merge_tagged": "merge_tagged_kernel",
+                "merge_tagged": ("merge_tagged_kernel", "merge_pass_kernel",
+                                 "merge_row_kernel"),
                 "and_keep": ("keep_marks_kernel<false>",
                              "keep_resolve_kernel<false>"),
                 "locate_runs": "locate_runs_kernel",
@@ -85,12 +86,13 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "single_locate_topk": "single_locate_topk_kernel",
                 "merge_and_locate": "merge_and_locate_kernel"}
 # the slot kernels are one template each, instantiated for both tails
+# (the W = 2 one also for four stream widths, after the tail)
 for _name in ("sorted_and_locate_full", "single_locate_full",
               "variants_and_locate_full", "union_merge_locate_full"):
     _fn = KERNEL_NAMES[_name]
-    KERNEL_NAMES[_name] = _fn + "<docodo::SlotsTail>"
+    KERNEL_NAMES[_name] = _fn + "<docodo::SlotsTail"
     KERNEL_NAMES[_name.replace("union_merge", "union") + "_topk"] = (
-        _fn + "<docodo::TopkTail>")
+        _fn + "<docodo::TopkTail")
 WIDE_SEED = 77  # bench.py:353
 
 
