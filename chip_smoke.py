@@ -1071,22 +1071,11 @@ def _valid(n, cap: int) -> int:
     return int(n.clamp(0, cap).sum())
 
 
-def _blocks3(args):
-    """merge_tagged's core arguments (a, a_pg, na, b, b_pg, nb) with a
-    word's one block [B, cap] (lengths [B]) as [B, 1, cap] ([B, 1])."""
-    a, a_pg, na, b, b_pg, nb = args
-    one = lambda x: None if x is None else x.unsqueeze(1)
-    if a.dim() == 2:
-        a, a_pg, na = one(a), one(a_pg), one(na)
-    if b.dim() == 2:
-        b, b_pg, nb = one(b), one(b_pg), one(nb)
-    return a, a_pg, na, b, b_pg, nb
-
-
 def _bytes_moved(name: str, args) -> int:
     """Bytes a kernel core's function must move for these inputs: each
     input lane it needs read once (only the valid lanes of a posting
     block or stream), each output written once."""
+    from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32
 
     if name == "merge_and_locate":  # four full-width streams out
@@ -1133,7 +1122,7 @@ def _bytes_moved(name: str, args) -> int:
         return (8 * _valid(na, cap) + 4 * na.numel()
                 + rows * (12 * kpad + 4 * hpad + 8))
     if name == "merge_tagged":
-        a, a_pg, na, b, _, nb = _blocks3(args)
+        a, a_pg, na, b, _, nb = as_variant_blocks(*args)
         per = 4 if a_pg is None else 8
         width = a.shape[1] * a.shape[2] + b.shape[1] * b.shape[2]
         return (per * (_valid(na, a.shape[2]) + _valid(nb, b.shape[2]))
@@ -1160,6 +1149,7 @@ def _ops(name: str, args, outs=None) -> int:
     OPS_PER_STEP for each binary-search step that ranks an element in
     another block, and for a top-k-mode kernel one compare for every
     pair of the row's runs (its n_pages, from `outs`)."""
+    from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32
 
     if name in TOPK_MODE_KERNELS:
@@ -1173,7 +1163,7 @@ def _ops(name: str, args, outs=None) -> int:
     if name in ("merge_tagged", "variants_and_locate_full",
                 "union_merge_locate_full"):
         if name == "merge_tagged":
-            a, _, na, b, _, nb = _blocks3(args)
+            a, _, na, b, _, nb = as_variant_blocks(*args)
             blocks = [(a, na), (b, nb)]
         elif name == "variants_and_locate_full":
             blocks = [(args[0], args[2]), (args[4], args[6])]
@@ -1197,12 +1187,13 @@ def _library_call(name: str, calls):
     """The one PyTorch call that computes a core's function, where there
     is one: for the merges, a stable sort of the packed key
     coord << 2 | tag over the blocks' concatenation."""
+    from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32, variant_blocks
 
     if name != "merge_tagged":
         return None
     keys = []
-    for a, _, na, b, _, nb in map(_blocks3, calls):
+    for a, _, na, b, _, nb in (as_variant_blocks(*c) for c in calls):
         av, bv = variant_blocks(a, na), variant_blocks(b, nb)
         vals = torch.cat([av, bv], dim=1)
         tag = torch.cat([torch.where(av < INF32, 0, 2),
@@ -1329,7 +1320,9 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
 
 
 def _n_blocks(args) -> int:
-    a, _, _, b, _, _ = _blocks3(args)
+    from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
+
+    a, _, _, b, _, _ = as_variant_blocks(*args)
     return a.shape[1] + b.shape[1]
 
 

@@ -69,13 +69,12 @@
 // write without searching. More than two blocks (k = va + vb) merge as a
 // pairwise tree, ties to the left so that block order holds: ceil(log2 k)
 // launches, each moving the row once (k = 8: three times the one-pass
-// bytes). A row of at most 2048 lanes, or 8192 lanes of more than two
-// blocks, and at most 32 blocks runs the whole tree in one block's shared
-// memory in one launch (merge_row_kernel): such rows are bound by
-// launches and latency, not by bytes. A k-way co-rank in one pass would need, per tile, a search over
-// the value range with a rank in every block at each step (about
-// 31 x k x log2(cap) dependent loads), where a pass costs one stream read
-// and write; so the tree. The compare-all compactions become scatters at
+// bytes). A row of at most 2048 lanes and 32 blocks runs the whole tree
+// in one block's shared memory in one launch (merge_row_kernel): such
+// rows are bound by launches and latency, not by bytes. A k-way co-rank
+// in one pass would need, per tile, a search over the value range with a
+// rank in every block at each step (about 31 x k x log2(cap) dependent
+// loads), where a pass costs one stream read and write; so the tree. The compare-all compactions become scatters at
 // prefix-sum slots.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
@@ -102,7 +101,6 @@ constexpr int kMergeThreads = 256;
 constexpr int kMergeIpt = 8;  // output lanes a thread of merge_tagged merges
 constexpr int kMergeTile = kMergeThreads * kMergeIpt;
 constexpr int kRowBlocks = 32;  // blocks a row merged in one block may have
-constexpr int kRowThreadsMax = 1024;  // threads of that block, at most
 constexpr int kStageUnits = 2;  // loads in flight a thread when staging
 
 // ---------------------------------------------------------------------------
@@ -241,14 +239,15 @@ __device__ inline void stage_pair(
 
 // dst[0 .. count) from the tile staged in shared memory, with 16-byte
 // stores where `vec` (dst 16-byte aligned) and scalar ones after.
-template <int T = kMergeThreads, class S>
+template <class S>
 __device__ inline void store_tile(int* __restrict__ dst, const S* src,
                                   int count, bool vec) {
   const int quads = vec ? count >> 2 : 0;
-  for (int q = threadIdx.x; q < quads; q += T)
+  for (int q = threadIdx.x; q < quads; q += kMergeThreads)
     reinterpret_cast<int4*>(dst)[q] =
         make_int4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
-  for (int x = 4 * quads + threadIdx.x; x < count; x += T) dst[x] = src[x];
+  for (int x = 4 * quads + threadIdx.x; x < count; x += kMergeThreads)
+    dst[x] = src[x];
 }
 
 // One pass of merge_tagged's pairwise tree. Run r of `level` holds the
@@ -379,29 +378,24 @@ __global__ void __launch_bounds__(kMergeThreads) merge_pass_kernel(
   if (paged) store_tile(dst.pg + at, s_pg, w, vec_out);
 }
 
-// merge_tagged of a row that fits one block of T threads: n <= T *
-// kMergeIpt lanes, at most kRowBlocks blocks, caps multiples of
-// kMergeIpt. A row of many blocks that is not wide would pay a launch and
-// a trip through device memory for every level of the tree, so here the
+// merge_tagged of a row that fits one block: n <= kMergeTile lanes, at
+// most kRowBlocks blocks, caps multiples of kMergeIpt. A row of many
+// blocks that is not wide would pay a launch and a trip through device
+// memory for every level of the tree, so here the
 // whole tree runs in shared memory in one launch: the blocks are staged
 // at their offsets, each level merges in place (a thread merges its
 // kMergeIpt output lanes of its pair, ties to the left, from its own
 // co-rank into registers, and the block writes them back), and the merged
 // row and its fill are stored once. The thread owning lanes x .. x +
 // kMergeIpt - 1 serves the pair that holds lane x at every level: pair
-// widths are whole blocks. T = 256 (2048 lanes, static shared memory) or
-// 1024 (8192 lanes, 72 KB of dynamic shared memory).
-template <int T>
-__global__ void __launch_bounds__(T) merge_row_kernel(MergeBlocks m,
-                                                      Stream dst,
-                                                      bool vec_out) {
-  constexpr int kLanesRow = T * kMergeIpt;
-  extern __shared__ __align__(16) int smem_row[];
-  int* s_val = smem_row;
-  int* s_pg = s_val + kLanesRow;
-  int* s_pre = s_pg + kLanesRow;  // the blocks' lengths, summed
-  unsigned char* s_tag =
-      reinterpret_cast<unsigned char*>(s_pre + kRowBlocks + 1);
+// widths are whole blocks.
+__global__ void __launch_bounds__(kMergeThreads) merge_row_kernel(
+    MergeBlocks m, Stream dst, bool vec_out) {
+  constexpr int T = kMergeThreads;
+  __shared__ __align__(16) int s_val[kMergeTile];
+  __shared__ __align__(16) int s_pg[kMergeTile];
+  __shared__ unsigned char s_tag[kMergeTile];
+  __shared__ int s_pre[kRowBlocks + 1];  // the blocks' lengths, summed
   const size_t row = blockIdx.x;
   const int tid = threadIdx.x;
   const int nblk = m.va + m.vb;
@@ -508,14 +502,9 @@ __global__ void __launch_bounds__(T) merge_row_kernel(MergeBlocks m,
   }
   __syncthreads();
   const size_t at = row * m.n;
-  store_tile<T>(dst.vals + at, s_val, m.n, vec_out);
-  store_tile<T>(dst.tag + at, s_tag, m.n, vec_out);
-  if (paged) store_tile<T>(dst.pg + at, s_pg, m.n, vec_out);
-}
-
-// Shared memory of merge_row_kernel<T>.
-constexpr size_t row_smem(int threads) {
-  return (size_t)threads * kMergeIpt * 9 + (kRowBlocks + 1) * 4;
+  store_tile(dst.vals + at, s_val, m.n, vec_out);
+  store_tile(dst.tag + at, s_tag, m.n, vec_out);
+  if (paged) store_tile(dst.pg + at, s_pg, m.n, vec_out);
 }
 
 int tiles_of(int n) { return (n + kTile - 1) / kTile; }
@@ -1136,19 +1125,16 @@ int launch_keep(const int* vals, const int* tag, const int* ra,
 
 // Launches of docodo_merge_tagged for va blocks of cap_a and vb of cap_b:
 // 0 for a row that one block merges in shared memory (merge_row_kernel:
-// up to 2048 lanes, or 8192 for more than two blocks, which it spares
-// passes), else ceil(log2(va + vb)) passes of the pairwise tree, at least
-// one.
+// up to 2048 lanes), else ceil(log2(va + vb)) passes of the pairwise
+// tree, at least one: rows wider than one tile merge faster in passes of
+// many tiles than in one block (H100, tools/tile_kernel_times.py).
 extern "C" int docodo_merge_tagged_passes(int va, int cap_a, int vb,
                                           int cap_b) {
   const int nblk = va + vb;
   const int ca = va > 0 ? cap_a : 0;
   const int cb = vb > 0 ? cap_b : 0;
   const long long n = (long long)va * ca + (long long)vb * cb;
-  // two blocks wider than one tile merge faster in one pass of many
-  // tiles than in one block (H100, tools/tile_kernel_times.py --batch)
-  const int lanes = nblk > 2 ? kRowThreadsMax * kMergeIpt : kMergeTile;
-  if (n <= lanes && nblk <= kRowBlocks && ca % kMergeIpt == 0 &&
+  if (n <= kMergeTile && nblk <= kRowBlocks && ca % kMergeIpt == 0 &&
       cb % kMergeIpt == 0)
     return 0;
   int passes = 1;
@@ -1191,25 +1177,9 @@ extern "C" int docodo_merge_tagged(const int* a, const int* a_pg,
   const Stream out{vals, tag, pg};
   const bool vec_dst =
       caps4 && aligned16(vals) && aligned16(tag) && aligned16(pg);
-  if (passes == 0 && m.n <= kMergeTile) {
-    merge_row_kernel<kMergeThreads>
-        <<<rows, kMergeThreads, row_smem(kMergeThreads),
-           (cudaStream_t)stream>>>(m, out, vec_dst);
-    return (int)cudaGetLastError();
-  }
   if (passes == 0) {
-    static bool sized = false;
-    if (!sized) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          merge_row_kernel<kRowThreadsMax>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)row_smem(kRowThreadsMax));
-      if (e != cudaSuccess) return (int)e;
-      sized = true;
-    }
-    merge_row_kernel<kRowThreadsMax>
-        <<<rows, kRowThreadsMax, row_smem(kRowThreadsMax),
-           (cudaStream_t)stream>>>(m, out, vec_dst);
+    merge_row_kernel<<<rows, kMergeThreads, 0, (cudaStream_t)stream>>>(
+        m, out, vec_dst);
     return (int)cudaGetLastError();
   }
   const size_t plane = (size_t)rows * m.n;

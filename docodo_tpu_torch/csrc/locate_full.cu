@@ -234,13 +234,21 @@ __global__ void __launch_bounds__(kSlotThreads) union_locate_full_kernel(
   tail.run(BlockRow<kSlotThreads>{}, s, keep, cap, ipt);
 }
 
-// Raises a kernel's dynamic shared memory limit, once per kernel.
+// Raises a kernel's dynamic shared memory limit, once per kernel and
+// device: the limit is the current device's, and another card starts
+// from the 48 KB default. `sized` holds a bit per device (devices past
+// 31 set it at every launch).
 template <class K>
-cudaError_t size_smem(K kernel, size_t bytes, bool* sized) {
-  if (*sized) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  *sized = e == cudaSuccess;
+cudaError_t size_smem(K kernel, size_t bytes, unsigned* sized) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (*sized & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) *sized |= bit;
   return e;
 }
 
@@ -249,10 +257,7 @@ int launch_w2(const int* a, const int* a_pg, const int* na, const int* ra,
               const int* b, const int* b_pg, const int* nb, const int* rb,
               int rows, int cap, const Tail& tail, void* stream) {
   using S = W2Shape<N>;
-  static bool sized = false;
-  const cudaError_t e =
-      size_smem(sorted_and_locate_full_kernel<Tail, N>, S::kSmem, &sized);
-  if (e != cudaSuccess) return (int)e;
+  static_assert(S::kSmem <= 48 * 1024, "needs no shared memory attribute");
   if (rows > 0)
     sorted_and_locate_full_kernel<Tail, N>
         <<<(rows + S::kRows - 1) / S::kRows, kSlotThreads, S::kSmem,
@@ -311,7 +316,7 @@ extern "C" int docodo_merge_and_locate_topk(
     const int* b, const int* b_pg, const int* nb, const int* rb, int rows,
     int cap, int kpad, int hpad, int* pg_c, float* rk_c, float* ct_c,
     int* n_pages, int* n_hits, int* hits, void* stream) {
-  static bool sized = false;
+  static unsigned sized = 0;
   const cudaError_t e =
       size_smem(merge_and_locate_topk_kernel, kFusedSmem, &sized);
   if (e != cudaSuccess) return (int)e;
@@ -329,7 +334,7 @@ extern "C" int docodo_merge_and_locate(
     int cap, int* hits, int* page_s, float* rank_s, float* cnt_s,
     void* stream) {
   if (cap <= 0 || 2 * cap > kFusedLanes) return (int)cudaErrorInvalidValue;
-  static bool sized = false;
+  static unsigned sized = 0;
   const cudaError_t e = size_smem(merge_and_locate_kernel, kFusedSmem, &sized);
   if (e != cudaSuccess) return (int)e;
   if (rows > 0)

@@ -672,10 +672,7 @@ def _merge_tagged_plain(a, a_pg, na, b, b_pg, nb):
     """Plain version of docodo_merge_tagged: one stable sort on the
     packed key coord << 2 | tag (tag 0 = word A, 1 = word B, 2 =
     padding), the pages riding along."""
-    if a.dim() == 2:
-        a, a_pg, na = map(_as_blocks, (a, a_pg, na))
-    if b.dim() == 2:
-        b, b_pg, nb = map(_as_blocks, (b, b_pg, nb))
+    a, a_pg, na, b, b_pg, nb = as_variant_blocks(a, a_pg, na, b, b_pg, nb)
     av, bv = variant_blocks(a, na), variant_blocks(b, nb)
     vals = torch.cat([av, bv], dim=1)
     tag = torch.cat([torch.where(av < INF32, 0, 2),
@@ -713,9 +710,16 @@ def _merge_tagged_kernel(a, a_pg, na, b, b_pg, nb):
     return vals, tag, pg
 
 
-def _as_blocks(x):
-    """A [B, cap] block (or [B] lengths) as one variant block."""
-    return None if x is None else x.unsqueeze(1)
+def as_variant_blocks(a, a_pg, na, b, b_pg, nb):
+    """merge_tagged's core arguments (a, a_pg, na, b, b_pg, nb) with a
+    word's one block [B, cap] (lengths [B]) as one variant block
+    [B, 1, cap] ([B, 1])."""
+    one = lambda x: None if x is None else x.unsqueeze(1)
+    if a.dim() == 2:
+        a, a_pg, na = one(a), one(a_pg), one(na)
+    if b.dim() == 2:
+        b, b_pg, nb = one(b), one(b_pg), one(nb)
+    return a, a_pg, na, b, b_pg, nb
 
 
 def _merge_tagged_call(core, a, na, b, nb, a_pg, b_pg):

@@ -530,9 +530,8 @@ def _tagged_blocks(rng, rows, v, cap, pool):
 # (va, vb, cap_a, cap_b, rows, paged): k = 2, 3, 8 and 16 blocks, rows of
 # one tile and of many, and a fold step's running stream (cap_a) against
 # the next word's block (cap_b); rows of at most 32 blocks whose caps are
-# multiples of 8 merge in one block up to 2048 lanes (256 threads), or
-# 8192 of more than two blocks (1024 threads; up to 5 levels), the rest
-# in passes
+# multiples of 8 merge in one block up to 2048 lanes (up to 5 levels),
+# the rest in passes
 MERGE_TAGGED_SHAPES = [
     (1, 1, 512, 512, 300, True), (1, 1, 512, 512, 300, False),
     (4, 4, 256, 256, 100, True), (8, 0, 64, 1, 50, False),

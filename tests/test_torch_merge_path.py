@@ -10,11 +10,9 @@ of its pair: two warps find the tile's first and last co-ranks by a
 and each thread merges a few lanes from its own co-rank, found by a
 binary search in the staged segments. Lanes past the real elements are
 the fill (INF32, tag 2, page 0). A row of at most 32 blocks and 2048
-lanes (8192 for more than two blocks) runs every level in one block
-instead, in shared memory: the same merges with the tile as wide as the
-pair. Here the tile and the
-lanes a thread
-merges are drawn small, so that tiles split runs of equal coordinates
+lanes runs every level in one block instead, in shared memory: the same
+merges with the tile as wide as the pair. Here the tile and the lanes a
+thread merges are drawn small, so that tiles split runs of equal coordinates
 and segments come out empty; the result must equal merge_tagged_plain
 exactly (pages at the real lanes). For two blocks the model is also held
 against the JAX package's pallas_bitonic_merge in interpret mode. The

@@ -30,7 +30,8 @@ chip_smoke.py are imported; prints one JSON line. With two or more, the
 script runs itself on each ROOT in turns, first to last and back again
 (A B B A), each run in a child process with its own tree's build, and
 prints one JSON line holding every run: the way to compare trees that
-differ in a kernel in one call on one card. Needs a CUDA card.
+differ in a kernel in one call on one card. A ROOT's query_kernels must
+have as_variant_blocks. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -196,11 +197,13 @@ def measure(root: Path, batch: bool = False) -> dict:
         x["nb"].clamp(max=32768), x["a_pg"],
         x["b_pg"][:, :32768].contiguous())))
     for key, args in merges:
+        a, na, b, nb, a_pg, b_pg = args
+        blocks = qk.as_variant_blocks(a, a_pg, na, b, b_pg, nb)
         out[f"{key} merge_tagged"] = device_ms(
             lambda: qk.merge_tagged(*args), MERGE)
         out[f"{key} merge_tagged bound"] = bound_ms(
-            cs, "merge_tagged", _blocks(args))
-        sort = cs._library_call("merge_tagged", [_blocks(args)])
+            cs, "merge_tagged", blocks)
+        sort = cs._library_call("merge_tagged", [blocks])
         out[f"{key} torch.sort"] = device_ms(sort)
 
     for cap, rows in SLOT_SHAPES:
@@ -232,18 +235,6 @@ def measure(root: Path, batch: bool = False) -> dict:
             topk=64, hit_cap=1024, tail=False, a_pg=x["a_pg"],
             b_pg=x["b_pg"]))
     return out
-
-
-def _blocks(args):
-    """merge_tagged's (a, na, b, nb, a_pg, b_pg), one block a word or
-    variant blocks, as its core's (a, a_pg, na, b, b_pg, nb) in the
-    [B, V, cap] form that chip_smoke's library call takes."""
-    a, na, b, nb, a_pg, b_pg = args
-    if a.dim() == 2:
-        a, na, a_pg = a[:, None], na[:, None], a_pg[:, None]
-    if b.dim() == 2:
-        b, nb, b_pg = b[:, None], nb[:, None], b_pg[:, None]
-    return a, a_pg, na, b, b_pg, nb
 
 
 def main() -> None:
