@@ -82,7 +82,7 @@ KERNELS = {
     "variants_keep": (CHUNKED, f"{PQ}:2071",
                       [("_variants_keep_kernel", "_variants_keep_plain")]),
     # also the counterpart of _and_locate_kernel (pallas_query.py:133)
-    "and_locate_topk": (LOCATE_TOPK, f"{PQ}:477",
+    "and_locate_topk": (LOCATE_FULL, f"{PQ}:477",
                         [("_and_topk_kernel", "_and_topk_plain")]),
     "single_locate_topk": (LOCATE_TOPK, f"{PQ}:200",
                            [("_single_topk_kernel", "_single_topk_plain")]),
@@ -122,6 +122,9 @@ SLOT_CAPS = {
     "union_locate_full": (256, 512, 1024),
 }
 SLOT_ROWS = 4096
+# rows of the fused batches' merge_and_locate_topk launches, caps 1024
+# and 2048 (tools/tile_kernel_times.py --batch; PERF.md section 6)
+FUSED_ROWS = (8, 16, 32, 64, 128)
 PAGE_WRAPPERS = {"and_locate_topk": "sorted_and_locate",
                  "single_locate_topk": "batched_single_locate"}
 FIELDS = ("pg_c", "rk_c", "ct_c", "n_pages", "n_hits", "hits")
@@ -431,14 +434,17 @@ def phase_parity(rng) -> dict:
             check(name, f"{name} cap {cap} B {SLOT_ROWS}", name,
                   name + "_plain", *args, **kw)
 
+    # the fused kernel's two stream widths (N = 2048, 4096), at 1024 rows
+    # and at the fused batches' row counts
     for cap in (1024, 2048):
-        x = _parity_inputs(rng, 1024, cap, dev)
-        for topk in (TOPK, 2048):
-            check("merge_and_locate_topk",
-                  f"merge_and_locate_topk cap {cap} topk {topk} B 1024",
-                  "merge_and_locate_topk", "merge_and_locate_topk_plain",
-                  x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"],
-                  x["a_pg"], x["b_pg"], topk=topk, hit_cap=HIT_CAP)
+        for rows in (1024,) + FUSED_ROWS:
+            x = _parity_inputs(rng, rows, cap, dev)
+            for topk in (TOPK, 2048):
+                check("merge_and_locate_topk",
+                      f"merge_and_locate_topk cap {cap} topk {topk} B {rows}",
+                      "merge_and_locate_topk", "merge_and_locate_topk_plain",
+                      x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"],
+                      x["a_pg"], x["b_pg"], topk=topk, hit_cap=HIT_CAP)
 
     # W = 2 bucket shapes, and cap 262144 (n 524288, 128 tiles a row) at
     # the one to eight rows of a wide bucket
@@ -719,9 +725,17 @@ def phase_parity(rng) -> dict:
                    f"sorted_and_locate_full_topk cap {cap} B {rows}",
                    "sorted_and_locate_full", args, TOPK, HIT_CAP, **pgs)
         say(f"parity: sorted_and_locate_full_topk cap {cap} B {rows}: equal")
+        # the page-level tail on the same row groups, both page forms
+        for carried in (True, False):
+            check_topk("and_locate_topk",
+                       f"and_locate_topk cap {cap} B {rows}", *args,
+                       topk=PAGE_TOPK, **(pgs if carried else {}))
+        say(f"parity: and_locate_topk cap {cap} B {rows} topk {PAGE_TOPK}, "
+            f"carried pages / bounds: equal")
 
-    for cap in (1024, 2048):
-        x = _parity_inputs(rng, 1024, cap, dev)
+    for cap, rows in [(c, r) for c in (1024, 2048)
+                      for r in (1024,) + FUSED_ROWS]:
+        x = _parity_inputs(rng, rows, cap, dev)
         args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["a_pg"],
                 x["b_pg"])
         got = qk.merge_and_locate(*args)
@@ -749,10 +763,10 @@ def phase_parity(rng) -> dict:
         require(dups > 0 and empty > 0 and kept > 0,
                 f"merge_and_locate cap {cap}: {dups} duplicates, {empty} "
                 f"empty operands, {kept} kept")
-        say(f"parity: merge_and_locate cap {cap} n {2 * cap} B 1024: equal, "
-            f"and its first {TOPK} runs equal merge_and_locate_topk's ({kept} "
-            f"kept, ordered windows on every second row, {empty} rows with "
-            f"an empty operand, {dups} coordinates in both words)")
+        say(f"parity: merge_and_locate cap {cap} n {2 * cap} B {rows}: "
+            f"equal, and its first {TOPK} runs equal merge_and_locate_topk's "
+            f"({kept} kept, ordered windows on every second row, {empty} "
+            f"rows with an empty operand, {dups} coordinates in both words)")
     return err
 
 
@@ -1348,10 +1362,17 @@ SPLITS = {
     # one pass, or a tree of passes
     "merge_tagged": (("2 blocks", lambda a: _n_blocks(a) <= 2),
                      ("more than 2 blocks", lambda a: _n_blocks(a) > 2)),
-    # the W = 2 slot kernel's four stream widths
+    # the W = 2 slot kernel's four stream widths, the page-level one's
+    # likewise, the fused kernel's two
     "sorted_and_locate_full": tuple(
         (f"cap {cap}", lambda a, cap=cap: a[0].shape[1] == cap)
         for cap in (64, 128, 256, 512)),
+    "and_locate_topk": tuple(
+        (f"cap {cap}", lambda a, cap=cap: a[0].shape[1] == cap)
+        for cap in (64, 128, 256, 512)),
+    "merge_and_locate_topk": (
+        ("n <= 2048", lambda a: a[0].shape[1] <= 1024),
+        ("n > 2048", lambda a: a[0].shape[1] > 1024)),
 }
 
 

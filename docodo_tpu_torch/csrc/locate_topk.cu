@@ -1,37 +1,31 @@
-// Page-level locate/rank/top-k kernels of docodo_tpu_torch, for Hopper
-// (sm_90a).
+// Page-level W = 1 locate/rank/top-k kernel of docodo_tpu_torch, for
+// Hopper (sm_90a).
 //
-// They replace three Pallas TPU kernels of docodo_tpu/ops/pallas_query.py:
+// It replaces a Pallas TPU kernel of docodo_tpu/ops/pallas_query.py:
 //
-//   docodo_and_locate_topk     <- _sorted_and_locate_kernel
-//                                 (pallas_query.py:477), W = 2, cap <= 512,
-//                                 and _and_locate_kernel (pallas_query.py:133),
-//                                 the same function with a compare-all merge
-//                                 inside
 //   docodo_single_locate_topk  <- _single_word_kernel (pallas_query.py:200),
 //                                 W = 1, cap <= 128
 //
-// Each kernel turns one query row into its top k pages: every page run of
-// the row's kept stream is ranked ((1 + sum of 30 / max(5, gap)) +
+// (The page-level W = 2 kernel, docodo_and_locate_topk, is the W = 2 slot
+// template of locate_full.cu ending in the page-level tail.)
+//
+// It turns one query row into its top k pages: every page run of the
+// row's posting block is ranked ((1 + sum of 30 / max(5, gap)) +
 // ln(count) in f32, as in locate_full.cu), and the k best runs by (rank
 // descending, lane ascending) are written as (page, rank, count). The
 // selection happens inside the kernel (slot_row.cuh, locate_topk_tail), so
-// nothing but three [rows, k] arrays leaves it.
+// nothing but three [rows, k] arrays leaves it. A lane's page comes from
+// the posting fetch's page stream where the caller carries one, else from
+// a binary search of the page bounds (clamped to the last page).
 //
-// A lane's page comes from the posting fetch's page stream where the caller
-// carries one, else from a binary search of the page bounds (clamped to the
-// last page). The W = 2 kernel takes the raw operand blocks and merges them
-// by rank in shared memory, so the TPU route's separate sort launch is
-// gone, as in docodo_sorted_and_locate_full.
+// What bounds it on this card: bytes. A row is read once (4 or 8 bytes a
+// valid lane) and 12 k bytes are written. One thread block of 256
+// threads a row, one lane a thread, the row in shared memory; the
+// selection costs runs^2 compares of shared-memory words per row, which
+// stays far below the read at this width (at most 128 runs).
 //
-// What bounds them on this card: bytes. A row is read once (4 or 8 bytes a
-// valid lane) and 12 k bytes are written. One thread block per row, 256
-// threads, the row in shared memory; the selection costs runs^2 compares of
-// shared-memory words per row, which stays far below the read at these
-// widths (at most 1024 runs).
-//
-// Every entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError().
+// The entry point launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError().
 
 #include "slot_row.cuh"
 
@@ -40,25 +34,6 @@ namespace {
 using namespace docodo;
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 1024;  // 2 * MAX_SORTED_PALLAS_CAP
-constexpr int kIpt = kLanes / kThreads;
-
-__global__ void __launch_bounds__(kThreads) and_locate_topk_kernel(
-    const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, const int* __restrict__ ra_,
-    const int* __restrict__ b, const int* __restrict__ b_pg,
-    const int* __restrict__ nb_, const int* __restrict__ rb_,
-    const int* __restrict__ bounds, int p_bounds, int cap, int topk,
-    TopkOutputs out) {
-  __shared__ AndSmem<kLanes> sm;
-  const int n = 2 * cap;
-  bool keep[kIpt];
-  const BlockRow<kThreads> g{};
-  merge_and_keep(g, sm, a, a_pg, na_, ra_, b, b_pg, nb_, rb_, bounds,
-                 p_bounds, cap, keep);
-  locate_topk_tail(g, sm.row, keep, n, (n + kThreads - 1) / kThreads, topk,
-                   out);
-}
 
 // W = 1: the posting block's first na lanes are the kept stream; one lane
 // per thread (cap <= 128 <= kThreads).
@@ -81,27 +56,7 @@ __global__ void __launch_bounds__(kThreads) single_locate_topk_kernel(
   locate_topk_tail(BlockRow<kThreads>{}, s, keep, cap, 1, topk, out);
 }
 
-TopkOutputs topk_outputs(int* pages, float* ranks, int* counts) {
-  TopkOutputs o;
-  o.pages = pages;
-  o.ranks = ranks;
-  o.counts = counts;
-  return o;
-}
-
 }  // namespace
-
-extern "C" int docodo_and_locate_topk(
-    const int* a, const int* a_pg, const int* na, const int* ra,
-    const int* b, const int* b_pg, const int* nb, const int* rb,
-    const int* bounds, int p_bounds, int rows, int cap, int topk, int* pages,
-    float* ranks, int* counts, void* stream) {
-  if (rows > 0)
-    and_locate_topk_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-        a, a_pg, na, ra, b, b_pg, nb, rb, bounds, p_bounds, cap, topk,
-        topk_outputs(pages, ranks, counts));
-  return (int)cudaGetLastError();
-}
 
 extern "C" int docodo_single_locate_topk(
     const int* a, const int* a_pg, const int* na, const int* bounds,

@@ -5,7 +5,8 @@
 // it, the locate tail that writes the row's full-result outputs (its first
 // kpad runs), the page-level tail that ranks every run and writes the
 // row's top k, and the full-result tail that ends a row with that top k
-// inside the kernel.
+// inside the kernel; and the three ways a W = 2 row ends (SlotsTail,
+// TopkTail, PageTopkTail).
 
 #pragma once
 
@@ -128,11 +129,11 @@ __device__ inline int rank_from(const int* s, int lo, int m, int v,
 // first slot, gaps wider than |R| cut segments, both R < 0 adds the ordered
 // cut at each segment's first word-A slot, and a segment keeps its slots
 // only if it holds both words. Pages come from the blocks' page streams
-// a_pg / b_pg, or with a_pg null from `bounds` [p]. Each thread takes
-// quads of four consecutive elements: one 16-byte load of values and of
-// pages where the row allows it, and each element's rank in the other
-// operand searched from the previous one's. Called by every thread of the
-// row group g.
+// a_pg / b_pg, or with a_pg null from `bounds` [p]. Each thread takes a
+// quad of four consecutive elements: one 16-byte load of values and one
+// of pages where the row allows it, both before the barrier, and each
+// element's rank in the other operand searched from the previous one's.
+// Called by every thread of the row group g (at least N / 4 threads).
 template <class Grp, int L, int N>
 __device__ void merge_and_keep(
     const Grp& g, AndSmem<N>& sm, const int* __restrict__ a,
@@ -142,6 +143,7 @@ __device__ void merge_and_keep(
     const int* __restrict__ rb_, const int* __restrict__ bounds,
     int p_bounds, int cap, bool (&keep)[L]) {
   constexpr int T = Grp::kThreads;
+  static_assert(4 * T >= N, "a quad of the row a thread at most");
   RowSmem<N>& s = sm.row;
   int* s_a = s.run_bonus;
   int* s_b = s.run_count;
@@ -159,36 +161,32 @@ __device__ void merge_and_keep(
   const int* bpg = b_pg ? b_pg + row * cap : nullptr;
   const bool vec = cap % 4 == 0 && aligned16(arow) && aligned16(brow) &&
                    aligned16(apg) && aligned16(bpg);
+  // one quad a thread (4 T >= N >= 2 cap): its values and pages are
+  // loaded together and stay in registers across the barrier
   const int quads = (cap + 3) / 4;
-  for (int q = tid; q < 2 * quads; q += T) {
-    const bool in_a = q < quads;
-    const int i = 4 * (in_a ? q : q - quads);
-    const int len = in_a ? na : nb;
-    if (i >= len) continue;
-    int x[4];
+  const bool in_a = tid < quads;
+  const int i = 4 * (in_a ? tid : tid - quads);
+  const int len = in_a ? na : nb;
+  const bool mine = tid < 2 * quads && i < len;
+  const int* pgs = in_a ? apg : bpg;
+  int x[4], pq[4];
+  if (mine) {
     load4(in_a ? arow : brow, i, len, vec, x);
+    if (pgs) load4(pgs, i, len, vec, pq);
     int* dst = in_a ? s_a : s_b;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (i + j < len) dst[i + j] = x[j];
   }
   g.sync();
-  for (int q = tid; q < 2 * quads; q += T) {
-    const bool in_a = q < quads;
-    const int i = 4 * (in_a ? q : q - quads);
-    const int len = in_a ? na : nb;
-    if (i >= len) continue;
-    const int* own = in_a ? s_a : s_b;
+  if (mine) {
     const int* other = in_a ? s_b : s_a;
     const int m = in_a ? nb : na;
-    const int* pgs = in_a ? apg : bpg;
-    int pq[4];
-    if (pgs) load4(pgs, i, len, vec, pq);
     int r = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (i + j >= len) break;
-      const int v = own[i + j];
+      const int v = x[j];
       // word A's lanes go before equal word-B lanes, B's after equal A's
       r = rank_from(other, r, m, v, !in_a);
       const int p = i + j + r;
@@ -364,6 +362,14 @@ struct TopkOutputs {
   int* counts;   // [rows, topk] run counts, 0 past the runs
 };
 
+inline TopkOutputs topk_outputs(int* pages, float* ranks, int* counts) {
+  TopkOutputs o;
+  o.pages = pages;
+  o.ranks = ranks;
+  o.counts = counts;
+  return o;
+}
+
 // The page-level tail (pallas_query._locate_rank_topk): locate and rank
 // EVERY page run of the row held in s.val / s.page, given the keep mask of
 // this thread's lanes, and write the row's top `topk` runs by (rank
@@ -436,8 +442,9 @@ __device__ void locate_full_topk_tail(const Grp& g, RowSmem<N>& s,
 }
 
 // How a slot kernel ends a row whose keep mask it has computed: with the
-// row's first kpad runs in slot order (the caller finishes the top k), or
-// with the top k of every run picked here.
+// row's first kpad runs in slot order (the caller finishes the top k),
+// with the top k of every run picked here, or, on the page level, with
+// that top k alone (no hits, no totals).
 struct SlotsTail {
   int kpad, hpad;
   Outputs out;
@@ -458,6 +465,16 @@ struct TopkTail {
   }
 };
 
+struct PageTopkTail {
+  int topk;
+  TopkOutputs out;
+  template <class Grp, int L, int N>
+  __device__ void run(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
+                      int n, int ipt) const {
+    locate_topk_tail(g, s, keep, n, ipt, topk, out);
+  }
+};
+
 inline SlotsTail slots_tail(int kpad, int hpad, int* pg_c, float* rk_c,
                             float* ct_c, int* n_pages, int* n_hits,
                             int* hits) {
@@ -473,12 +490,18 @@ inline TopkTail topk_tail(int topk, int hpad, int* pages, float* ranks,
   TopkTail t;
   t.topk = topk;
   t.hpad = hpad;
-  t.out.top.pages = pages;
-  t.out.top.ranks = ranks;
-  t.out.top.counts = counts;
+  t.out.top = topk_outputs(pages, ranks, counts);
   t.out.n_pages = n_pages;
   t.out.n_hits = n_hits;
   t.out.hits = hits;
+  return t;
+}
+
+inline PageTopkTail page_topk_tail(int topk, int* pages, float* ranks,
+                                   int* counts) {
+  PageTopkTail t;
+  t.topk = topk;
+  t.out = topk_outputs(pages, ranks, counts);
   return t;
 }
 

@@ -79,14 +79,16 @@ def _assert_runs_equal(got, want_pg, want_rk, want_ct, want_np, topk):
     assert (pg_c[~served] == -1).all()
 
 
-@pytest.mark.parametrize("cap,hit_cap,topk", [
-    (64, 128, 16), (256, 64, 16), (128, 2048, 16), (256, 512, 512),
-    (256, 512, 2048),
+@pytest.mark.parametrize("cap,hit_cap,topk,bsz", [
+    (64, 128, 16, 12), (256, 64, 16, 12), (128, 2048, 16, 12),
+    (256, 512, 512, 12), (256, 512, 2048, 12),
+    # the kernel's two stream widths, N = 2048 and 4096
+    (1024, 1024, 64, 6), (2048, 1024, 64, 6),
 ])
-def test_merge_and_locate_topk_matches_pallas(rng, cap, hit_cap, topk):
+def test_merge_and_locate_topk_matches_pallas(rng, cap, hit_cap, topk, bsz):
     """Kernel A's plain version against pallas_merge_and_locate_topk,
-    at topk 16 and escalated past 128 and past the stream width."""
-    bsz = 12
+    at topk 16 and escalated past 128 and past the stream width, and at
+    the fused batches' caps."""
     a, na, ra, b, nb, rb, bounds = _blocks(rng, bsz, cap, dense=True)
     apg, bpg = _pages(a, bounds), _pages(b, bounds)
     hits_j, pg_j, rk_j, ct_j, np_j, nh_j = pq.pallas_merge_and_locate_topk(

@@ -609,3 +609,69 @@ def test_w2_slot_kernel_row_groups_match_plain_on_card(cuda_device, cap,
     if rows > 8:
         assert int(got[3].max()) > 16 and int(got[4].max()) > 0
         assert int((got[4] == 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,rows", SLOT_ROW_SHAPES)
+@pytest.mark.parametrize("carried", [True, False])
+def test_page_w2_kernel_row_groups_match_plain_on_card(cuda_device, cap,
+                                                       rows, carried):
+    """The page-level W = 2 kernel on the slot kernel's row groups, with
+    carried pages and with pages from bounds (batched_and_locate's
+    form), at topk 16 and at a topk above every row's runs: dense rows,
+    rows of runs tied at rank 1.0, empty word A or word B rows."""
+    rng = np.random.default_rng(cap * rows + carried)
+    a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, rows, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(bounds))
+    pgs = dict(a_pg=c(apg), b_pg=c(bpg)) if carried else {}
+    for topk in (16, 2 * cap + 3):
+        got = qk.sorted_and_locate(*args, topk=topk, **pgs)
+        torch.cuda.synchronize()
+        want = qk.sorted_and_locate_plain(*args, topk=topk, **pgs)
+        _assert_topk_equal(got, want)
+        if not carried:
+            _assert_topk_equal(qk.batched_and_locate(*args, topk=topk), want)
+    assert int((want[0][:, 0] < 0).sum()) > 0  # rows serving nothing
+    if rows > 8:
+        top16 = qk.sorted_and_locate_plain(*args, topk=16, **pgs)
+        full = top16[0][:, -1] >= 0
+        assert bool((full & (top16[1][:, -1] == top16[1][:, -2])).any())
+
+
+# (cap, rows): the fused kernels' two stream widths (N = 2048 for caps
+# 513-1024 and below, 4096 for 1025-2048), one row, odd caps, and the
+# row counts of the fused batches
+FUSED_ROW_SHAPES = [(1024, 1), (1024, 8), (1000, 37), (2048, 1), (2048, 8),
+                    (1531, 19), (700, 64), (64, 5), (2048, 133)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,rows", FUSED_ROW_SHAPES)
+def test_fused_kernels_match_plain_on_card(cuda_device, cap, rows):
+    """merge_and_locate_topk (first-kpad runs, at topk 64 and at a topk
+    past the stream) and merge_and_locate (full-width streams) against
+    their plain versions: dense rows with long page runs, runs tied at
+    rank 1.0, empty operands, ordered windows on every second row."""
+    rng = np.random.default_rng(cap + 7 * rows)
+    a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, rows, cap)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(apg), c(bpg))
+    for topk, hit_cap in ((64, 1024), (4 * cap, 8192)):
+        got = qk.merge_and_locate_topk(*args, topk=topk, hit_cap=hit_cap)
+        torch.cuda.synchronize()
+        _assert_fields_equal(got, qk.merge_and_locate_topk_plain(
+            *args, topk=topk, hit_cap=hit_cap))
+    streams = qk.merge_and_locate(*args)
+    torch.cuda.synchronize()
+    want = qk.merge_and_locate_plain(*args)
+    for field, g, w in zip(("hits", "page_s", "rank_s", "cnt_s"), streams,
+                           want):
+        assert g.shape == w.shape and g.dtype == w.dtype, field
+        if field == "rank_s":
+            d = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            assert int(d.abs().max()) <= 1, field
+        else:
+            assert torch.equal(g, w), field
+    if rows > 1:
+        assert int(got[3].max()) > 64 and int((got[4] == 0).sum()) > 0

@@ -102,6 +102,9 @@ def _tied_at_cut(ranks, pages, topk) -> bool:
 @pytest.mark.parametrize("cap,topk,pages", [
     (64, 8, "carried"), (64, 8, "shared"), (64, 8, "bounds"),
     (128, 16, "carried"), (16, 64, "bounds"),
+    # every stream width the kernel dispatches on (N = 512 and 1024)
+    (256, 16, "carried"), (256, 16, "bounds"), (512, 16, "carried"),
+    (512, 16, "bounds"),
 ])
 def test_sorted_and_locate_matches_pallas(rng, cap, topk, pages):
     a, na, ra, b, nb, rb = page_batch(rng, cap)

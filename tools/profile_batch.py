@@ -82,11 +82,13 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "union_merge_locate_full": "union_merge_locate_full_kernel",
                 "variants_keep": ("keep_marks_kernel<true>",
                                   "keep_resolve_kernel<true>"),
-                "and_locate_topk": "::and_locate_topk_kernel",
+                "and_locate_topk": (
+                    "sorted_and_locate_full_kernel<docodo::PageTopkTail"),
                 "single_locate_topk": "single_locate_topk_kernel",
                 "merge_and_locate": "merge_and_locate_kernel"}
 # the slot kernels are one template each, instantiated for both tails
-# (the W = 2 one also for four stream widths, after the tail)
+# (the W = 2 one also for the page-level tail, and for four stream widths
+# after the tail)
 for _name in ("sorted_and_locate_full", "single_locate_full",
               "variants_and_locate_full", "union_merge_locate_full"):
     _fn = KERNEL_NAMES[_name]

@@ -10,18 +10,29 @@ time of a wrapper call, on seeded chip_smoke.py inputs:
   the same inputs (merge_tagged's library call: a stable sort of the
   packed key coord << 2 | tag);
 - the W = 2 slot kernel (sorted_and_locate_full, and its top-k-mode form
-  sorted_and_locate_full_topk) at the page-level batch's W = 2 buckets,
-  cap 64 x 8192, 128 x 1024, 256 x 512 and 512 x 512 rows;
+  sorted_and_locate_full_topk) and the page-level W = 2 kernel
+  (sorted_and_locate, topk 16, with carried pages and with pages from
+  bounds) at the page-level batch's W = 2 buckets, cap 64 x 8192,
+  128 x 1024, 256 x 512 and 512 x 512 rows;
+- merge_and_locate_topk and merge_and_locate at the fused batches'
+  widest launches, cap 1024 x 128 and 2048 x 64 rows, with the inputs'
+  pages and with one page a row (every kept lane of a row in one run);
 - the host microseconds of one call of merge_tagged and of
   sorted_and_locate_full at 8 rows of cap 64, where the card waits on
   the host (the least of 9 means over 100 calls).
 
 A device time is the mean of one call over 20, from torch.profiler's
 device events; beside the merge and slot shapes, their bytes bound
-(chip_smoke.py's, at 3.35 TB/s). With --batch, also merge_tagged on the wide batch's own
-calls (chip_smoke.py's 64 MB corpus, the wide mix and its alternations,
-kernel route), grouped by the blocks' shapes and rows: calls and device
-ms of all of them once.
+(chip_smoke.py's, at 3.35 TB/s). With --batch, also the batches' own
+calls (chip_smoke.py's 64 MB corpus, kernel route) replayed by shape:
+merge_tagged's in the wide fused batch (the wide mix and its
+alternations), merge_and_locate_topk's in the standard and the wide
+fused batch, and the page-level W = 2 kernel's in the page-level batch
+(the standard mix through search_batch, topk 16), also with its pages
+from bounds; for each shape the calls, the device ms of all of them once
+and their bytes bound, and for merge_and_locate_topk also the same calls
+through the kernels that give a row several blocks (merge_tagged,
+and_keep, locate_runs).
 
     python3 tools/tile_kernel_times.py [--batch] [ROOT ...]
 
@@ -49,6 +60,11 @@ HOST_REPS = 9
 TILED = ("keep_marks_kernel", "keep_resolve_kernel", "locate_runs_kernel")
 MERGE = ("merge_tagged_kernel", "merge_pass_kernel", "merge_row_kernel")
 SLOT = ("sorted_and_locate_full_kernel",)
+# the page-level W = 2 kernel: its own body in older trees, the W = 2
+# slot template with the page-level tail since
+PAGE = ("::and_locate_topk_kernel", "PageTopkTail")
+FUSED = ("merge_and_locate_topk_kernel",)
+STREAMS = ("merge_and_locate_kernel",)
 # (rows, cap) of W = 2 buckets: a wide bucket at the largest cap, a few
 # rows at cap 32768, and many-row buckets within one tile
 W2_SHAPES = ((8, 262144), (8, 32768), (64, 2048), (1024, 1024))
@@ -56,6 +72,8 @@ W2_SHAPES = ((8, 262144), (8, 32768), (64, 2048), (1024, 1024))
 VARIANT_SHAPES = ((4, 4, 32768, 8), (4, 4, 512, 128))
 # (cap, rows) of the W = 2 slot kernel's buckets
 SLOT_SHAPES = ((64, 8192), (128, 1024), (256, 512), (512, 512))
+# (cap, rows) of the fused kernels' widest launches in the fused batches
+FUSED_SHAPES = ((1024, 128), (2048, 64))
 
 
 def device_ms(fn, names=None) -> float:
@@ -104,9 +122,19 @@ def host_us(fn) -> float:
     return best
 
 
-def batch_merges(cs, qk) -> dict:
-    """merge_tagged's calls in the wide batch, replayed by shape: the
-    calls of each shape and their device ms, all of them once."""
+# the cores --batch records: query_kernels function -> (chip_smoke.py's
+# kernel name, the profiler names of its launches)
+BATCH_CORES = {"_merge_tagged_kernel": ("merge_tagged", MERGE),
+               "_merge_and_locate_kernel": ("merge_and_locate_topk", FUSED),
+               "_and_topk_kernel": ("and_locate_topk", PAGE)}
+
+
+def batch_calls(cs, qk) -> dict:
+    """The batches' calls of BATCH_CORES replayed by shape: for each
+    shape [calls, device ms of all of them once, bytes bound ms], and for
+    merge_and_locate_topk a fourth, the device ms of the same calls
+    through merge_tagged, and_keep and locate_runs (several blocks a
+    row); the page-level kernel's calls also with pages from bounds."""
     import contextlib
     import io
 
@@ -114,26 +142,71 @@ def batch_merges(cs, qk) -> dict:
 
     with contextlib.redirect_stdout(io.StringIO()):
         dix = cs.phase_index(64.0, 0)
+    std = cs._queries(dix, cs.N_QUERIES)
     wide = cs._wide_queries(dix, cs.N_QUERIES, cs.N_ALTERNATIONS)
+    batches = {
+        "standard batch": lambda: dix.search_batch_full(
+            std, topk=64, hit_cap=1024, use_kernels=True),
+        "wide batch": lambda: dix.search_batch_full(
+            wide, topk=64, hit_cap=1024, use_kernels=True),
+        "page batch": lambda: dix.search_batch(std, topk=cs.PAGE_TOPK,
+                                               use_kernels=True),
+    }
     groups = {}
-    core = qk._merge_tagged_kernel
+    saved = {core: getattr(qk, core) for core in BATCH_CORES}
+    label = [""]
 
-    def rec(*args):
-        a, b = args[0], args[3]
-        key = (f"merge_tagged wide batch B{a.shape[0]} a{tuple(a.shape[1:])}"
-               f" b{tuple(b.shape[1:])} paged {args[1] is not None}")
-        groups.setdefault(key, []).append(args)
-        return core(*args)
+    def recorder(core):
+        name = BATCH_CORES[core][0]
 
-    qk._merge_tagged_kernel = rec
+        def rec(*args):
+            a = args[0]
+            if name == "merge_tagged":
+                b = args[3]
+                shape = (f"B{a.shape[0]} a{tuple(a.shape[1:])} "
+                         f"b{tuple(b.shape[1:])} paged {args[1] is not None}")
+            elif name == "merge_and_locate_topk":
+                shape = (f"B{a.shape[0]} cap{a.shape[1]} kpad{args[8]} "
+                         f"hpad{args[9]}")
+            else:
+                shape = f"B{a.shape[0]} cap{a.shape[1]} topk{args[9]}"
+            groups.setdefault((name, label[0], shape), []).append(args)
+            return saved[core](*args)
+        return rec
+
+    for core in BATCH_CORES:
+        setattr(qk, core, recorder(core))
     try:
-        dix.search_batch_full(wide, topk=64, hit_cap=1024, use_kernels=True)
+        for label[0], run in batches.items():
+            run()
     finally:
-        qk._merge_tagged_kernel = core
+        for core, fn in saved.items():
+            setattr(qk, core, fn)
     torch.cuda.synchronize()
-    return {key: [len(calls), device_ms(
-        lambda calls=calls: [core(*a) for a in calls], MERGE)]
-        for key, calls in sorted(groups.items())}
+    out = {}
+    cores = {name: (saved[core], names)
+             for core, (name, names) in BATCH_CORES.items()}
+    for (name, where, shape), calls in sorted(groups.items()):
+        core, names = cores[name]
+        key = f"{name} {where} {shape}"
+        out[key] = [len(calls), device_ms(
+            lambda: [core(*a) for a in calls], names),
+            sum(bound_ms(cs, name, a) for a in calls)]
+        if name == "merge_and_locate_topk":
+            def chunked(calls=calls):
+                for a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad in calls:
+                    vals, tag, pg = qk.merge_tagged(a, na, b, nb, a_pg, b_pg)
+                    hv = qk.and_keep(vals, tag, ra, rb)
+                    qk.locate_runs(hv, dix.bounds, topk=kpad, hit_cap=hpad,
+                                   pg=pg)
+            out[key].append(device_ms(chunked, MERGE + TILED))
+        if name == "and_locate_topk":
+            other = [(a[0], None, a[2], a[3], a[4], None) + tuple(a[6:])
+                     for a in calls]
+            out[key + " from bounds"] = [len(other), device_ms(
+                lambda: [core(*a) for a in other], names),
+                sum(bound_ms(cs, name, a) for a in other)]
+    return out
 
 
 def measure(root: Path, batch: bool = False) -> dict:
@@ -222,9 +295,34 @@ def measure(root: Path, batch: bool = False) -> dict:
             device_ms(lambda: qk.sorted_and_locate_full(
                 *args, topk=64, hit_cap=1024, sort_topk=False, **pgs),
                 SLOT))
+        for label, p in (("carried", pgs), ("bounds", {})):
+            out[f"page cap{cap} B{rows} sorted_and_locate {label}"] = (
+                device_ms(lambda p=p: qk.sorted_and_locate(
+                    *args, topk=cs.PAGE_TOPK, **p), PAGE))
+            out[f"page cap{cap} B{rows} sorted_and_locate {label} "
+                "bound"] = bound_ms(cs, "and_locate_topk", (
+                    x["a"], p.get("a_pg"), x["na"], x["ra"], x["b"],
+                    p.get("b_pg"), x["nb"], x["rb"], x["bounds"],
+                    cs.PAGE_TOPK))
+
+    # the fused kernels with the inputs' pages and with one page a row
+    # (a row's kept lanes all in one run: the longest runs the run sums
+    # meet)
+    for cap, rows in FUSED_SHAPES:
+        x = cs._parity_inputs(rng, rows, cap, dev)
+        one = torch.zeros_like(x["a_pg"])
+        for label, pgs in (("pages", (x["a_pg"], x["b_pg"])),
+                           ("one page", (one, one))):
+            args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"]) + pgs
+            key = f"fused cap{cap} B{rows} {label}"
+            out[key + " merge_and_locate_topk"] = device_ms(
+                lambda: qk.merge_and_locate_topk(*args, topk=64,
+                                                 hit_cap=1024), FUSED)
+            out[key + " merge_and_locate"] = device_ms(
+                lambda: qk.merge_and_locate(*args), STREAMS)
 
     if batch:
-        out.update(batch_merges(cs, qk))
+        out.update(batch_calls(cs, qk))
     x = cs._parity_inputs(rng, 8, 64, dev)
     out["host us merge_tagged B8 cap64"] = host_us(
         lambda: qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"], x["a_pg"],
