@@ -122,6 +122,20 @@ SLOT_CAPS = {
     "union_locate_full": (256, 512, 1024),
 }
 SLOT_ROWS = 4096
+# (va, vb, cap, rows) of variants_and_locate_full's parity cases and
+# (v, cap, rows, topk, hit_cap) of union_merge_locate_full's beyond n
+# 512 / 1024 at 4096 rows: the other stream widths of the variant slot
+# kernels (n 128, 256, 512), 16 and 32 blocks a row, the wide serving
+# pass's launches (128 rows) and its escalated ones (512 rows at topk
+# 128, hit_cap 2048); both tails. Their inputs come from a generator of
+# their own, so that the other phases see the data they saw before.
+VARIANT_SHAPES = ((2, 2, 32, SLOT_ROWS - 3), (2, 2, 64, SLOT_ROWS - 3),
+                  (8, 8, 64, SLOT_ROWS - 3), (4, 4, 128, 128))
+UNION_SHAPES = ((4, 32, SLOT_ROWS - 3, TOPK, HIT_CAP),
+                (2, 128, SLOT_ROWS - 3, TOPK, HIT_CAP),
+                (8, 64, SLOT_ROWS - 3, TOPK, HIT_CAP),
+                (32, 32, SLOT_ROWS - 3, TOPK, HIT_CAP),
+                (8, 128, 128, TOPK, HIT_CAP), (8, 128, 512, 128, 2048))
 # rows of the fused batches' merge_and_locate_topk launches, caps 1024
 # and 2048 (tools/tile_kernel_times.py --batch; PERF.md section 6)
 FUSED_ROWS = (8, 16, 32, 64, 128)
@@ -504,25 +518,37 @@ def phase_parity(rng) -> dict:
               "locate_runs_plain", block, x["bounds"], topk=TOPK,
               hit_cap=HIT_CAP, pg=x["a_pg"] if carried else None)
 
-    for va, vb, cap in ((2, 2, 128), (4, 4, 128)):
-        x = _variant_inputs(rng, SLOT_ROWS, va, vb, cap, dev)
+    # the variant slot kernels at each stream width they are compiled for
+    # (n 128-1024: 8 / 4 / 2 / 1 rows a block, the last block part-filled
+    # at 4093 rows), at 16 and 32 blocks a row, and at the wide serving
+    # pass's launches (128 rows; 512 escalated rows at topk 128, hit_cap
+    # 2048)
+    vrng = np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0])
+    for gen, va, vb, cap, rows in (
+            [(rng, 2, 2, 128, SLOT_ROWS), (rng, 4, 4, 128, SLOT_ROWS)]
+            + [(vrng,) + shape for shape in VARIANT_SHAPES]):
+        x = _variant_inputs(gen, rows, va, vb, cap, dev)
         for carried in (True, False):
             pgs = dict(a_pg=x["a_pg"], b_pg=x["b_pg"]) if carried else {}
             check("variants_and_locate_full",
                   f"variants_and_locate_full V {va}+{vb} n {(va + vb) * cap}"
-                  f" B {SLOT_ROWS} {'carried' if carried else 'shared'} "
+                  f" B {rows} {'carried' if carried else 'shared'} "
                   f"pages", "variants_and_locate_full",
                   "variants_and_locate_full_plain", x["a"], x["na"], x["ra"],
                   x["b"], x["nb"], x["rb"], x["bpad"], x["bounds"], topk=TOPK,
                   hit_cap=HIT_CAP, tail=False, **pgs)
-    for v, cap in ((2, 512), (4, 256), (8, 128)):
-        x = _variant_inputs(rng, SLOT_ROWS, v, 1, cap, dev)
+    for gen, v, cap, rows, topk, hit_cap in (
+            [(rng, v, cap, SLOT_ROWS, TOPK, HIT_CAP)
+             for v, cap in ((2, 512), (4, 256), (8, 128))]
+            + [(vrng,) + shape for shape in UNION_SHAPES]):
+        x = _variant_inputs(gen, rows, v, 1, cap, dev)
         for carried in (True, False):
             check("union_merge_locate_full",
-                  f"union_merge_locate_full V {v} cap {cap} B {SLOT_ROWS} "
+                  f"union_merge_locate_full V {v} cap {cap} B {rows} topk "
+                  f"{topk} hit_cap {hit_cap} "
                   f"{'carried' if carried else 'shared'} pages",
                   "union_merge_locate_full", "union_merge_locate_full_plain",
-                  x["a"], x["na"], x["bounds"], topk=TOPK, hit_cap=HIT_CAP,
+                  x["a"], x["na"], x["bounds"], topk=topk, hit_cap=hit_cap,
                   tail=False, a_pg=x["a_pg"] if carried else None)
     for va, vb, cap, rows in ((2, 2, 512, 1024), (2, 2, 1024, 1024),
                               (4, 4, 4096, 128), (4, 4, 32768, 3)):
@@ -693,14 +719,22 @@ def phase_parity(rng) -> dict:
                            f"V 1 cap {cap}",
                            (x["a"][:, None], x["na"][:, None], x["bounds"]),
                            cap, dict(a_pg=x["a_pg"][:, None]))
-    for v, cap in ((2, 512), (4, 256), (8, 128)):
-        x = _variant_inputs(rng, SLOT_ROWS, v, 1, cap, dev, spacing=120)
+    # narrow rows step wider, so that they too hold more than 16 runs
+    for gen, v, cap, rows in (
+            [(rng, v, cap, SLOT_ROWS) for v, cap in ((2, 512), (4, 256),
+                                                    (8, 128))]
+            + [(vrng,) + shape[:3] for shape in UNION_SHAPES]):
+        x = _variant_inputs(gen, rows, v, 1, cap, dev,
+                            spacing=120 * max(1, 128 // cap))
         sweep("union_locate_full_topk", "union_locate_full",
                            f"V {v} cap {cap}",
                            (x["a"], x["na"], x["bounds"]), v * cap,
                            dict(a_pg=x["a_pg"]))
-    for va, vb, cap in ((2, 2, 128), (4, 4, 128)):
-        x = _variant_inputs(rng, SLOT_ROWS, va, vb, cap, dev, spacing=120)
+    for gen, va, vb, cap, rows in (
+            [(rng, 2, 2, 128, SLOT_ROWS), (rng, 4, 4, 128, SLOT_ROWS)]
+            + [(vrng,) + shape for shape in VARIANT_SHAPES]):
+        x = _variant_inputs(gen, rows, va, vb, cap, dev,
+                            spacing=120 * max(1, 128 // cap))
         sweep(
             "variants_and_locate_full_topk", "variants_and_locate_full",
             f"V {va}+{vb} cap {cap}",
@@ -1161,8 +1195,10 @@ def _ops(name: str, args, outs=None) -> int:
     """Integer operations a kernel core does on these inputs:
     OPS_PER_LANE for every lane that holds data, for the merges
     OPS_PER_STEP for each binary-search step that ranks an element in
-    another block, and for a top-k-mode kernel one compare for every
-    pair of the row's runs (its n_pages, from `outs`)."""
+    another block (the variant slot kernels: in its partner run, once a
+    level of their pairwise tree), and for a top-k-mode kernel one
+    compare for every pair of the row's runs (its n_pages, from
+    `outs`)."""
     from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32
 
@@ -1186,7 +1222,11 @@ def _ops(name: str, args, outs=None) -> int:
         k = sum(x.shape[1] for x, _ in blocks)
         cap = max(x.shape[2] for x, _ in blocks)
         lanes = sum(_valid(n, x.shape[2]) for x, n in blocks)
-        steps = (k - 1) * max(1, int(np.ceil(np.log2(cap + 1))))
+        if name == "merge_tagged":
+            steps = (k - 1) * max(1, int(np.ceil(np.log2(cap + 1))))
+        else:
+            steps = sum(int(np.ceil(np.log2((cap << j) + 1)))
+                        for j in range(int(np.ceil(np.log2(k)))))
         return lanes * (OPS_PER_LANE + OPS_PER_STEP * steps)
     # the W = 2 cores carry (a, a_pg, na, ra, b, b_pg, nb, rb, ...), the
     # W = 1 cores (a, a_pg, na, ...)
@@ -1216,7 +1256,8 @@ def _library_call(name: str, calls):
     return lambda: [torch.sort(k, dim=1, stable=True) for k in keys]
 
 
-def phase_kernel_times(batches, names, most: int = 0) -> dict:
+def phase_kernel_times(batches, names, most: int = 0,
+                       where: str = "the batches") -> dict:
     """The kernels `names` on the calls the kernel-route batches
     (callables that run one batch each) make: the
     calls' inputs are recorded, then each kernel's launches for the
@@ -1225,7 +1266,7 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
     merge_tagged, the one PyTorch call that computes the same function
     (a stable sort of the packed coord << 2 | tag key). With `most`, at
     most that many of a core's calls, evenly spaced over the batches,
-    are timed."""
+    are timed. `where` names the batches in the printed lines."""
     from docodo_tpu_torch.ops import _cuda
     from docodo_tpu_torch.ops import query_kernels as qk
 
@@ -1287,8 +1328,8 @@ def phase_kernel_times(batches, names, most: int = 0) -> dict:
         shapes = sorted({tuple(a[0].shape) for _, _, cs in runs for a in cs})
         n_made = sum(made[core] for core, _ in cores)
         say(f"kernel time: {name}: {n_calls} "
-            f"{'' if n_calls == n_made else f'of the {n_made} '}calls of the "
-            f"batches (shapes {shapes[:3]}{'...' if len(shapes) > 3 else ''}), "
+            f"{'' if n_calls == n_made else f'of the {n_made} '}calls of "
+            f"{where} (shapes {shapes[:3]}{'...' if len(shapes) > 3 else ''}), "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{res[name]['bound_ms']:.4f} ms ({nbytes} bytes, {ops} ops), "
             f"library "
@@ -1348,6 +1389,18 @@ FORMS = {"and_locate_topk": (
     "from bounds (pallas_query.py:133)",
     lambda a: (a[0], None, a[2], a[3], a[4], None) + tuple(a[6:]))}
 
+
+def _stream_width(args) -> int:
+    """n of a variant slot core's call: (va + vb) cap, or V cap."""
+    a = args[0]
+    return (a.shape[1] + (args[4].shape[1] if len(args) > 5 else 0)) \
+        * a.shape[2]
+
+
+VARIANT_WIDTHS = tuple(
+    (f"N = {w}", lambda a, w=w: w // 2 < _stream_width(a) <= w)
+    for w in (128, 256, 512, 1024))
+
 # the TPU kernels a port covers in parts: its calls split by width or V
 # (PERF.md's rows 8 / 9, 11 / 12 and 3 / 5)
 SPLITS = {
@@ -1358,7 +1411,12 @@ SPLITS = {
     "variants_keep": (("n <= 4096", lambda a: a[0].shape[1] <= 4096),
                       ("n > 4096", lambda a: a[0].shape[1] > 4096)),
     "union_merge_locate_full": (("V = 2", lambda a: a[0].shape[1] == 2),
-                                ("V > 2", lambda a: a[0].shape[1] > 2)),
+                                ("V > 2", lambda a: a[0].shape[1] > 2))
+    + VARIANT_WIDTHS,
+    # the variant slot kernels' four stream widths
+    "variants_and_locate_full": VARIANT_WIDTHS,
+    "variants_and_locate_full_topk": VARIANT_WIDTHS,
+    "union_locate_full_topk": VARIANT_WIDTHS,
     # one pass, or a tree of passes
     "merge_tagged": (("2 blocks", lambda a: _n_blocks(a) <= 2),
                      ("more than 2 blocks", lambda a: _n_blocks(a) > 2)),
@@ -1557,7 +1615,13 @@ def main() -> None:
     # pass (both mixes, the escalated rows included)
     times.update(phase_kernel_times(
         [lambda: _profile_batch().serve_pass(dix, queries + wide, False)],
-        SERVE_KERNELS, most=64))
+        SERVE_KERNELS, most=64, where="the top-k-mode serving pass"))
+    # the variant slot kernels on the serving pass the batcher sends
+    # (sort_topk=True): printed beside their fused-batch times above
+    phase_kernel_times(
+        [lambda: _profile_batch().serve_pass(dix, queries + wide, True)],
+        ("variants_and_locate_full", "union_merge_locate_full"), most=64,
+        where="the serving pass")
     phase_oracle(dix, queries, out, rng, "standard mix")
     phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
     phase_page_oracle(dix, queries, pout, rng)

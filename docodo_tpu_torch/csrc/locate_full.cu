@@ -107,8 +107,6 @@ __device__ void sorted_and_body(
   tail.run(g, sm.row, keep, n, (n + Grp::kThreads - 1) / Grp::kThreads);
 }
 
-constexpr int kSlotThreads = 256;
-constexpr int kSlotLanes = 1024;  // stream width of the slot kernels
 constexpr int kSlotIpt = kSlotLanes / kSlotThreads;
 
 constexpr int kFusedLanes = 4096;  // FUSED_AND_MAX, pallas_query.py:2478
@@ -121,12 +119,7 @@ constexpr int kFusedLanes = 4096;  // FUSED_AND_MAX, pallas_query.py:2478
 // Rows 1, 15a, 13 and 17 of PERF.md's table are this kernel with the
 // slots, the top-k and the page-level tail (17: pages from bounds).
 template <int N>
-struct W2Shape {
-  static constexpr int kGroup = N / 4;
-  static constexpr int kRows = kSlotThreads / kGroup;
-  static constexpr int kIpt = N / kGroup;
-  static constexpr size_t kSmem = kRows * sizeof(AndSmem<N>);
-};
+using W2Shape = SlotShape<N, AndSmem<N>>;
 
 template <class Tail, int N>
 __global__ void __launch_bounds__(kSlotThreads) sorted_and_locate_full_kernel(
@@ -299,12 +292,11 @@ int launch_w2(const int* a, const int* a_pg, const int* na, const int* ra,
               const int* bounds, int p_bounds, int rows, int cap,
               const Tail& tail, void* stream) {
   using S = W2Shape<N>;
-  static_assert(S::kSmem <= 48 * 1024, "needs no shared memory attribute");
   if (rows > 0)
     sorted_and_locate_full_kernel<Tail, N>
-        <<<(rows + S::kRows - 1) / S::kRows, kSlotThreads, S::kSmem,
-           (cudaStream_t)stream>>>(a, a_pg, na, ra, b, b_pg, nb, rb, bounds,
-                                   p_bounds, rows, cap, tail);
+        <<<S::blocks(rows), S::kThreads, S::kSmem, (cudaStream_t)stream>>>(
+            a, a_pg, na, ra, b, b_pg, nb, rb, bounds, p_bounds, rows, cap,
+            tail);
   return (int)cudaGetLastError();
 }
 
@@ -319,17 +311,11 @@ int launch_sorted_and(const int* a, const int* a_pg, const int* na,
   const int n = 2 * cap;
   if (cap <= 0 || n > kSlotLanes || (!a_pg && p_bounds <= 0))
     return (int)cudaErrorInvalidValue;
-  if (n <= 128)
-    return launch_w2<128>(a, a_pg, na, ra, b, b_pg, nb, rb, bounds,
-                          p_bounds, rows, cap, tail, stream);
-  if (n <= 256)
-    return launch_w2<256>(a, a_pg, na, ra, b, b_pg, nb, rb, bounds,
-                          p_bounds, rows, cap, tail, stream);
-  if (n <= 512)
-    return launch_w2<512>(a, a_pg, na, ra, b, b_pg, nb, rb, bounds,
-                          p_bounds, rows, cap, tail, stream);
-  return launch_w2<1024>(a, a_pg, na, ra, b, b_pg, nb, rb, bounds, p_bounds,
-                         rows, cap, tail, stream);
+  return with_width(n, [&](auto w) {
+    return launch_w2<decltype(w)::value>(a, a_pg, na, ra, b, b_pg, nb, rb,
+                                         bounds, p_bounds, rows, cap, tail,
+                                         stream);
+  });
 }
 
 // A fused kernel at width N, one row a block, its shared memory limit

@@ -94,6 +94,44 @@ struct AndSmem {
   unsigned char tag[N];
 };
 
+// Threads of a block of the slot kernels that pack several rows a block,
+// and the widest row they take (MAX_STREAM_WIDTH, pallas_query.py:780).
+constexpr int kSlotThreads = 256;
+constexpr int kSlotLanes = 1024;
+
+// The launch shape of a slot kernel at stream width N (a row of at most N
+// lanes) whose row keeps its state in Smem: a row group of G threads (N /
+// 4 unless given: 4 lanes a thread), kSlotThreads / G rows a block (8, 4,
+// 2 and 1 at N = 128, 256, 512, 1024 with 4 lanes a thread), or one row
+// a block of G threads past kSlotThreads; each row in its own Smem of the
+// block's dynamic shared memory.
+template <int N, class Smem, int G = N / 4>
+struct SlotShape {
+  static_assert(G % 32 == 0 && N % G == 0, "whole warps, whole lanes");
+  static constexpr int kGroup = G;
+  static constexpr int kRows = G >= kSlotThreads ? 1 : kSlotThreads / G;
+  static constexpr int kThreads = kRows * G;
+  static constexpr int kIpt = N / G;
+  static constexpr size_t kSmem = kRows * sizeof(Smem);
+  static_assert(kSmem <= 48 * 1024, "needs no shared memory attribute");
+  static unsigned blocks(int rows) { return (rows + kRows - 1) / kRows; }
+};
+
+template <int N>
+struct Width {
+  static constexpr int value = N;
+};
+
+// launch(Width<N>{}) at the narrowest stream width N of 128, 256, 512 and
+// 1024 that holds n lanes (n <= kSlotLanes).
+template <class Launch>
+int with_width(int n, const Launch& launch) {
+  if (n <= 128) return launch(Width<128>{});
+  if (n <= 256) return launch(Width<256>{});
+  if (n <= 512) return launch(Width<512>{});
+  return launch(Width<1024>{});
+}
+
 // Four consecutive ints of a row from i on, of which those at i + j < len
 // are read: one 16-byte load where `vec` (the row 16-byte aligned, its
 // width a multiple of 4, so the load stays inside it).

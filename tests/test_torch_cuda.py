@@ -194,12 +194,24 @@ def _variant_blocks(rng, bsz, va, vb, cap, dev, spacing=12):
                 b_pg=c(pg(b)))
 
 
+# The variant slot kernels are compiled for stream widths N = 128, 256,
+# 512 and 1024 and dispatched on n = V cap, with a lane a thread when a
+# launch's rows fit in one wave of that shape (up to ~130-1000 rows on an
+# H100, by N) and else 4 lanes a thread, 8, 4, 2 and 1 rows a block: the
+# cases reach each width in both shapes, row counts that leave the last
+# block part-filled or hold one row, and 2 to 32 blocks a row.
 @pytest.mark.cuda
-@pytest.mark.parametrize("va,vb,cap,carried", [
-    (2, 2, 128, True), (4, 4, 128, False), (1, 4, 64, True)])
+@pytest.mark.parametrize("va,vb,cap,carried,rows", [
+    (2, 2, 128, True, 512), (4, 4, 128, False, 512), (1, 4, 64, True, 512),
+    (2, 2, 32, True, 7), (1, 1, 64, False, 2049),     # N = 128
+    (2, 2, 64, True, 129), (4, 4, 32, False, 1),      # N = 256
+    (2, 2, 64, False, 1031),
+    (4, 4, 64, False, 7),                             # N = 512
+    (4, 4, 128, True, 128),                           # the serving shape
+    (8, 8, 64, True, 7), (16, 16, 32, False, 129)])   # 16 and 32 blocks
 def test_variants_and_locate_full_matches_plain_on_card(cuda_device, va, vb,
-                                                        cap, carried):
-    x = _variant_blocks(np.random.default_rng(cap + va), 512, va, vb, cap,
+                                                        cap, carried, rows):
+    x = _variant_blocks(np.random.default_rng(cap + va), rows, va, vb, cap,
                         cuda_device)
     args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bpad"],
             x["bounds"])
@@ -209,19 +221,36 @@ def test_variants_and_locate_full_matches_plain_on_card(cuda_device, va, vb,
     got = qk.variants_and_locate_full(*args, **kw)
     torch.cuda.synchronize()
     _assert_fields_equal(got, qk.variants_and_locate_full_plain(*args, **kw))
-    assert int(got[3].max()) > 16 and int(got[4].min()) >= 0
+    assert int(got[4].min()) >= 0
+    if rows == 512:
+        assert int(got[3].max()) > 16
+    if rows > 8:
+        assert int(got[4].max()) > 0 and int(x["bpad"].sum()) > 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("v,cap", [(2, 512), (4, 256), (8, 128)])
-def test_union_merge_locate_full_matches_plain_on_card(cuda_device, v, cap):
-    x = _variant_blocks(np.random.default_rng(v), 512, v, 1, cap,
+@pytest.mark.parametrize("v,cap,rows,topk,hit_cap,carried", [
+    (2, 512, 512, 16, 1024, True), (4, 256, 512, 16, 1024, True),
+    (8, 128, 512, 16, 1024, True),
+    (2, 32, 7, 16, 1024, False), (4, 32, 2049, 16, 1024, True),  # N = 128
+    (2, 128, 1, 16, 1024, True), (2, 128, 1031, 16, 1024, False),  # 256
+    (8, 64, 129, 64, 1024, False), (8, 64, 513, 16, 1024, True),   # 512
+    (8, 128, 128, 64, 1024, True),        # the serving shape
+    (8, 128, 512, 128, 2048, True),       # the escalated shape
+    (16, 64, 7, 16, 1024, False), (32, 32, 129, 64, 1024, True)])
+def test_union_merge_locate_full_matches_plain_on_card(cuda_device, v, cap,
+                                                       rows, topk, hit_cap,
+                                                       carried):
+    x = _variant_blocks(np.random.default_rng(v), rows, v, 1, cap,
                         cuda_device)
-    kw = dict(topk=16, hit_cap=1024, tail=False, a_pg=x["a_pg"])
+    kw = dict(topk=topk, hit_cap=hit_cap, tail=False,
+              a_pg=x["a_pg"] if carried else None)
     got = qk.union_merge_locate_full(x["a"], x["na"], x["bounds"], **kw)
     torch.cuda.synchronize()
     _assert_fields_equal(got, qk.union_merge_locate_full_plain(
         x["a"], x["na"], x["bounds"], **kw))
+    if rows > 8:
+        assert int(got[4].max()) > 0
 
 
 @pytest.mark.cuda
@@ -436,11 +465,16 @@ def test_topk_mode_kernel_matches_plain_on_card(cuda_device, name, cap, topk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("va,vb,cap,topk,carried", [
-    (2, 2, 128, 16, True), (4, 4, 128, 64, False), (1, 4, 64, 2048, True)])
+@pytest.mark.parametrize("va,vb,cap,topk,carried,rows", [
+    (2, 2, 128, 16, True, 512), (4, 4, 128, 64, False, 512),
+    (1, 4, 64, 2048, True, 512),
+    (2, 2, 32, 16, False, 2049), (2, 2, 64, 64, True, 7),  # N = 128, 256
+    (4, 4, 64, 16, True, 1),                               # N = 512
+    (4, 4, 128, 64, True, 128),                            # serving shape
+    (8, 8, 64, 16, False, 129), (16, 16, 32, 64, True, 7)])
 def test_variants_topk_mode_matches_plain_on_card(cuda_device, va, vb, cap,
-                                                  topk, carried):
-    x = _variant_blocks(np.random.default_rng(cap + va), 512, va, vb, cap,
+                                                  topk, carried, rows):
+    x = _variant_blocks(np.random.default_rng(cap + va), rows, va, vb, cap,
                         cuda_device)
     args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bpad"],
             x["bounds"])
@@ -451,14 +485,23 @@ def test_variants_topk_mode_matches_plain_on_card(cuda_device, va, vb, cap,
     torch.cuda.synchronize()
     _assert_finished_equal(got,
                            qk.variants_and_locate_full_plain(*args, **kw))
-    assert int(got[3].max()) > 16 and int(got[4].max()) > 0
+    if rows == 512:
+        assert int(got[3].max()) > 16
+    if rows > 8:
+        assert int(got[4].max()) > 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("v,cap,topk", [(2, 512, 64), (4, 256, 16),
-                                        (8, 128, 2048)])
-def test_union_topk_mode_matches_plain_on_card(cuda_device, v, cap, topk):
-    x = _variant_blocks(np.random.default_rng(v), 512, v, 1, cap,
+@pytest.mark.parametrize("v,cap,topk,rows", [
+    (2, 512, 64, 512), (4, 256, 16, 512), (8, 128, 2048, 512),
+    (4, 32, 16, 7), (2, 128, 64, 129), (8, 64, 16, 1),  # N = 128-512
+    (2, 64, 16, 2049), (2, 128, 64, 1031),
+    (8, 128, 128, 512),                   # the escalated shape
+    (1, 1024, 64, 129),                   # V = 1, past the W = 1 kernel
+    (16, 64, 64, 129), (32, 32, 16, 7)])
+def test_union_topk_mode_matches_plain_on_card(cuda_device, v, cap, topk,
+                                               rows):
+    x = _variant_blocks(np.random.default_rng(v), rows, v, 1, cap,
                         cuda_device)
     kw = dict(topk=topk, hit_cap=8192, sort_topk=False, a_pg=x["a_pg"])
     got = qk.union_locate_full(x["a"], x["na"], x["bounds"], **kw)

@@ -89,6 +89,9 @@ def pages(x, bounds):
     (2, 2, 128, "shared", True),
     (1, 4, 64, "none", False),       # nested OR: w1 (a|b|c) padded to 4
     (4, 4, 128, "carried", True),    # 1024 lanes
+    (2, 2, 32, "carried", False),    # n 128: the narrowest stream width
+    (2, 2, 64, "shared", False),     # n 256
+    (8, 8, 64, "carried", False),    # 16 blocks
 ])
 def test_variants_and_locate_full_matches_pallas(rng, va, vb, cap, pg_mode,
                                                  tail):
@@ -122,6 +125,7 @@ def test_variants_and_locate_full_matches_pallas(rng, va, vb, cap, pg_mode,
     (2, 128, "shared", True),
     (4, 128, "carried", True),    # sort, then the union kernel
     (8, 64, "none", False),       # the wide mix's wildcard union
+    (8, 128, "carried", False),   # the serving shape, 1024 lanes
 ])
 def test_union_merge_locate_full_matches_pallas(rng, v, cap, pg_mode, tail):
     """Kernel F's plain version against pallas_union_locate_full at

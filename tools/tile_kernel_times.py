@@ -17,8 +17,16 @@ time of a wrapper call, on seeded chip_smoke.py inputs:
 - merge_and_locate_topk and merge_and_locate at the fused batches'
   widest launches, cap 1024 x 128 and 2048 x 64 rows, with the inputs'
   pages and with one page a row (every kept lane of a row in one run);
+- the variant slot kernels, union_merge_locate_full and
+  variants_and_locate_full, each with the slots tail and the top-k one
+  (union_locate_full_topk, variants_and_locate_full_topk), at the wide
+  serving pass's launches (V 8 and V 4 + 4 at cap 128, 128 rows; V 8 at
+  512 rows, topk 128, hit_cap 2048), at each stream width they are
+  compiled for (n = 128, 256, 512) and at 16 and 32 blocks a row;
 - the host microseconds of one call of merge_tagged and of
-  sorted_and_locate_full at 8 rows of cap 64, where the card waits on
+  sorted_and_locate_full at 8 rows of cap 64, and of
+  variants_and_locate_full (V 4 + 4) and union_merge_locate_full (V 4)
+  at the serving pass's 128 rows of cap 128, where the card waits on
   the host (the least of 9 means over 100 calls).
 
 A device time is the mean of one call over 20, from torch.profiler's
@@ -29,10 +37,13 @@ merge_tagged's in the wide fused batch (the wide mix and its
 alternations), merge_and_locate_topk's in the standard and the wide
 fused batch, and the page-level W = 2 kernel's in the page-level batch
 (the standard mix through search_batch, topk 16), also with its pages
-from bounds; for each shape the calls, the device ms of all of them once
-and their bytes bound, and for merge_and_locate_topk also the same calls
-through the kernels that give a row several blocks (merge_tagged,
-and_keep, locate_runs).
+from bounds, and the variant slot kernels' calls (both tails) in the
+wide fused batch and in one wide serving pass per sort_topk mode (the
+wide mix, tools/profile_batch.py's serve_pass: waves of 512 rows, the
+cap ladder, deferred, then the escalated pass); for each shape the
+calls, the device ms of all of them once and their bytes bound, and for
+merge_and_locate_topk also the same calls through the kernels that give
+a row several blocks (merge_tagged, and_keep, locate_runs).
 
     python3 tools/tile_kernel_times.py [--batch] [ROOT ...]
 
@@ -65,6 +76,8 @@ SLOT = ("sorted_and_locate_full_kernel",)
 PAGE = ("::and_locate_topk_kernel", "PageTopkTail")
 FUSED = ("merge_and_locate_topk_kernel",)
 STREAMS = ("merge_and_locate_kernel",)
+VARIANTS = ("variants_and_locate_full_kernel",)
+UNION = ("union_merge_locate_full_kernel",)
 # (rows, cap) of W = 2 buckets: a wide bucket at the largest cap, a few
 # rows at cap 32768, and many-row buckets within one tile
 W2_SHAPES = ((8, 262144), (8, 32768), (64, 2048), (1024, 1024))
@@ -74,6 +87,14 @@ VARIANT_SHAPES = ((4, 4, 32768, 8), (4, 4, 512, 128))
 SLOT_SHAPES = ((64, 8192), (128, 1024), (256, 512), (512, 512))
 # (cap, rows) of the fused kernels' widest launches in the fused batches
 FUSED_SHAPES = ((1024, 128), (2048, 64))
+# (va, vb, cap, rows, topk, hit_cap) of the variant slot kernels; vb = 0
+# is union_merge_locate_full: the wide serving pass's launches, then each
+# narrower stream width and 16 and 32 blocks a row
+VARIANT_SLOT_SHAPES = ((8, 0, 128, 128, 64, 1024), (4, 4, 128, 128, 64, 1024),
+                       (8, 0, 128, 512, 128, 2048), (2, 2, 128, 128, 64, 1024),
+                       (4, 0, 32, 512, 64, 1024), (2, 2, 64, 512, 64, 1024),
+                       (4, 0, 128, 512, 64, 1024), (8, 8, 64, 128, 64, 1024),
+                       (32, 0, 32, 128, 64, 1024))
 
 
 def device_ms(fn, names=None) -> float:
@@ -126,7 +147,14 @@ def host_us(fn) -> float:
 # kernel name, the profiler names of its launches)
 BATCH_CORES = {"_merge_tagged_kernel": ("merge_tagged", MERGE),
                "_merge_and_locate_kernel": ("merge_and_locate_topk", FUSED),
-               "_and_topk_kernel": ("and_locate_topk", PAGE)}
+               "_and_topk_kernel": ("and_locate_topk", PAGE),
+               "_union_merge_kernel": ("union_merge_locate_full", UNION),
+               "_variants_and_kernel": ("variants_and_locate_full",
+                                        VARIANTS)}
+# the variant cores' top-k twins go through the same cores with their
+# kernel= argument
+TWINS = {"union_merge_locate_full": "union_locate_full_topk",
+         "variants_and_locate_full": "variants_and_locate_full_topk"}
 
 
 def batch_calls(cs, qk) -> dict:
@@ -138,12 +166,19 @@ def batch_calls(cs, qk) -> dict:
     import contextlib
     import io
 
+    import numpy as np
     import torch
+
+    from docodo_tpu_torch.mix import mix_queries, wide_mix
 
     with contextlib.redirect_stdout(io.StringIO()):
         dix = cs.phase_index(64.0, 0)
     std = cs._queries(dix, cs.N_QUERIES)
     wide = cs._wide_queries(dix, cs.N_QUERIES, cs.N_ALTERNATIONS)
+    pb = cs._profile_batch()
+    terms, rs, _ = wide_mix(np.diff(dix.offsets_np), dix.terms,
+                            cs.N_QUERIES, seed=cs.WIDE_SEED)
+    serve = mix_queries(terms, rs, dix.terms)
     batches = {
         "standard batch": lambda: dix.search_batch_full(
             std, topk=64, hit_cap=1024, use_kernels=True),
@@ -151,6 +186,8 @@ def batch_calls(cs, qk) -> dict:
             wide, topk=64, hit_cap=1024, use_kernels=True),
         "page batch": lambda: dix.search_batch(std, topk=cs.PAGE_TOPK,
                                                use_kernels=True),
+        "wide serve": lambda: pb.serve_pass(dix, serve, True),
+        "wide serve top-k mode": lambda: pb.serve_pass(dix, serve, False),
     }
     groups = {}
     saved = {core: getattr(qk, core) for core in BATCH_CORES}
@@ -159,8 +196,17 @@ def batch_calls(cs, qk) -> dict:
     def recorder(core):
         name = BATCH_CORES[core][0]
 
-        def rec(*args):
+        def rec(*args, **kw):
             a = args[0]
+            if name in TWINS:
+                twin = "kernel" in kw
+                shape = (f"B{a.shape[0]} V{a.shape[1]}"
+                         + (f"+{args[4].shape[1]}"
+                            if name == "variants_and_locate_full" else "")
+                         + f" cap{a.shape[2]} kpad{args[-2]} hpad{args[-1]}")
+                key = (TWINS[name] if twin else name, label[0], shape)
+                groups.setdefault(key, []).append((args, kw))
+                return saved[core](*args, **kw)
             if name == "merge_tagged":
                 b = args[3]
                 shape = (f"B{a.shape[0]} a{tuple(a.shape[1:])} "
@@ -170,7 +216,7 @@ def batch_calls(cs, qk) -> dict:
                          f"hpad{args[9]}")
             else:
                 shape = f"B{a.shape[0]} cap{a.shape[1]} topk{args[9]}"
-            groups.setdefault((name, label[0], shape), []).append(args)
+            groups.setdefault((name, label[0], shape), []).append((args, {}))
             return saved[core](*args)
         return rec
 
@@ -186,12 +232,14 @@ def batch_calls(cs, qk) -> dict:
     out = {}
     cores = {name: (saved[core], names)
              for core, (name, names) in BATCH_CORES.items()}
+    cores.update({twin: cores[name] for name, twin in TWINS.items()})
     for (name, where, shape), calls in sorted(groups.items()):
         core, names = cores[name]
         key = f"{name} {where} {shape}"
         out[key] = [len(calls), device_ms(
-            lambda: [core(*a) for a in calls], names),
-            sum(bound_ms(cs, name, a) for a in calls)]
+            lambda: [core(*a, **kw) for a, kw in calls], names),
+            sum(bound_ms(cs, name, a) for a, _ in calls)]
+        calls = [a for a, _ in calls]
         if name == "merge_and_locate_topk":
             def chunked(calls=calls):
                 for a, a_pg, na, ra, b, b_pg, nb, rb, kpad, hpad in calls:
@@ -321,6 +369,34 @@ def measure(root: Path, batch: bool = False) -> dict:
             out[key + " merge_and_locate"] = device_ms(
                 lambda: qk.merge_and_locate(*args), STREAMS)
 
+    # the variant slot kernels, both tails, with the inputs' pages
+    for va, vb, cap, rows, topk, hit_cap in VARIANT_SLOT_SHAPES:
+        x = cs._variant_inputs(rng, rows, va, max(vb, 1), cap, dev,
+                               spacing=120)
+        n = (va + vb) * cap
+        if vb:
+            name, names = "variants_and_locate_full", VARIANTS
+            args = (x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"],
+                    x["bpad"], x["bounds"])
+            pgs = dict(a_pg=x["a_pg"], b_pg=x["b_pg"])
+            core = (x["a"], x["a_pg"], x["na"], x["ra"], x["b"], x["b_pg"],
+                    x["nb"], x["rb"], x["bpad"])
+        else:
+            name, names = "union_merge_locate_full", UNION
+            args = (x["a"], x["na"], x["bounds"])
+            pgs = dict(a_pg=x["a_pg"])
+            core = (x["a"], x["a_pg"], x["na"])
+        fn = getattr(qk, name)
+        key = f"var V{va}+{vb} cap{cap} B{rows} topk{topk} hit_cap{hit_cap}"
+        out[f"{key} {name}"] = device_ms(
+            lambda: fn(*args, topk=topk, hit_cap=hit_cap, tail=False,
+                       **pgs), names)
+        out[f"{key} {name} bound"] = bound_ms(
+            cs, name, core + (min(topk, n), min(hit_cap, n)))
+        out[f"{key} {TWINS[name]}"] = device_ms(
+            lambda: fn(*args, topk=topk, hit_cap=hit_cap, sort_topk=False,
+                       **pgs), names)
+
     if batch:
         out.update(batch_calls(cs, qk))
     x = cs._parity_inputs(rng, 8, 64, dev)
@@ -332,6 +408,16 @@ def measure(root: Path, batch: bool = False) -> dict:
             x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bounds"],
             topk=64, hit_cap=1024, tail=False, a_pg=x["a_pg"],
             b_pg=x["b_pg"]))
+    x = cs._variant_inputs(rng, 128, 4, 4, 128, dev)
+    out["host us variants_and_locate_full B128 V4+4 cap128"] = host_us(
+        lambda: qk.variants_and_locate_full(
+            x["a"], x["na"], x["ra"], x["b"], x["nb"], x["rb"], x["bpad"],
+            x["bounds"], topk=64, hit_cap=1024, tail=False, a_pg=x["a_pg"],
+            b_pg=x["b_pg"]))
+    out["host us union_merge_locate_full B128 V4 cap128"] = host_us(
+        lambda: qk.union_merge_locate_full(
+            x["a"], x["na"], x["bounds"], topk=64, hit_cap=1024, tail=False,
+            a_pg=x["a_pg"]))
     return out
 
 
