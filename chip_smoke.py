@@ -122,6 +122,10 @@ SLOT_CAPS = {
     "union_locate_full": (256, 512, 1024),
 }
 SLOT_ROWS = 4096
+# rows of the W = 1 kernel's parity cases beyond SLOT_CAPS': a serving
+# launch (one wave: a lane a thread) and more than a wave at every width
+# (4 lanes a thread, the last block part-filled)
+W1_ROWS = (128, SLOT_ROWS - 3)
 # (va, vb, cap, rows) of variants_and_locate_full's parity cases and
 # (v, cap, rows, topk, hit_cap) of union_merge_locate_full's beyond n
 # 512 / 1024 at 4096 rows: the other stream widths of the variant slot
@@ -376,6 +380,25 @@ def _variant_inputs(rng, rows: int, va: int, vb: int, cap: int, dev,
     return dict(a=t(a), na=t(na), ra=t(ra), b=t(b), nb=t(nb), rb=t(rb),
                 bpad=t(bpad), bounds=t(bounds), a_pg=t(pages(a)),
                 b_pg=t(pages(b)))
+
+
+def _w1_inputs(rng, rows: int, cap: int, dev, dups: bool):
+    """_parity_inputs' spread word A as a W = 1 block, with lengths past
+    cap on every 11th row (the kernels clamp them) and, with `dups`,
+    about one lane in ten holding the value of the lane before it (the
+    V = 1 union keeps the first lane of each run); pages of the result."""
+    x = _parity_inputs(rng, rows, cap, dev, spread=True)
+    a, na = x["a"], x["na"].clone()
+    na[3::11] = cap + 9
+    if dups:
+        lane = torch.arange(cap, device=dev)[None, :]
+        repeat = torch.as_tensor(rng.random((rows, cap)) < 0.1, device=dev)
+        a = torch.gather(a, 1, torch.where(repeat, (lane - 1).clamp(min=0),
+                                           lane))
+    bounds = x["bounds"]
+    pg = torch.searchsorted(bounds, a, right=True).clamp_max(
+        bounds.numel() - 1).to(torch.int32)
+    return dict(a=a.contiguous(), na=na, bounds=bounds, a_pg=pg)
 
 
 def _tile_edges(vals, tag, ra, rb, variants: bool):
@@ -801,6 +824,38 @@ def phase_parity(rng) -> dict:
             f"equal, and its first {TOPK} runs equal merge_and_locate_topk's "
             f"({kept} kept, ordered windows on every second row, {empty} "
             f"rows with an empty operand, {dups} coordinates in both words)")
+
+    # the W = 1 kernel (rows 2, 15d and 3 at V = 1) at every cap it serves
+    # in both launch shapes (W1_ROWS), both tails of row 2, carried and
+    # looked-up pages; inputs from a generator of their own
+    wrng = np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0])
+    for name in ("single_locate_full", "union_locate_full"):
+        union = name == "union_locate_full"
+        for cap, rows in [(c, r) for c in SLOT_CAPS[name] for r in W1_ROWS]:
+            x = _w1_inputs(wrng, rows, cap, dev, dups=union)
+            a, na, a_pg = x["a"], x["na"], x["a_pg"]
+            if union:
+                a, na, a_pg = a[:, None], na[:, None], a_pg[:, None]
+            for carried in (True, False):
+                check(name, f"{name} cap {cap} B {rows} "
+                      f"{'carried' if carried else 'shared'} pages",
+                      name, name + "_plain", a, na, x["bounds"], topk=TOPK,
+                      hit_cap=HIT_CAP, tail=False,
+                      a_pg=a_pg if carried else None)
+            lane = torch.arange(cap, device=dev)[None, :]
+            live = lane < x["na"][:, None]
+            dups = int(((x["a"][:, 1:] == x["a"][:, :-1])
+                        & live[:, 1:]).sum())
+            past = int((x["na"] > cap).sum())
+            require(past > 0 and (dups > 0) == union,
+                    f"{name} cap {cap} B {rows}: {past} rows past cap, "
+                    f"{dups} repeated lanes")
+            say(f"parity: {name} cap {cap} B {rows}: {past} rows with a "
+                f"length past cap, {dups} lanes repeating the one before")
+            if not union:
+                sweep("single_locate_full_topk", "single_locate_full",
+                      f"cap {cap} B {rows}", (a, na, x["bounds"]), cap,
+                      dict(a_pg=a_pg))
     return err
 
 
@@ -1401,6 +1456,9 @@ VARIANT_WIDTHS = tuple(
     (f"N = {w}", lambda a, w=w: w // 2 < _stream_width(a) <= w)
     for w in (128, 256, 512, 1024))
 
+W1_CAPS = tuple((f"cap {cap}", lambda a, cap=cap: a[0].shape[1] == cap)
+                for cap in (64, 128, 256, 512, 1024))
+
 # the TPU kernels a port covers in parts: its calls split by width or V
 # (PERF.md's rows 8 / 9, 11 / 12 and 3 / 5)
 SPLITS = {
@@ -1420,6 +1478,10 @@ SPLITS = {
     # one pass, or a tree of passes
     "merge_tagged": (("2 blocks", lambda a: _n_blocks(a) <= 2),
                      ("more than 2 blocks", lambda a: _n_blocks(a) > 2)),
+    # the W = 1 kernel's caps (rows 2 and 15d: 64, 128; row 3: 256-1024)
+    "single_locate_full": W1_CAPS,
+    "single_locate_full_topk": W1_CAPS,
+    "union_locate_full": W1_CAPS,
     # the W = 2 slot kernel's four stream widths, the page-level one's
     # likewise, the fused kernel's two
     "sorted_and_locate_full": tuple(
@@ -1616,11 +1678,13 @@ def main() -> None:
     times.update(phase_kernel_times(
         [lambda: _profile_batch().serve_pass(dix, queries + wide, False)],
         SERVE_KERNELS, most=64, where="the top-k-mode serving pass"))
-    # the variant slot kernels on the serving pass the batcher sends
-    # (sort_topk=True): printed beside their fused-batch times above
+    # the variant slot kernels and the W = 1 kernel on the serving pass the
+    # batcher sends (sort_topk=True): printed beside their fused-batch
+    # times above
     phase_kernel_times(
         [lambda: _profile_batch().serve_pass(dix, queries + wide, True)],
-        ("variants_and_locate_full", "union_merge_locate_full"), most=64,
+        ("variants_and_locate_full", "union_merge_locate_full",
+         "single_locate_full", "union_locate_full"), most=64,
         where="the serving pass")
     phase_oracle(dix, queries, out, rng, "standard mix")
     phase_oracle(dix, wide, wout, rng, "wide mix + alternations")

@@ -61,8 +61,11 @@
 // 2 and 4 warps at N = 256 and 512 (named barriers over the row's own
 // warps) and the block at 1024, with the shared memory of N lanes a row;
 // its operands and pages come in as 16-byte loads and its hits go out
-// from shared memory, consecutive threads on consecutive slots. The other
-// kernels give a row a whole block. The W = 2 kernels merge
+// from shared memory, consecutive threads on consecutive slots. The W = 1
+// kernel (rows 2, 15d and 3 at V = 1: one template on the keep rule) is
+// compiled for the same widths, each row in RowSmem<N>, and its launch
+// shape follows its rows (launch_by_rows): a lane a thread when the
+// launch fits in one wave, else N / 4 threads a row. The W = 2 kernels merge
 // their two posting blocks by rank in shared memory, so the separate sort
 // launch of the TPU route disappears. The TPU kernels' lane-roll log-step
 // scans, packed scan pairs, bitonic merge network and log-shift compaction
@@ -85,6 +88,21 @@
 
 #include "slot_row.cuh"
 
+namespace docodo {
+
+// The W = 1 kernel's keep rules (in docodo, so that a profiler's kernel
+// names spell them): a plain word keeps its block's first na lanes, a
+// prefix of the row; a V = 1 union keeps a lane where it is valid and
+// differs from the lane before it.
+struct SingleKeep {
+  static constexpr bool kPrefix = true;
+};
+struct UnionKeep {
+  static constexpr bool kPrefix = false;
+};
+
+}  // namespace docodo
+
 namespace {
 
 using namespace docodo;
@@ -106,8 +124,6 @@ __device__ void sorted_and_body(
                  p_bounds, cap, keep);
   tail.run(g, sm.row, keep, n, (n + Grp::kThreads - 1) / Grp::kThreads);
 }
-
-constexpr int kSlotIpt = kSlotLanes / kSlotThreads;
 
 constexpr int kFusedLanes = 4096;  // FUSED_AND_MAX, pallas_query.py:2478
 
@@ -217,55 +233,121 @@ __global__ void __launch_bounds__(FusedShape<N>::kThreads)
   }
 }
 
-// Loads one posting block row (INF32 past na) and its page stream.
-template <int T, int N>
-__device__ int load_block(RowSmem<N>& s, const int* a, const int* a_pg,
-                          const int* na_, int cap) {
-  const size_t row = blockIdx.x;
+// W = 1 at stream width N (cap <= N), a row group of G threads (N: a lane
+// a thread, or N / 4), each row in its own RowSmem<N>: thread t owns lanes
+// t ipt .. t ipt + ipt - 1 (ipt = ceil(cap / G)). A thread loads its
+// lanes' values and pages together, 16 bytes each where it owns a quad of
+// a row that allows it, and finds its keep in registers: a union lane
+// compares with the lane before it, which is this thread's, the previous
+// thread's (a shuffle), or at a warp's first thread that lane once more
+// from the block in device memory, so no barrier comes before the tail.
+// Its lanes go to shared memory as they came (a quad in one 16-byte store;
+// the tails read kept lanes only); with SingleKeep the tail knows the
+// kept lanes are the row's first na (Tail::run<true>: no scan finds them,
+// no compaction writes the hits). Rows 2, 15d and 3 (V = 1) of PERF.md.
+template <class Keep, class Tail, int N, int G>
+__global__ void __launch_bounds__(SlotShape<N, RowSmem<N>, G>::kThreads)
+    w1_locate_full_kernel(const int* __restrict__ a,
+                          const int* __restrict__ a_pg,
+                          const int* __restrict__ na_, int rows, int cap,
+                          Tail tail) {
+  using S = SlotShape<N, RowSmem<N>, G>;
+  constexpr int L = S::kIpt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GroupRow<G> g{};
+  if (g.row() >= (size_t)rows) return;  // the last block's spare groups
+  RowSmem<N>& s = reinterpret_cast<RowSmem<N>*>(smem_raw)[g.group()];
+  const size_t row = g.row();
   const int na = clamp_len(na_[row], cap);
-  for (int l = threadIdx.x; l < cap; l += T) {
-    s.val[l] = l < na ? a[row * cap + l] : kInf;
-    s.page[l] = a_pg[row * cap + l];
-  }
-  __syncthreads();
-  return na;
-}
-
-// W = 1: the posting block is the kept stream.
-template <class Tail>
-__global__ void __launch_bounds__(kSlotThreads) single_locate_full_kernel(
-    const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, int cap, Tail tail) {
-  __shared__ RowSmem<kSlotLanes> s;
-  const int na = load_block<kSlotThreads>(s, a, a_pg, na_, cap);
-  const int ipt = (cap + kSlotThreads - 1) / kSlotThreads;
-  const int base = threadIdx.x * ipt;
-  bool keep[kSlotIpt];
+  const int* arow = a + row * cap;
+  const int* prow = a_pg + row * cap;
+  const int ipt = (cap + G - 1) / G;
+  const int base = g.rank() * ipt;
+  int v[L], pg[L];
+  bool vec = false;
+  if constexpr (L == 4)
+    vec = ipt == 4 && cap % 4 == 0 && aligned16(arow) && aligned16(prow);
+  if (vec) {
+    if constexpr (L == 4) {
+      if (base < na) {
+        load4(arow, base, 0, true, v);
+        load4(prow, base, 0, true, pg);
+      }
+    }
+  } else {
 #pragma unroll
-  for (int k = 0; k < kSlotIpt; ++k) keep[k] = k < ipt && base + k < na;
-  tail.run(BlockRow<kSlotThreads>{}, s, keep, cap, ipt);
-}
-
-// W = 1 union of one variant: a slot is kept where it is valid and
-// differs from the previous slot.
-__global__ void __launch_bounds__(kSlotThreads) union_locate_full_kernel(
-    const int* __restrict__ a, const int* __restrict__ a_pg,
-    const int* __restrict__ na_, int cap, SlotsTail tail) {
-  __shared__ RowSmem<kSlotLanes> s;
-  load_block<kSlotThreads>(s, a, a_pg, na_, cap);
-  const int ipt = (cap + kSlotThreads - 1) / kSlotThreads;
-  const int base = threadIdx.x * ipt;
-  bool keep[kSlotIpt];
-#pragma unroll
-  for (int k = 0; k < kSlotIpt; ++k) {
-    const int l = base + k;
-    keep[k] = false;
-    if (k < ipt && l < cap) {
-      const int v = s.val[l];
-      keep[k] = v < kInf && v != (l > 0 ? s.val[l - 1] : -1);
+    for (int k = 0; k < L; ++k) {
+      const int l = base + k;
+      if (k < ipt && l < na) {
+        v[k] = arow[l];
+        pg[k] = prow[l];
+      }
     }
   }
-  tail.run(BlockRow<kSlotThreads>{}, s, keep, cap, ipt);
+  bool keep[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    keep[k] = k < ipt && base + k < na;
+    if (!keep[k]) v[k] = kInf;
+  }
+  if constexpr (!Keep::kPrefix) {
+    int last = v[0];
+#pragma unroll
+    for (int k = 1; k < L; ++k)
+      if (k < ipt) last = v[k];
+    int before = __shfl_up_sync(0xffffffffu, last, 1);
+    if ((g.rank() & 31) == 0)
+      before = base > 0 && base < na ? arow[base - 1] : -1;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      keep[k] = keep[k] && v[k] != before;
+      before = v[k];
+    }
+  }
+  if (vec) {
+    if constexpr (L == 4) {
+      if (base < na) {
+        store4(s.val + base, v);
+        store4(s.page + base, pg);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      if (keep[k]) {
+        s.val[base + k] = v[k];
+        s.page[base + k] = pg[k];
+      }
+    }
+  }
+  tail.template run<Keep::kPrefix>(g, s, keep, cap, ipt, na);
+}
+
+template <class Keep>
+struct W1Launch {
+  template <class Tail, int N, int G>
+  struct At {
+    using Shape = SlotShape<N, RowSmem<N>, G>;
+    static auto kernel() { return w1_locate_full_kernel<Keep, Tail, N, G>; }
+    static int run(int rows, const int* a, const int* a_pg, const int* na,
+                   int cap, Tail tail, void* stream) {
+      if (rows > 0)
+        w1_locate_full_kernel<Keep, Tail, N, G>
+            <<<Shape::blocks(rows), Shape::kThreads, Shape::kSmem,
+               (cudaStream_t)stream>>>(a, a_pg, na, rows, cap, tail);
+      return (int)cudaGetLastError();
+    }
+  };
+};
+
+// The W = 1 kernel at the narrowest width N that holds cap lanes, in the
+// launch shape its rows take (launch_by_rows).
+template <class Keep, class Tail>
+int launch_w1(const int* a, const int* a_pg, const int* na, int rows,
+              int cap, const Tail& tail, void* stream) {
+  if (cap <= 0 || cap > kSlotLanes) return (int)cudaErrorInvalidValue;
+  return launch_by_rows<W1Launch<Keep>::template At, Tail>(
+      cap, rows, a, a_pg, na, cap, tail, stream);
 }
 
 // Raises a kernel's dynamic shared memory limit, once per kernel and
@@ -405,36 +487,30 @@ extern "C" int docodo_single_locate_full(
     const int* a, const int* a_pg, const int* na, int rows, int cap,
     int kpad, int hpad, int* pg_c, float* rk_c, float* ct_c, int* n_pages,
     int* n_hits, int* hits, void* stream) {
-  if (rows > 0)
-    single_locate_full_kernel<<<rows, kSlotThreads, 0,
-                                (cudaStream_t)stream>>>(
-        a, a_pg, na, cap,
-        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
-  return (int)cudaGetLastError();
+  return launch_w1<SingleKeep>(
+      a, a_pg, na, rows, cap,
+      slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits),
+      stream);
 }
 
 extern "C" int docodo_single_locate_full_topk(
     const int* a, const int* a_pg, const int* na, int rows, int cap,
     int topk, int hpad, int* pages, float* ranks, int* counts, int* n_pages,
     int* n_hits, int* hits, void* stream) {
-  if (rows > 0)
-    single_locate_full_kernel<<<rows, kSlotThreads, 0,
-                                (cudaStream_t)stream>>>(
-        a, a_pg, na, cap,
-        topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits));
-  return (int)cudaGetLastError();
+  return launch_w1<SingleKeep>(
+      a, a_pg, na, rows, cap,
+      topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits),
+      stream);
 }
 
 extern "C" int docodo_union_locate_full(
     const int* a, const int* a_pg, const int* na, int rows, int cap,
     int kpad, int hpad, int* pg_c, float* rk_c, float* ct_c, int* n_pages,
     int* n_hits, int* hits, void* stream) {
-  if (rows > 0)
-    union_locate_full_kernel<<<rows, kSlotThreads, 0,
-                               (cudaStream_t)stream>>>(
-        a, a_pg, na, cap,
-        slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits));
-  return (int)cudaGetLastError();
+  return launch_w1<UnionKeep>(
+      a, a_pg, na, rows, cap,
+      slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits),
+      stream);
 }
 
 extern "C" const char* docodo_cuda_error_string(int code) {

@@ -5,8 +5,10 @@
 // it, the locate tail that writes the row's full-result outputs (its first
 // kpad runs), the page-level tail that ranks every run and writes the
 // row's top k, and the full-result tail that ends a row with that top k
-// inside the kernel; and the three ways a W = 2 row ends (SlotsTail,
-// TopkTail, PageTopkTail).
+// inside the kernel; the three ways a row ends (SlotsTail, TopkTail,
+// PageTopkTail), each also for a row whose kept lanes are a prefix of it
+// (kPrefix: no scans to find them); and the launch shape of a slot kernel
+// chosen by its rows (launch_by_rows).
 
 #pragma once
 
@@ -132,6 +134,46 @@ int with_width(int n, const Launch& launch) {
   return launch(Width<1024>{});
 }
 
+// Rows that one wave of `kernel` holds on the current device (its SMs x
+// the blocks of shape S resident on one SM x S's rows a block), asked once
+// per device: `cache` holds it for devices 0-31. 0 if it cannot be asked.
+template <class S, class K>
+int wave_rows(K kernel, int (&cache)[32]) {
+  int dev = 0, sms = 0, blocks = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 32 && cache[dev] > 0) return cache[dev];
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, S::kThreads, S::kSmem) != cudaSuccess)
+    return 0;
+  const int rows = sms * blocks * S::kRows;
+  if (dev < 32) cache[dev] = rows;
+  return rows;
+}
+
+// The launch shape of a slot kernel by its rows, at the narrowest stream
+// width N that holds n lanes. A launch of at most one wave takes one row's
+// latency, so it gives each lane of a row a thread (G = N) when all its
+// rows fit in one wave of that shape; a larger one packs 4 lanes a thread
+// (G = N / 4: 8 / 4 / 2 / 1 rows a block of 256 threads, 4x the rows an SM
+// holds). On an H100 one lane a thread cut a 128-row launch at N = 1024 by
+// a quarter and took 40% longer at 512 rows (4 waves) (PERF.md).
+// Launch<Tail, N, G> has its Shape (a SlotShape), kernel() and
+// run(rows, args...), which launches it.
+template <template <class, int, int> class Launch, class Tail,
+          class... Args>
+int launch_by_rows(int n, int rows, Args... args) {
+  return with_width(n, [&](auto w) {
+    constexpr int N = decltype(w)::value;
+    using One = Launch<Tail, N, N>;
+    static int wave[32];
+    if (rows <= wave_rows<typename One::Shape>(One::kernel(), wave))
+      return One::run(rows, args...);
+    return Launch<Tail, N, N / 4>::run(rows, args...);
+  });
+}
+
 // Four consecutive ints of a row from i on, of which those at i + j < len
 // are read: one 16-byte load where `vec` (the row 16-byte aligned, its
 // width a multiple of 4, so the load stays inside it).
@@ -147,6 +189,13 @@ __device__ inline void load4(const int* __restrict__ src, int i, int len,
 #pragma unroll
     for (int j = 0; j < 4; ++j) x[j] = i + j < len ? src[i + j] : kInf;
   }
+}
+
+// Four ints to a 16-byte aligned address in one store: a warp's quads at
+// consecutive addresses meet no bank conflict in shared memory, where four
+// scalar stores a thread would meet four-way ones.
+__device__ inline void store4(int* dst, const int (&x)[4]) {
+  *reinterpret_cast<int4*>(dst) = make_int4(x[0], x[1], x[2], x[3]);
 }
 
 // #{j in [lo, m): s[j] < v} + lo, or with `upper` s[j] <= v; s ascends.
@@ -278,9 +327,11 @@ __device__ void merge_and_keep(
 // 30 / max(5, gap). For every run of ordinal < limit, s.run_page,
 // s.run_count and s.run_bonus (exact integer sums) are filled, and with
 // run_lane (a shared array of `limit` ints; s.tmp is free for it) the run's
-// first lane. Returns the row's number of runs. Called by every thread of
-// the row group g; ends synchronised.
-template <class Grp, int L, int N>
+// first lane. With kPrefix (the kept lanes are the row's first ones) a
+// kept lane's previous kept lane is the lane before it, and a barrier
+// takes the place of the scan that finds it. Returns the row's number of
+// runs. Called by every thread of the row group g; ends synchronised.
+template <bool kPrefix = false, class Grp, int L, int N>
 __device__ int sum_runs(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
                         int n, int ipt, int limit, int* run_lane = nullptr) {
   const int tid = g.rank();
@@ -294,9 +345,12 @@ __device__ int sum_runs(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     const int l = base + k;
-    prev[k] = (k < ipt && l < n && keep[k]) ? l : -1;
+    prev[k] = kPrefix ? l - 1 : (k < ipt && l < n && keep[k]) ? l : -1;
   }
-  scan_lanes(g, prev, ipt, -1, Max(), false, s.warp);
+  if constexpr (kPrefix)
+    g.sync();  // the lanes before this thread's are written
+  else
+    scan_lanes(g, prev, ipt, -1, Max(), false, s.warp);
 
   int rid[L], bonus[L];
   bool first[L];
@@ -362,19 +416,33 @@ __device__ int compact_hits(const Grp& g, RowSmem<N>& s,
   return total;
 }
 
+// compact_hits of a row whose kept lanes are its first `kept`: s.val[0 ..
+// min(kept, hpad)), INF32 after them, consecutive threads on consecutive
+// slots, with no scan and no barrier. The row group must have synchronised
+// since s.val was written. Returns `kept`.
+template <class Grp, int N>
+__device__ int prefix_hits(const Grp& g, const RowSmem<N>& s, int kept,
+                           int hpad, int* __restrict__ hits) {
+  for (int r = g.rank(); r < hpad; r += Grp::kThreads)
+    hits[r] = r < kept ? s.val[r] : kInf;
+  return kept;
+}
+
 // Locate, rank and both compactions over the row held in s.val / s.page,
 // given the keep mask of this thread's lanes: the row's first kpad runs in
-// slot order and its first hpad kept values. Called by every thread of the
-// row group g.
-template <class Grp, int L, int N>
+// slot order and its first hpad kept values; with kPrefix the kept lanes
+// are the row's first `kept`. Called by every thread of the row group g.
+template <bool kPrefix = false, class Grp, int L, int N>
 __device__ void locate_tail(const Grp& g, RowSmem<N>& s,
                             const bool (&keep)[L], int n, int ipt, int kpad,
-                            int hpad, const Outputs& out) {
+                            int hpad, const Outputs& out, int kept = 0) {
   const int tid = g.rank();
   const size_t row = g.row();
-  const int total_pages = sum_runs(g, s, keep, n, ipt, kpad);
+  const int total_pages = sum_runs<kPrefix>(g, s, keep, n, ipt, kpad);
+  int* hits = out.hits + row * hpad;
   const int total_hits =
-      compact_hits(g, s, keep, n, ipt, hpad, out.hits + row * hpad);
+      kPrefix ? prefix_hits(g, s, kept, hpad, hits)
+              : compact_hits(g, s, keep, n, ipt, hpad, hits);
   for (int r = tid; r < kpad; r += Grp::kThreads) {
     const size_t o = row * kpad + r;
     if (r < total_pages) {
@@ -417,16 +485,16 @@ inline TopkOutputs topk_outputs(int* pages, float* ranks, int* counts) {
 // positive f32 orders as its bit pattern): a run's output slot is the number
 // of runs that precede it in that order, counted against every run of the
 // row. Slots past the row's run count get -1 / 0 / 0. Returns the row's
-// number of runs. Called by every thread of the row group g; N lanes hold
-// at most N runs.
-template <class Grp, int L, int N>
+// number of runs. kPrefix as sum_runs'. Called by every thread of the row
+// group g; N lanes hold at most N runs.
+template <bool kPrefix = false, class Grp, int L, int N>
 __device__ int locate_topk_tail(const Grp& g, RowSmem<N>& s,
                                 const bool (&keep)[L], int n, int ipt,
                                 int topk, const TopkOutputs& out) {
   constexpr int T = Grp::kThreads;
   const int tid = g.rank();
   const size_t row = g.row();
-  const int runs = sum_runs(g, s, keep, n, ipt, n);
+  const int runs = sum_runs<kPrefix>(g, s, keep, n, ipt, n);
   for (int r = tid; r < runs; r += T)
     s.tmp[r] = __float_as_int(run_rank(s.run_bonus[r], s.run_count[r]));
   g.sync();
@@ -463,16 +531,24 @@ struct FullTopkOutputs {
 // The full-result tail that ends a row inside the kernel
 // (pallas_query._full_stream_call with _locate_rank_topk): the row's first
 // hpad kept values, the top `topk` of ALL its page runs (locate_topk_tail)
-// and the exact totals. Called by every thread of the row group g.
-template <class Grp, int L, int N>
+// and the exact totals; with kPrefix the kept lanes are the row's first
+// `kept`, and the hits are written after the runs, from s.val (which the
+// top k leaves as it is; compact_hits' scratch is the top k's). Called by
+// every thread of the row group g.
+template <bool kPrefix = false, class Grp, int L, int N>
 __device__ void locate_full_topk_tail(const Grp& g, RowSmem<N>& s,
                                       const bool (&keep)[L], int n, int ipt,
                                       int topk, int hpad,
-                                      const FullTopkOutputs& out) {
+                                      const FullTopkOutputs& out,
+                                      int kept = 0) {
   const size_t row = g.row();
-  const int total_hits =
-      compact_hits(g, s, keep, n, ipt, hpad, out.hits + row * hpad);
-  const int runs = locate_topk_tail(g, s, keep, n, ipt, topk, out.top);
+  int* hits = out.hits + row * hpad;
+  int total_hits = 0;
+  if constexpr (!kPrefix)
+    total_hits = compact_hits(g, s, keep, n, ipt, hpad, hits);
+  const int runs =
+      locate_topk_tail<kPrefix>(g, s, keep, n, ipt, topk, out.top);
+  if constexpr (kPrefix) total_hits = prefix_hits(g, s, kept, hpad, hits);
   if (g.rank() == 0) {
     out.n_pages[row] = runs;
     out.n_hits[row] = total_hits;
@@ -482,24 +558,26 @@ __device__ void locate_full_topk_tail(const Grp& g, RowSmem<N>& s,
 // How a slot kernel ends a row whose keep mask it has computed: with the
 // row's first kpad runs in slot order (the caller finishes the top k),
 // with the top k of every run picked here, or, on the page level, with
-// that top k alone (no hits, no totals).
+// that top k alone (no hits, no totals). run<true> takes a row whose kept
+// lanes are its first `kept` (the W = 1 kernel's plain word).
 struct SlotsTail {
   int kpad, hpad;
   Outputs out;
-  template <class Grp, int L, int N>
+  template <bool kPrefix = false, class Grp, int L, int N>
   __device__ void run(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
-                      int n, int ipt) const {
-    locate_tail(g, s, keep, n, ipt, kpad, hpad, out);
+                      int n, int ipt, int kept = 0) const {
+    locate_tail<kPrefix>(g, s, keep, n, ipt, kpad, hpad, out, kept);
   }
 };
 
 struct TopkTail {
   int topk, hpad;
   FullTopkOutputs out;
-  template <class Grp, int L, int N>
+  template <bool kPrefix = false, class Grp, int L, int N>
   __device__ void run(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
-                      int n, int ipt) const {
-    locate_full_topk_tail(g, s, keep, n, ipt, topk, hpad, out);
+                      int n, int ipt, int kept = 0) const {
+    locate_full_topk_tail<kPrefix>(g, s, keep, n, ipt, topk, hpad, out,
+                                   kept);
   }
 };
 

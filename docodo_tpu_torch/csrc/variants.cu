@@ -55,7 +55,7 @@
 // (va + vb) cap), each row in its own VarSmem<N>. A launch whose rows fit
 // in one wave of N threads a row (a lane a thread) takes that shape; a
 // larger one gives a row N / 4 threads, 4 lanes a thread, 8 / 4 / 2 / 1
-// rows a block of 256 threads (launch_variant_rows).
+// rows a block of 256 threads (launch_by_rows, slot_row.cuh).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
@@ -344,52 +344,17 @@ bool shape_ok(int nblk, int cap) {
          nblk * cap <= kSlotLanes;
 }
 
-// Rows that one wave of `kernel` holds on the current device (its SMs x
-// the blocks of shape S resident on one SM x S's rows a block), asked once
-// per device: `cache` holds it for devices 0-31. 0 if it cannot be asked.
-template <class S, class K>
-int wave_rows(K kernel, int (&cache)[32]) {
-  int dev = 0, sms = 0, blocks = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < 32 && cache[dev] > 0) return cache[dev];
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, S::kThreads, S::kSmem) != cudaSuccess)
-    return 0;
-  const int rows = sms * blocks * S::kRows;
-  if (dev < 32) cache[dev] = rows;
-  return rows;
-}
-
-// A launch of at most one wave takes one row's latency, so it gives each
-// lane of a row a thread (G = N) when all its rows fit in one wave of that
-// shape; a larger one packs 4 lanes a thread (G = N / 4, 4x the rows an SM
-// holds). On an H100 one lane a thread cut a 128-row launch at N = 1024
-// by a quarter and took 40% longer at 512 rows (4 waves) (PERF.md).
-template <template <class, int, int> class Launch, class Tail, class... Args>
-int launch_variant_rows(int n, int rows, Args... args) {
-  return with_width(n, [&](auto w) {
-    constexpr int N = decltype(w)::value;
-    using One = VarShape<N, N>;
-    static int wave[32];
-    if (rows <= wave_rows<One>(Launch<Tail, N, N>::kernel(), wave))
-      return Launch<Tail, N, N>::run(rows, args...);
-    return Launch<Tail, N, N / 4>::run(rows, args...);
-  });
-}
-
 template <class Tail, int N, int G>
 struct VariantsAndLaunch {
+  using Shape = VarShape<N, G>;
   static auto kernel() { return variants_and_locate_full_kernel<Tail, N, G>; }
   static int run(int rows, const int* a, const int* a_pg, const int* na,
                  const int* ra, const int* b, const int* b_pg,
                  const int* nb, const int* rb, const int* bpad, int va,
                  int vb, int cap, Tail tail, void* stream) {
-    using S = VarShape<N, G>;
     if (rows > 0)
       variants_and_locate_full_kernel<Tail, N, G>
-          <<<S::blocks(rows), S::kThreads, S::kSmem,
+          <<<Shape::blocks(rows), Shape::kThreads, Shape::kSmem,
              (cudaStream_t)stream>>>(a, a_pg, na, ra, b, b_pg, nb, rb, bpad,
                                      rows, va, vb, cap, tail);
     return (int)cudaGetLastError();
@@ -398,13 +363,13 @@ struct VariantsAndLaunch {
 
 template <class Tail, int N, int G>
 struct UnionMergeLaunch {
+  using Shape = VarShape<N, G>;
   static auto kernel() { return union_merge_locate_full_kernel<Tail, N, G>; }
   static int run(int rows, const int* a, const int* a_pg, const int* na,
                  int v, int cap, Tail tail, void* stream) {
-    using S = VarShape<N, G>;
     if (rows > 0)
       union_merge_locate_full_kernel<Tail, N, G>
-          <<<S::blocks(rows), S::kThreads, S::kSmem,
+          <<<Shape::blocks(rows), Shape::kThreads, Shape::kSmem,
              (cudaStream_t)stream>>>(a, a_pg, na, rows, v, cap, tail);
     return (int)cudaGetLastError();
   }
@@ -417,7 +382,7 @@ int launch_variants_and(const int* a, const int* a_pg, const int* na,
                         int rows, int va, int vb, int cap, const Tail& tail,
                         void* stream) {
   if (!shape_ok(va + vb, cap)) return (int)cudaErrorInvalidValue;
-  return launch_variant_rows<VariantsAndLaunch, Tail>(
+  return launch_by_rows<VariantsAndLaunch, Tail>(
       (va + vb) * cap, rows, a, a_pg, na, ra, b, b_pg, nb, rb, bpad, va, vb,
       cap, tail, stream);
 }
@@ -427,9 +392,8 @@ int launch_union_merge(const int* a, const int* a_pg, const int* na,
                        int rows, int v, int cap, const Tail& tail,
                        void* stream) {
   if (!shape_ok(v, cap)) return (int)cudaErrorInvalidValue;
-  return launch_variant_rows<UnionMergeLaunch, Tail>(v * cap, rows, a, a_pg,
-                                                     na, v, cap, tail,
-                                                     stream);
+  return launch_by_rows<UnionMergeLaunch, Tail>(v * cap, rows, a, a_pg, na,
+                                                v, cap, tail, stream);
 }
 
 }  // namespace

@@ -164,10 +164,10 @@ class Kernel:
 
 def full_result(kernel: Kernel, inputs, n: int, max_lanes: int, kpad: int,
                 hpad: int, topk_mode: bool = False):
-    """Launch one of the row-per-block full-result kernels of
-    locate_full.cu. inputs: the pointer arguments in the C entry point's
-    order, int32 [rows, cap] posting/page blocks and [rows] per-row
-    scalars; n: the stream width a row makes. Returns (pg_c, rk_c, ct_c,
+    """Launch one of the full-result slot kernels of locate_full.cu.
+    inputs: the pointer arguments in the C entry point's order, int32
+    [rows, cap] posting/page blocks and [rows] per-row scalars; n: the
+    stream width a row makes. Returns (pg_c, rk_c, ct_c,
     n_pages, n_hits, hits), or with `topk_mode` (a _topk kernel: kpad is
     its topk, which may exceed n) the finished (pages, ranks, counts
     int32, n_pages, n_hits, hits)."""

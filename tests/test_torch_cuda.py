@@ -1,11 +1,16 @@
 """Each CUDA kernel of docodo_tpu_torch against its plain PyTorch
-version, on a CUDA card; every test skips without one. The module
+version, on a CUDA card; every kernel test skips without one (one test
+reads the kernel sources as text and needs no card). The module
 imports no jax, so on a GPU machine without jax it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: int fields and hits exact; ranks within 1 ulp (the kernel's
 logf and torch.log on the card)."""
+
+import importlib.util
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,14 +51,46 @@ def _pages(x):
                       BOUNDS.size - 1).astype(np.int32)
 
 
+def _w1_rows(rng, a, na, cap, dups):
+    """A W = 1 batch's lengths past cap on every 11th row (clamped to
+    cap) and, with `dups`, about one lane in ten holding the value of the
+    lane before it (the V = 1 union keeps one lane of each run)."""
+    na = na.copy()
+    na[3::11] = cap + 9
+    if dups:
+        lane = np.arange(cap)[None, :]
+        src = np.where(rng.random(a.shape) < 0.1, np.maximum(lane - 1, 0),
+                       lane)
+        a = np.take_along_axis(a, src, axis=1)
+    return a, na
+
+
+# (kernel, cap, rows): the W = 2 slot kernel at two widths, and the W = 1
+# kernel (row 2 at caps 64 / 128, row 3 at V = 1 at caps 256-1024) at one
+# wave (128 rows, a lane a thread) and past it (4096 rows, 4 lanes a
+# thread), at rows that leave the last block part-filled, and at caps that
+# are not a multiple of 4 (scalar loads)
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,cap", [
-    ("sorted_and_locate_full", 64), ("sorted_and_locate_full", 512),
-    ("single_locate_full", 128), ("union_locate_full", 1024),
+@pytest.mark.parametrize("name,cap,rows", [
+    ("sorted_and_locate_full", 64, 512), ("sorted_and_locate_full", 512, 512),
+    ("single_locate_full", 128, 512), ("union_locate_full", 1024, 512),
+    ("single_locate_full", 64, 128), ("single_locate_full", 64, 4096),
+    ("single_locate_full", 128, 128), ("single_locate_full", 128, 4096),
+    ("single_locate_full", 64, 1), ("single_locate_full", 128, 7),
+    ("single_locate_full", 64, 129), ("single_locate_full", 126, 129),
+    ("single_locate_full", 126, 4096),
+    ("union_locate_full", 256, 128), ("union_locate_full", 256, 4096),
+    ("union_locate_full", 512, 128), ("union_locate_full", 512, 4096),
+    ("union_locate_full", 1024, 128), ("union_locate_full", 1024, 4096),
+    ("union_locate_full", 256, 1), ("union_locate_full", 512, 7),
+    ("union_locate_full", 1024, 129), ("union_locate_full", 250, 4096),
+    ("union_locate_full", 1001, 7),
 ])
-def test_kernel_matches_plain_on_card(cuda_device, name, cap):
+def test_kernel_matches_plain_on_card(cuda_device, name, cap, rows):
     rng = np.random.default_rng(cap)
-    a, na, ra, b, nb, rb = _batch(rng, 512, cap)
+    a, na, ra, b, nb, rb = _batch(rng, rows, cap)
+    if name != "sorted_and_locate_full":
+        a, na = _w1_rows(rng, a, na, cap, name == "union_locate_full")
     c = lambda x: torch.as_tensor(x, device=cuda_device)
     topk = 16
     kw = dict(topk=topk, hit_cap=1024, tail=False)
@@ -76,7 +113,11 @@ def test_kernel_matches_plain_on_card(cuda_device, name, cap):
             assert int(d.abs().max()) <= 1, field
         else:
             assert torch.equal(g, w), field
-    assert int(got[3].max()) > topk  # rows with more runs than topk
+    if rows > 2:  # row 2 is full
+        assert int(got[3].max()) > topk  # rows with more runs than topk
+    if name == "union_locate_full" and rows > 2:  # duplicates dropped
+        assert bool((got[4].cpu() < torch.as_tensor(na).clamp(0, cap))
+                    .any())
 
 
 @pytest.mark.cuda
@@ -419,23 +460,37 @@ def _assert_finished_equal(got, want):
             assert torch.equal(g, w), field
 
 
+# (kernel, cap, topk, hit_cap, carried pages, rows); row 15d (the W = 1
+# kernel with the top-k tail) at both launch shapes (128 rows: a lane a
+# thread; 4096: 4 lanes), part-filled last blocks and a cap that is not a
+# multiple of 4
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,cap,topk,hit_cap,carried", [
-    ("sorted_and_locate_full", 64, 16, 1024, True),
-    ("sorted_and_locate_full", 512, 64, 1024, False),
-    ("sorted_and_locate_full", 128, 2048, 8192, True),
-    ("single_locate_full", 64, 16, 32, True),
-    ("single_locate_full", 128, 64, 1024, False),
-    ("union_locate_full", 1024, 64, 1024, True),
-    ("union_locate_full", 256, 2048, 8192, False),
+@pytest.mark.parametrize("name,cap,topk,hit_cap,carried,rows", [
+    ("sorted_and_locate_full", 64, 16, 1024, True, 512),
+    ("sorted_and_locate_full", 512, 64, 1024, False, 512),
+    ("sorted_and_locate_full", 128, 2048, 8192, True, 512),
+    ("single_locate_full", 64, 16, 32, True, 512),
+    ("single_locate_full", 128, 64, 1024, False, 512),
+    ("union_locate_full", 1024, 64, 1024, True, 512),
+    ("union_locate_full", 256, 2048, 8192, False, 512),
+    ("single_locate_full", 64, 16, 1024, True, 128),
+    ("single_locate_full", 64, 64, 1024, False, 4096),
+    ("single_locate_full", 128, 16, 64, True, 128),
+    ("single_locate_full", 128, 2048, 8192, True, 4096),
+    ("single_locate_full", 64, 16, 1024, True, 1),
+    ("single_locate_full", 128, 64, 1024, True, 7),
+    ("single_locate_full", 128, 16, 1024, False, 129),
+    ("single_locate_full", 126, 16, 100, True, 129),
 ])
 def test_topk_mode_kernel_matches_plain_on_card(cuda_device, name, cap, topk,
-                                                hit_cap, carried):
+                                                hit_cap, carried, rows):
     """The top-k-mode slot kernels (sort_topk=False) over rows with tied
-    runs, more runs than topk, empty rows, and topk / hit_cap past the
-    stream."""
+    runs, more runs than topk, empty rows, lengths past cap (W = 1), and
+    topk / hit_cap past the stream."""
     rng = np.random.default_rng(cap + topk)
-    a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, 512, cap)
+    a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, rows, cap)
+    if name == "single_locate_full":
+        a, na = _w1_rows(rng, a, na, cap, False)
     c = lambda x: torch.as_tensor(x, device=cuda_device)
     kw = dict(topk=topk, hit_cap=hit_cap, sort_topk=False)
     if name == "sorted_and_locate_full":
@@ -453,7 +508,7 @@ def test_topk_mode_kernel_matches_plain_on_card(cuda_device, name, cap, topk,
     want = getattr(qk, name + "_plain")(*args, **kw)
     _assert_finished_equal(got, want)
     width = cap * (2 if name == "sorted_and_locate_full" else 1)
-    if topk < width:
+    if topk < width and rows >= 128:
         assert int(got[3].max()) > topk
         full = want[0][:, -1] >= 0
         assert bool((full & (want[1][:, -1] == want[1][:, -2])).any())
@@ -718,3 +773,28 @@ def test_fused_kernels_match_plain_on_card(cuda_device, cap, rows):
             assert torch.equal(g, w), field
     if rows > 1:
         assert int(got[3].max()) > 64 and int((got[4] == 0).sum()) > 0
+
+
+def test_profiler_kernel_names_are_kernels():
+    """tools/profile_batch.py reads each kernel's device time by a name in
+    the profiler's events (KERNEL_NAMES): each must start with a
+    __global__ function of csrc/, and each docodo:: type it spells must be
+    a struct there, or a renamed kernel would read 0 ms without an error.
+    Reads the sources as text; needs no card."""
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "profile_batch", repo / "tools" / "profile_batch.py")
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    text = "".join(f.read_text() for f in sorted(
+        (repo / "docodo_tpu_torch" / "csrc").glob("*.cu*")))
+    kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^;{]*?\)\s+)?(\w+)\s*\(",
+        text))
+    structs = set(re.findall(r"\bstruct\s+(\w+)", text))
+    assert {"w1_locate_full_kernel", "sorted_and_locate_full_kernel"} <= kernels
+    for name, events in pb.KERNEL_NAMES.items():
+        for event in (events,) if isinstance(events, str) else events:
+            assert event.split("<")[0] in kernels, (name, event)
+            for t in re.findall(r"docodo::(\w+)", event):
+                assert t in structs, (name, event, t)

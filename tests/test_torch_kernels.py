@@ -103,13 +103,20 @@ def test_sorted_and_locate_full_matches_pallas(rng, cap, hit_cap, tail,
     assert (np.asarray(got[4]) > 0).any()
 
 
-@pytest.mark.parametrize("cap,hit_cap,tail,pages", [
-    (64, 32, False, "carried"),
-    (128, 512, True, "shared"),
+# (cap, hit_cap, tail, pages, lengths): "mixed" is _random_batch's; "ends"
+# a batch of only empty and full rows (the keep's two ends)
+@pytest.mark.parametrize("cap,hit_cap,tail,pages,lengths", [
+    (64, 32, False, "carried", "mixed"),
+    (128, 512, True, "shared", "mixed"),
+    (64, 64, False, "carried", "ends"),
+    (128, 100, True, "carried", "ends"),
 ])
-def test_single_locate_full_matches_pallas(rng, cap, hit_cap, tail, pages):
+def test_single_locate_full_matches_pallas(rng, cap, hit_cap, tail, pages,
+                                           lengths):
     bsz, topk = 16, 8
     a, na, *_ = _random_batch(rng, bsz, cap)
+    if lengths == "ends":
+        na = np.where(np.arange(bsz) % 2 == 0, 0, cap).astype(np.int32)
     apg = _pages(a, BOUNDS) if pages == "carried" else None
     want = pq.pallas_single_locate_full(
         J(a), J(na), J(BOUNDS), cap=cap, topk=topk, hit_cap=hit_cap,
@@ -120,11 +127,15 @@ def test_single_locate_full_matches_pallas(rng, cap, hit_cap, tail, pages):
         T(a), T(na), T(BOUNDS), topk=topk, hit_cap=hit_cap,
         a_pg=None if apg is None else T(apg), tail=tail)
     assert_outputs_equal(got, want, f"cap {cap}")
+    if lengths == "ends":
+        np.testing.assert_array_equal(np.asarray(got[4]), na)
 
 
 @pytest.mark.parametrize("cap,hit_cap,tail,pages", [
     (256, 128, False, "carried"),
     (256, 512, True, "shared"),
+    (512, 512, False, "carried"),
+    (1024, 1024, True, "carried"),
 ])
 def test_union_locate_full_matches_pallas(rng, cap, hit_cap, tail, pages):
     bsz, topk = 8, 8

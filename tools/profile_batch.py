@@ -68,13 +68,14 @@ N_QUERIES = 10_000
 RUNS = 5
 ROUTES = {"kernel": True, "plain": False}
 # each CUDA kernel's name in the profiler's device events (the keep
-# kernels launch two each)
+# kernels launch two each); the W = 1 kernel is one template on its keep
+# rule and its tail
+W1 = "w1_locate_full_kernel<docodo::"
 KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
-                "single_locate_full": "single_locate_full_kernel",
-                "union_locate_full": "union_locate_full_kernel",
+                "single_locate_full": W1 + "SingleKeep, docodo::SlotsTail",
+                "union_locate_full": W1 + "UnionKeep, docodo::SlotsTail",
                 "merge_and_locate_topk": "merge_and_locate_topk_kernel",
-                "merge_tagged": ("merge_tagged_kernel", "merge_pass_kernel",
-                                 "merge_row_kernel"),
+                "merge_tagged": ("merge_pass_kernel", "merge_row_kernel"),
                 "and_keep": ("keep_marks_kernel<false>",
                              "keep_resolve_kernel<false>"),
                 "locate_runs": "locate_runs_kernel",
@@ -85,12 +86,13 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "and_locate_topk": (
                     "sorted_and_locate_full_kernel<docodo::PageTopkTail"),
                 "single_locate_topk": "single_locate_topk_kernel",
-                "merge_and_locate": "merge_and_locate_kernel"}
-# the slot kernels are one template each, instantiated for both tails
-# (the W = 2 one also for the page-level tail, and for four stream widths
-# after the tail)
-for _name in ("sorted_and_locate_full", "single_locate_full",
-              "variants_and_locate_full", "union_merge_locate_full"):
+                "merge_and_locate": "merge_and_locate_kernel",
+                "single_locate_full_topk": W1 + "SingleKeep, docodo::TopkTail"}
+# the other slot kernels are one template each, instantiated for both
+# tails (the W = 2 one also for the page-level tail, and for four stream
+# widths after the tail)
+for _name in ("sorted_and_locate_full", "variants_and_locate_full",
+              "union_merge_locate_full"):
     _fn = KERNEL_NAMES[_name]
     KERNEL_NAMES[_name] = _fn + "<docodo::SlotsTail"
     KERNEL_NAMES[_name.replace("union_merge", "union") + "_topk"] = (

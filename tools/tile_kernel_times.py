@@ -23,25 +23,36 @@ time of a wrapper call, on seeded chip_smoke.py inputs:
   serving pass's launches (V 8 and V 4 + 4 at cap 128, 128 rows; V 8 at
   512 rows, topk 128, hit_cap 2048), at each stream width they are
   compiled for (n = 128, 256, 512) and at 16 and 32 blocks a row;
+- the W = 1 kernel: single_locate_full (both tails: the slots tail and
+  single_locate_full_topk) at caps 64 and 128 and union_locate_full
+  (V = 1) at caps 256, 512 and 1024, each at 128 rows (one wave of the
+  serving launches) and 4096 rows (more than a wave); at caps 256 and
+  1024 also union_locate_full_topk at V = 1 (the variant kernel's body
+  with the top-k tail, its top-k form) beside the W = 1 body with the
+  top-k tail on the same rows (single_locate_full_topk's entry point
+  past the wrapper's cap of 128: the rows hold no repeated lane, so the
+  two keep the same lanes);
 - the host microseconds of one call of merge_tagged and of
-  sorted_and_locate_full at 8 rows of cap 64, and of
+  sorted_and_locate_full at 8 rows of cap 64, of
   variants_and_locate_full (V 4 + 4) and union_merge_locate_full (V 4)
-  at the serving pass's 128 rows of cap 128, where the card waits on
-  the host (the least of 9 means over 100 calls).
+  at the serving pass's 128 rows of cap 128, and of single_locate_full
+  at 128 rows of cap 128, where the card waits on the host (the least
+  of 9 means over 100 calls).
 
 A device time is the mean of one call over 20, from torch.profiler's
-device events; beside the merge and slot shapes, their bytes bound
-(chip_smoke.py's, at 3.35 TB/s). With --batch, also the batches' own
-calls (chip_smoke.py's 64 MB corpus, kernel route) replayed by shape:
-merge_tagged's in the wide fused batch (the wide mix and its
-alternations), merge_and_locate_topk's in the standard and the wide
-fused batch, and the page-level W = 2 kernel's in the page-level batch
-(the standard mix through search_batch, topk 16), also with its pages
-from bounds, and the variant slot kernels' calls (both tails) in the
-wide fused batch and in one wide serving pass per sort_topk mode (the
-wide mix, tools/profile_batch.py's serve_pass: waves of 512 rows, the
-cap ladder, deferred, then the escalated pass); for each shape the
-calls, the device ms of all of them once and their bytes bound, and for
+device events (the larger of two profiled runs); beside the merge and
+slot shapes, their bytes bound (chip_smoke.py's, at 3.35 TB/s). With
+--batch, also the batches' own calls (chip_smoke.py's 64 MB corpus,
+kernel route) replayed by shape: merge_tagged's in the wide fused batch
+(the wide mix and its alternations), merge_and_locate_topk's in the
+standard and the wide fused batch, and the page-level W = 2 kernel's in
+the page-level batch (the standard mix through search_batch, topk 16),
+also with its pages from bounds, and the variant slot kernels' and the
+W = 1 kernel's calls (both tails) in the fused batches and in one
+standard and one wide serving pass per sort_topk mode
+(tools/profile_batch.py's serve_pass: waves of 512 rows, the cap
+ladder, deferred, then the escalated pass); for each shape the calls,
+the device ms of all of them once and their bytes bound, and for
 merge_and_locate_topk also the same calls through the kernels that give
 a row several blocks (merge_tagged, and_keep, locate_runs).
 
@@ -66,6 +77,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve()
 REPS = 20
+WINDOWS = 2
 HOST_CALLS = 100
 HOST_REPS = 9
 TILED = ("keep_marks_kernel", "keep_resolve_kernel", "locate_runs_kernel")
@@ -78,6 +90,14 @@ FUSED = ("merge_and_locate_topk_kernel",)
 STREAMS = ("merge_and_locate_kernel",)
 VARIANTS = ("variants_and_locate_full_kernel",)
 UNION = ("union_merge_locate_full_kernel",)
+# the W = 1 kernel: a kernel a keep rule in older trees, one template on
+# the keep rule since
+SINGLE = ("single_locate_full_kernel<docodo::SlotsTail",
+          "w1_locate_full_kernel<docodo::SingleKeep, docodo::SlotsTail")
+SINGLE_TOPK = ("single_locate_full_kernel<docodo::TopkTail",
+               "w1_locate_full_kernel<docodo::SingleKeep, docodo::TopkTail")
+W1_UNION = ("::union_locate_full_kernel",
+            "w1_locate_full_kernel<docodo::UnionKeep")
 # (rows, cap) of W = 2 buckets: a wide bucket at the largest cap, a few
 # rows at cap 32768, and many-row buckets within one tile
 W2_SHAPES = ((8, 262144), (8, 32768), (64, 2048), (1024, 1024))
@@ -95,27 +115,37 @@ VARIANT_SLOT_SHAPES = ((8, 0, 128, 128, 64, 1024), (4, 4, 128, 128, 64, 1024),
                        (4, 0, 32, 512, 64, 1024), (2, 2, 64, 512, 64, 1024),
                        (4, 0, 128, 512, 64, 1024), (8, 8, 64, 128, 64, 1024),
                        (32, 0, 32, 128, 64, 1024))
+# caps of the W = 1 kernel (row 2: 64, 128; row 3 at V = 1: 256-1024) and
+# its rows: one wave of the serving launches, and more than a wave
+W1_CAPS = {"single_locate_full": (64, 128),
+           "union_locate_full": (256, 512, 1024)}
+W1_ROWS = (128, 4096)
 
 
 def device_ms(fn, names=None) -> float:
     """Device ms of one fn() in the kernels whose names contain one of
-    `names` (every device event without), over REPS calls."""
+    `names` (every device event without), over REPS calls: the larger of
+    WINDOWS profiled runs, since now and then a run's trace misses some
+    of its device events (which only lowers it)."""
     import torch
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", 0)
-                   or getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if e.device_type != DeviceType.CPU
-             and (names is None or any(k in e.key for k in names)))
-    return us / 1e3 / REPS
+    best = 0.0
+    for _ in range(WINDOWS):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(
+            float(getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0))
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and (names is None or any(k in e.key for k in names))))
+    return best / 1e3 / REPS
 
 
 def bound_ms(cs, name: str, core_args) -> float:
@@ -150,11 +180,17 @@ BATCH_CORES = {"_merge_tagged_kernel": ("merge_tagged", MERGE),
                "_and_topk_kernel": ("and_locate_topk", PAGE),
                "_union_merge_kernel": ("union_merge_locate_full", UNION),
                "_variants_and_kernel": ("variants_and_locate_full",
-                                        VARIANTS)}
+                                        VARIANTS),
+               "_single_kernel": ("single_locate_full", SINGLE),
+               "_single_topk_mode_kernel": ("single_locate_full_topk",
+                                            SINGLE_TOPK),
+               "_union_kernel": ("union_locate_full", W1_UNION)}
 # the variant cores' top-k twins go through the same cores with their
-# kernel= argument
+# kernel= argument (the W = 1 kernel's is a core of its own)
 TWINS = {"union_merge_locate_full": "union_locate_full_topk",
          "variants_and_locate_full": "variants_and_locate_full_topk"}
+W1_CORES = ("single_locate_full", "single_locate_full_topk",
+            "union_locate_full")
 
 
 def batch_calls(cs, qk) -> dict:
@@ -186,6 +222,8 @@ def batch_calls(cs, qk) -> dict:
             wide, topk=64, hit_cap=1024, use_kernels=True),
         "page batch": lambda: dix.search_batch(std, topk=cs.PAGE_TOPK,
                                                use_kernels=True),
+        "standard serve": lambda: pb.serve_pass(dix, std, True),
+        "standard serve top-k mode": lambda: pb.serve_pass(dix, std, False),
         "wide serve": lambda: pb.serve_pass(dix, serve, True),
         "wide serve top-k mode": lambda: pb.serve_pass(dix, serve, False),
     }
@@ -214,6 +252,9 @@ def batch_calls(cs, qk) -> dict:
             elif name == "merge_and_locate_topk":
                 shape = (f"B{a.shape[0]} cap{a.shape[1]} kpad{args[8]} "
                          f"hpad{args[9]}")
+            elif name in W1_CORES:
+                shape = (f"B{a.shape[0]} cap{a.shape[1]} kpad{args[3]} "
+                         f"hpad{args[4]}")
             else:
                 shape = f"B{a.shape[0]} cap{a.shape[1]} topk{args[9]}"
             groups.setdefault((name, label[0], shape), []).append((args, {}))
@@ -397,6 +438,41 @@ def measure(root: Path, batch: bool = False) -> dict:
             lambda: fn(*args, topk=topk, hit_cap=hit_cap, sort_topk=False,
                        **pgs), names)
 
+    # the W = 1 kernel, both launch shapes; at caps 256 and 1024 the V = 1
+    # top-k form of row 3 (variants.cu) beside the W = 1 body with the
+    # top-k tail on the same rows
+    for name, caps in W1_CAPS.items():
+        for cap, rows in [(c, r) for c in caps for r in W1_ROWS]:
+            x = cs._parity_inputs(rng, rows, cap, dev)
+            a, na, a_pg = x["a"], x["na"], x["a_pg"]
+            v1 = (a[:, None], na[:, None], x["bounds"])
+            args = (a, na, x["bounds"]) if name == "single_locate_full" else v1
+            pgs = dict(a_pg=a_pg if name == "single_locate_full"
+                       else a_pg[:, None])
+            names = SINGLE if name == "single_locate_full" else W1_UNION
+            kpad, hpad = min(64, cap), min(1024, cap)
+            key = f"w1 cap{cap} B{rows}"
+            out[f"{key} {name}"] = device_ms(
+                lambda: getattr(qk, name)(*args, topk=64, hit_cap=1024,
+                                          tail=False, **pgs), names)
+            out[f"{key} {name} bound"] = bound_ms(
+                cs, name, (a, a_pg, na, kpad, hpad))
+            if name == "single_locate_full":
+                out[f"{key} single_locate_full_topk"] = device_ms(
+                    lambda: qk.single_locate_full(
+                        *args, topk=64, hit_cap=1024, sort_topk=False,
+                        **pgs), SINGLE_TOPK)
+            elif cap in (256, 1024):
+                out[f"{key} union_locate_full_topk V1"] = device_ms(
+                    lambda: qk.union_locate_full(
+                        *v1, topk=64, hit_cap=1024, sort_topk=False,
+                        a_pg=a_pg[:, None]), UNION)
+                out[f"{key} w1 body top-k tail"] = device_ms(
+                    lambda: _cuda.full_result(
+                        _cuda.SINGLE_TOPK, [a, a_pg, na], cap,
+                        qk.MAX_STREAM_WIDTH, 64, hpad, topk_mode=True),
+                    SINGLE_TOPK)
+
     if batch:
         out.update(batch_calls(cs, qk))
     x = cs._parity_inputs(rng, 8, 64, dev)
@@ -416,6 +492,11 @@ def measure(root: Path, batch: bool = False) -> dict:
             b_pg=x["b_pg"]))
     out["host us union_merge_locate_full B128 V4 cap128"] = host_us(
         lambda: qk.union_merge_locate_full(
+            x["a"], x["na"], x["bounds"], topk=64, hit_cap=1024, tail=False,
+            a_pg=x["a_pg"]))
+    x = cs._parity_inputs(rng, 128, 128, dev)
+    out["host us single_locate_full B128 cap128"] = host_us(
+        lambda: qk.single_locate_full(
             x["a"], x["na"], x["bounds"], topk=64, hit_cap=1024, tail=False,
             a_pg=x["a_pg"]))
     return out
