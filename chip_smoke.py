@@ -51,7 +51,6 @@ OPS_PER_STEP = 4           # integer operations per binary-search step
 LOCATE_FULL = "docodo_tpu_torch/csrc/locate_full.cu"
 CHUNKED = "docodo_tpu_torch/csrc/chunked.cu"
 VARIANTS = "docodo_tpu_torch/csrc/variants.cu"
-LOCATE_TOPK = "docodo_tpu_torch/csrc/locate_topk.cu"
 PQ = "docodo_tpu/ops/pallas_query.py"
 RU_VOC = Path(__file__).resolve().parent / "Dict" / "ru.voc"
 # name -> (source, TPU kernel replaced, [(kernel core, plain core), ...]);
@@ -84,7 +83,7 @@ KERNELS = {
     # also the counterpart of _and_locate_kernel (pallas_query.py:133)
     "and_locate_topk": (LOCATE_FULL, f"{PQ}:477",
                         [("_and_topk_kernel", "_and_topk_plain")]),
-    "single_locate_topk": (LOCATE_TOPK, f"{PQ}:200",
+    "single_locate_topk": (LOCATE_FULL, f"{PQ}:200",
                            [("_single_topk_kernel", "_single_topk_plain")]),
     # the top-k-mode full-result kernels and the full-width fused kernel
     "sorted_and_locate_full_topk": (LOCATE_FULL, f"{PQ}:498",
@@ -126,6 +125,11 @@ SLOT_ROWS = 4096
 # launch (one wave: a lane a thread) and more than a wave at every width
 # (4 lanes a thread, the last block part-filled)
 W1_ROWS = (128, SLOT_ROWS - 3)
+# caps of the W = 1 kernel's other tails in those launch shapes: row 14
+# (the page-level tail, caps up to 128) and row 15c at V = 1 (the top-k
+# tail, a plain word past 128 lanes)
+PAGE_W1_CAPS = (32, 64, 128)
+UNION_V1_CAPS = (256, 512, 1024)
 # (va, vb, cap, rows) of variants_and_locate_full's parity cases and
 # (v, cap, rows, topk, hit_cap) of union_merge_locate_full's beyond n
 # 512 / 1024 at 4096 rows: the other stream widths of the variant slot
@@ -856,6 +860,42 @@ def phase_parity(rng) -> dict:
                 sweep("single_locate_full_topk", "single_locate_full",
                       f"cap {cap} B {rows}", (a, na, x["bounds"]), cap,
                       dict(a_pg=a_pg))
+
+    # the W = 1 kernel's other two tails in both launch shapes: row 14 at
+    # topk 16 and past the row's runs, pages carried and looked up in the
+    # bounds inside the kernel; row 15c at V = 1, with repeated lanes.
+    # Inputs from a generator of their own
+    trng = np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0])
+    for cap, rows in [(c, r) for c in PAGE_W1_CAPS for r in W1_ROWS]:
+        x = _w1_inputs(trng, rows, cap, dev, dups=False)
+        args = (x["a"], x["na"], x["bounds"])
+        for topk in (PAGE_TOPK, cap + 3):
+            for carried in (True, False):
+                got = check_topk(
+                    "single_locate_topk", f"single_locate_topk cap {cap} B "
+                    f"{rows} topk {topk} "
+                    f"{'carried' if carried else 'bounds'}", *args,
+                    topk=topk, a_pg=x["a_pg"] if carried else None)
+            if topk == PAGE_TOPK:
+                top = got
+        runs = (got[0] >= 0).sum(dim=1)
+        cut = int((runs > PAGE_TOPK).sum())
+        tied = int(((top[1][:, -1] == top[1][:, -2])
+                    & (top[0][:, -1] >= 0)).sum())
+        past = int((x["na"] > cap).sum())
+        require(cut > 0 and tied > 0 and past > 0,
+                f"single_locate_topk cap {cap} B {rows}: {cut} rows cut, "
+                f"{tied} tied at the cut, {past} past cap")
+        say(f"parity: single_locate_topk cap {cap} B {rows} topk "
+            f"{PAGE_TOPK} / {cap + 3}, carried pages / bounds: equal ({cut} "
+            f"rows with more than {PAGE_TOPK} runs, {tied} tied at the cut, "
+            f"{past} with a length past cap)")
+    for cap, rows in [(c, r) for c in UNION_V1_CAPS for r in W1_ROWS]:
+        x = _w1_inputs(trng, rows, cap, dev, dups=True)
+        sweep("union_locate_full_topk", "union_locate_full",
+              f"V 1 cap {cap} with repeated lanes",
+              (x["a"][:, None], x["na"][:, None], x["bounds"]), cap,
+              dict(a_pg=x["a_pg"][:, None]))
     return err
 
 
@@ -1474,7 +1514,9 @@ SPLITS = {
     # the variant slot kernels' four stream widths
     "variants_and_locate_full": VARIANT_WIDTHS,
     "variants_and_locate_full_topk": VARIANT_WIDTHS,
-    "union_locate_full_topk": VARIANT_WIDTHS,
+    "union_locate_full_topk": (("V = 1", lambda a: a[0].shape[1] == 1),
+                               ("V > 1", lambda a: a[0].shape[1] > 1))
+    + VARIANT_WIDTHS,
     # one pass, or a tree of passes
     "merge_tagged": (("2 blocks", lambda a: _n_blocks(a) <= 2),
                      ("more than 2 blocks", lambda a: _n_blocks(a) > 2)),

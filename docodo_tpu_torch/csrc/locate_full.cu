@@ -25,6 +25,8 @@
 //                                     (pallas_query.py:133), the same
 //                                     function with a compare-all merge
 //                                     inside and no page streams
+//   docodo_single_locate_topk      <- _single_word_kernel
+//                                     (pallas_query.py:200), W = 1, cap <= 128
 //
 // Each of the first four turns one query row into the row's first kpad page runs in
 // slot order (page, rank, count), its first hpad kept hits, and the exact
@@ -44,7 +46,9 @@
 // in the page-level tail (slot_row.cuh, PageTopkTail): the top k of every
 // run as (page, rank, count int32) and nothing else; its pages come from
 // the carried streams or, with a_pg null, from a binary search of the page
-// bounds (clamped to the last page).
+// bounds (clamped to the last page). single_locate_topk is the W = 1
+// kernel (w1_kernel.cuh) ending in the same tail, its pages carried or
+// looked up in the bounds likewise.
 //
 // What bounds them on this card: bytes, not arithmetic. Each row is read
 // once (values and pages, 8 bytes a lane) and 3 * kpad + hpad + 2 values are
@@ -62,10 +66,11 @@
 // warps) and the block at 1024, with the shared memory of N lanes a row;
 // its operands and pages come in as 16-byte loads and its hits go out
 // from shared memory, consecutive threads on consecutive slots. The W = 1
-// kernel (rows 2, 15d and 3 at V = 1: one template on the keep rule) is
-// compiled for the same widths, each row in RowSmem<N>, and its launch
-// shape follows its rows (launch_by_rows): a lane a thread when the
-// launch fits in one wave, else N / 4 threads a row. The W = 2 kernels merge
+// kernel (w1_kernel.cuh; rows 2, 15d, 14 and 3 at V = 1: one template on
+// the keep rule, the tail and the page source) is compiled for the same
+// widths, each row in RowSmem<N>, and its launch shape follows its rows
+// (launch_by_rows): a lane a thread when the launch fits in one wave,
+// else N / 4 threads a row. The W = 2 kernels merge
 // their two posting blocks by rank in shared memory, so the separate sort
 // launch of the TPU route disappears. The TPU kernels' lane-roll log-step
 // scans, packed scan pairs, bitonic merge network and log-shift compaction
@@ -86,22 +91,9 @@
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
-#include "slot_row.cuh"
+#include <atomic>
 
-namespace docodo {
-
-// The W = 1 kernel's keep rules (in docodo, so that a profiler's kernel
-// names spell them): a plain word keeps its block's first na lanes, a
-// prefix of the row; a V = 1 union keeps a lane where it is valid and
-// differs from the lane before it.
-struct SingleKeep {
-  static constexpr bool kPrefix = true;
-};
-struct UnionKeep {
-  static constexpr bool kPrefix = false;
-};
-
-}  // namespace docodo
+#include "w1_kernel.cuh"
 
 namespace {
 
@@ -233,138 +225,22 @@ __global__ void __launch_bounds__(FusedShape<N>::kThreads)
   }
 }
 
-// W = 1 at stream width N (cap <= N), a row group of G threads (N: a lane
-// a thread, or N / 4), each row in its own RowSmem<N>: thread t owns lanes
-// t ipt .. t ipt + ipt - 1 (ipt = ceil(cap / G)). A thread loads its
-// lanes' values and pages together, 16 bytes each where it owns a quad of
-// a row that allows it, and finds its keep in registers: a union lane
-// compares with the lane before it, which is this thread's, the previous
-// thread's (a shuffle), or at a warp's first thread that lane once more
-// from the block in device memory, so no barrier comes before the tail.
-// Its lanes go to shared memory as they came (a quad in one 16-byte store;
-// the tails read kept lanes only); with SingleKeep the tail knows the
-// kept lanes are the row's first na (Tail::run<true>: no scan finds them,
-// no compaction writes the hits). Rows 2, 15d and 3 (V = 1) of PERF.md.
-template <class Keep, class Tail, int N, int G>
-__global__ void __launch_bounds__(SlotShape<N, RowSmem<N>, G>::kThreads)
-    w1_locate_full_kernel(const int* __restrict__ a,
-                          const int* __restrict__ a_pg,
-                          const int* __restrict__ na_, int rows, int cap,
-                          Tail tail) {
-  using S = SlotShape<N, RowSmem<N>, G>;
-  constexpr int L = S::kIpt;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const GroupRow<G> g{};
-  if (g.row() >= (size_t)rows) return;  // the last block's spare groups
-  RowSmem<N>& s = reinterpret_cast<RowSmem<N>*>(smem_raw)[g.group()];
-  const size_t row = g.row();
-  const int na = clamp_len(na_[row], cap);
-  const int* arow = a + row * cap;
-  const int* prow = a_pg + row * cap;
-  const int ipt = (cap + G - 1) / G;
-  const int base = g.rank() * ipt;
-  int v[L], pg[L];
-  bool vec = false;
-  if constexpr (L == 4)
-    vec = ipt == 4 && cap % 4 == 0 && aligned16(arow) && aligned16(prow);
-  if (vec) {
-    if constexpr (L == 4) {
-      if (base < na) {
-        load4(arow, base, 0, true, v);
-        load4(prow, base, 0, true, pg);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const int l = base + k;
-      if (k < ipt && l < na) {
-        v[k] = arow[l];
-        pg[k] = prow[l];
-      }
-    }
-  }
-  bool keep[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    keep[k] = k < ipt && base + k < na;
-    if (!keep[k]) v[k] = kInf;
-  }
-  if constexpr (!Keep::kPrefix) {
-    int last = v[0];
-#pragma unroll
-    for (int k = 1; k < L; ++k)
-      if (k < ipt) last = v[k];
-    int before = __shfl_up_sync(0xffffffffu, last, 1);
-    if ((g.rank() & 31) == 0)
-      before = base > 0 && base < na ? arow[base - 1] : -1;
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      keep[k] = keep[k] && v[k] != before;
-      before = v[k];
-    }
-  }
-  if (vec) {
-    if constexpr (L == 4) {
-      if (base < na) {
-        store4(s.val + base, v);
-        store4(s.page + base, pg);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      if (keep[k]) {
-        s.val[base + k] = v[k];
-        s.page[base + k] = pg[k];
-      }
-    }
-  }
-  tail.template run<Keep::kPrefix>(g, s, keep, cap, ipt, na);
-}
-
-template <class Keep>
-struct W1Launch {
-  template <class Tail, int N, int G>
-  struct At {
-    using Shape = SlotShape<N, RowSmem<N>, G>;
-    static auto kernel() { return w1_locate_full_kernel<Keep, Tail, N, G>; }
-    static int run(int rows, const int* a, const int* a_pg, const int* na,
-                   int cap, Tail tail, void* stream) {
-      if (rows > 0)
-        w1_locate_full_kernel<Keep, Tail, N, G>
-            <<<Shape::blocks(rows), Shape::kThreads, Shape::kSmem,
-               (cudaStream_t)stream>>>(a, a_pg, na, rows, cap, tail);
-      return (int)cudaGetLastError();
-    }
-  };
-};
-
-// The W = 1 kernel at the narrowest width N that holds cap lanes, in the
-// launch shape its rows take (launch_by_rows).
-template <class Keep, class Tail>
-int launch_w1(const int* a, const int* a_pg, const int* na, int rows,
-              int cap, const Tail& tail, void* stream) {
-  if (cap <= 0 || cap > kSlotLanes) return (int)cudaErrorInvalidValue;
-  return launch_by_rows<W1Launch<Keep>::template At, Tail>(
-      cap, rows, a, a_pg, na, cap, tail, stream);
-}
-
 // Raises a kernel's dynamic shared memory limit, once per kernel and
 // device: the limit is the current device's, and another card starts
 // from the 48 KB default. `sized` holds a bit per device (devices past
-// 31 set it at every launch).
+// 31 set it at every launch), set after the attribute is; threads that
+// launch at once may each set the attribute, which is idempotent.
 template <class K>
-cudaError_t size_smem(K kernel, size_t bytes, unsigned* sized) {
+cudaError_t size_smem(K kernel, size_t bytes, std::atomic<unsigned>* sized) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (*sized & bit) return cudaSuccess;
+  if (sized->load(std::memory_order_acquire) & bit) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
-  if (e == cudaSuccess) *sized |= bit;
+  if (e == cudaSuccess) sized->fetch_or(bit, std::memory_order_release);
   return e;
 }
 
@@ -403,8 +279,8 @@ int launch_sorted_and(const int* a, const int* a_pg, const int* na,
 // A fused kernel at width N, one row a block, its shared memory limit
 // raised first (once per device: `sized`).
 template <int N, class... Params, class... Args>
-int launch_fused(void (*kernel)(Params...), unsigned* sized, int rows,
-                 void* stream, Args... args) {
+int launch_fused(void (*kernel)(Params...), std::atomic<unsigned>* sized,
+                 int rows, void* stream, Args... args) {
   using S = FusedShape<N>;
   const cudaError_t e = size_smem(kernel, S::kSmem, sized);
   if (e != cudaSuccess) return (int)e;
@@ -449,13 +325,24 @@ extern "C" int docodo_and_locate_topk(
                            stream);
 }
 
+extern "C" int docodo_single_locate_topk(
+    const int* a, const int* a_pg, const int* na, const int* bounds,
+    int p_bounds, int rows, int cap, int topk, int* pages, float* ranks,
+    int* counts, void* stream) {
+  if (topk <= 0) return (int)cudaErrorInvalidValue;
+  const PageTopkTail tail = page_topk_tail(topk, pages, ranks, counts);
+  if (a_pg) return launch_w1<SingleKeep>(a, a_pg, na, rows, cap, tail, stream);
+  return launch_w1<SingleKeep, true>(a, a_pg, na, rows, cap, tail, stream,
+                                     bounds, p_bounds);
+}
+
 extern "C" int docodo_merge_and_locate_topk(
     const int* a, const int* a_pg, const int* na, const int* ra,
     const int* b, const int* b_pg, const int* nb, const int* rb, int rows,
     int cap, int kpad, int hpad, int* pg_c, float* rk_c, float* ct_c,
     int* n_pages, int* n_hits, int* hits, void* stream) {
   if (cap <= 0 || 2 * cap > kFusedLanes) return (int)cudaErrorInvalidValue;
-  static unsigned sized[2] = {0, 0};
+  static std::atomic<unsigned> sized[2];  // zero: static storage
   const SlotsTail tail =
       slots_tail(kpad, hpad, pg_c, rk_c, ct_c, n_pages, n_hits, hits);
   if (2 * cap <= 2048)
@@ -473,7 +360,7 @@ extern "C" int docodo_merge_and_locate(
     int cap, int* hits, int* page_s, float* rank_s, float* cnt_s,
     void* stream) {
   if (cap <= 0 || 2 * cap > kFusedLanes) return (int)cudaErrorInvalidValue;
-  static unsigned sized[2] = {0, 0};
+  static std::atomic<unsigned> sized[2];  // zero: static storage
   if (2 * cap <= 2048)
     return launch_fused<2048>(merge_and_locate_kernel<2048>, &sized[0], rows,
                               stream, a, a_pg, na, ra, b, b_pg, nb, rb, cap,

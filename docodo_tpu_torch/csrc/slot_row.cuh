@@ -1,5 +1,5 @@
 // The row pieces shared by the slot kernels of locate_full.cu,
-// variants.cu and locate_topk.cu (sm_90a), each run by the row group that
+// variants.cu and w1_kernel.cuh (sm_90a), each run by the row group that
 // holds the row (a block, or a few warps of one; common.cuh): a query row
 // held in shared memory, the W = 2 merge and the AND's segmentation over
 // it, the locate tail that writes the row's full-result outputs (its first
@@ -11,6 +11,8 @@
 // chosen by its rows (launch_by_rows).
 
 #pragma once
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -137,18 +139,22 @@ int with_width(int n, const Launch& launch) {
 // Rows that one wave of `kernel` holds on the current device (its SMs x
 // the blocks of shape S resident on one SM x S's rows a block), asked once
 // per device: `cache` holds it for devices 0-31. 0 if it cannot be asked.
+// Threads that launch at once may each ask and store the same number.
 template <class S, class K>
-int wave_rows(K kernel, int (&cache)[32]) {
+int wave_rows(K kernel, std::atomic<int> (&cache)[32]) {
   int dev = 0, sms = 0, blocks = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < 32 && cache[dev] > 0) return cache[dev];
+  if (dev < 32) {
+    const int known = cache[dev].load(std::memory_order_relaxed);
+    if (known > 0) return known;
+  }
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kernel, S::kThreads, S::kSmem) != cudaSuccess)
     return 0;
   const int rows = sms * blocks * S::kRows;
-  if (dev < 32) cache[dev] = rows;
+  if (dev < 32) cache[dev].store(rows, std::memory_order_relaxed);
   return rows;
 }
 
@@ -167,7 +173,7 @@ int launch_by_rows(int n, int rows, Args... args) {
   return with_width(n, [&](auto w) {
     constexpr int N = decltype(w)::value;
     using One = Launch<Tail, N, N>;
-    static int wave[32];
+    static std::atomic<int> wave[32];  // zero: static storage
     if (rows <= wave_rows<typename One::Shape>(One::kernel(), wave))
       return One::run(rows, args...);
     return Launch<Tail, N, N / 4>::run(rows, args...);
@@ -559,7 +565,8 @@ __device__ void locate_full_topk_tail(const Grp& g, RowSmem<N>& s,
 // row's first kpad runs in slot order (the caller finishes the top k),
 // with the top k of every run picked here, or, on the page level, with
 // that top k alone (no hits, no totals). run<true> takes a row whose kept
-// lanes are its first `kept` (the W = 1 kernel's plain word).
+// lanes are its first `kept` (the W = 1 kernel's plain word; the page-level
+// tail writes no hits and needs only the flag).
 struct SlotsTail {
   int kpad, hpad;
   Outputs out;
@@ -584,10 +591,10 @@ struct TopkTail {
 struct PageTopkTail {
   int topk;
   TopkOutputs out;
-  template <class Grp, int L, int N>
+  template <bool kPrefix = false, class Grp, int L, int N>
   __device__ void run(const Grp& g, RowSmem<N>& s, const bool (&keep)[L],
-                      int n, int ipt) const {
-    locate_topk_tail(g, s, keep, n, ipt, topk, out);
+                      int n, int ipt, int kept = 0) const {
+    locate_topk_tail<kPrefix>(g, s, keep, n, ipt, topk, out);
   }
 };
 

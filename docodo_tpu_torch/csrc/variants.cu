@@ -14,13 +14,17 @@
 //   docodo_union_locate_full_topk   <- _union_locate_full_kernel (:550),
 //                                      W = 1, any V >= 1 (V = 1 serves a
 //                                      plain word past the W = 1 kernel's
-//                                      128 lanes)
+//                                      128 lanes; it takes the W = 1 body
+//                                      of w1_kernel.cuh, with no merge)
 //
 // Each of the first two turns one query row into the row's first kpad page
 // runs in slot order, its first hpad kept hits and the exact n_pages /
 // n_hits totals, as the kernels of locate_full.cu do. The two _topk kernels
 // are the same row bodies ending in the other tail (slot_row.cuh,
 // TopkTail): the top k of every run of the row, picked in the kernel.
+// At V = 1 there is nothing to merge, and union_locate_full_topk runs the
+// W = 1 body with the same tail (UnionKeep: a lane is kept where it
+// differs from the lane before it), as row 3's V = 1 form does.
 //
 // What bounds them on this card: bytes, at ~0.5 us for a launch of 128
 // rows of 1024 lanes. Each reads its variant blocks once (values and
@@ -60,7 +64,7 @@
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
-#include "slot_row.cuh"
+#include "w1_kernel.cuh"
 
 namespace {
 
@@ -436,8 +440,8 @@ extern "C" int docodo_union_locate_full_topk(
     const int* a, const int* a_pg, const int* na, int rows, int v, int cap,
     int topk, int hpad, int* pages, float* ranks, int* counts, int* n_pages,
     int* n_hits, int* hits, void* stream) {
-  return launch_union_merge(
-      a, a_pg, na, rows, v, cap,
-      topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits),
-      stream);
+  const TopkTail tail =
+      topk_tail(topk, hpad, pages, ranks, counts, n_pages, n_hits, hits);
+  if (v == 1) return launch_w1<UnionKeep>(a, a_pg, na, rows, cap, tail, stream);
+  return launch_union_merge(a, a_pg, na, rows, v, cap, tail, stream);
 }

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,14 +29,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu",
-           CSRC / "variants.cu", CSRC / "locate_topk.cu")
+           CSRC / "variants.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "slot_row.cuh",
-           CSRC / "tile_scan.cuh")
+           CSRC / "w1_kernel.cuh", CSRC / "tile_scan.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "docodo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+_lib_lock = threading.Lock()  # the first loads and bindings, from any thread
 build_log = ""
 
 
@@ -95,14 +97,17 @@ def build() -> float:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if need be."""
+    """The loaded kernel library, built first if need be (once, whichever
+    thread asks first)."""
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        lib.docodo_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.docodo_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                build()
+                lib = ctypes.CDLL(str(library_path()))
+                lib.docodo_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.docodo_cuda_error_string.restype = ctypes.c_char_p
+                _lib = lib
     return _lib
 
 
@@ -120,7 +125,8 @@ def check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 class Kernel:
-    """One C entry point of the library and the count of its launches.
+    """One C entry point of the library and the count of its launches,
+    which threads that launch at once add to under a lock.
 
     `signature` spells the C arguments before the stream: "p" a device
     pointer (a tensor, or None for a null pointer), "i" an int."""
@@ -129,16 +135,19 @@ class Kernel:
         self.symbol = symbol
         self.signature = signature
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fn = None
 
     def _bound(self):
-        if self._fn is None:
-            fn = getattr(library(), self.symbol)
-            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
-            fn.argtypes = [kinds[c] for c in self.signature] + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+        lib = library()
+        with _lib_lock:
+            if self._fn is None:
+                fn = getattr(lib, self.symbol)
+                kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+                fn.argtypes = [kinds[c] for c in self.signature] + [
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                self._fn = fn
         return self._fn
 
     def launch(self, device: torch.device, *args) -> None:
@@ -159,7 +168,8 @@ class Kernel:
         if rc != 0:
             msg = library().docodo_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: {msg} ({rc})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def full_result(kernel: Kernel, inputs, n: int, max_lanes: int, kpad: int,

@@ -1,8 +1,9 @@
 """The query kernels: twin of docodo_tpu/ops/pallas_query.py.
 
 One wrapper per hand-written CUDA kernel (csrc/locate_full.cu,
-csrc/variants.cu, csrc/chunked.cu, csrc/locate_topk.cu), each with its
-plain PyTorch version beside it. The full-result kernels:
+csrc/variants.cu, csrc/chunked.cu, the W = 1 kernel of
+csrc/w1_kernel.cuh), each with its plain PyTorch version beside it. The
+full-result kernels:
 
   sorted_and_locate_full  W = 2, cap <= 512   (pallas_query.py:1164)
   single_locate_full      W = 1, cap <= 128   (pallas_query.py:1243)
@@ -47,7 +48,9 @@ differ only on rows with n_pages > topk, which are flagged truncated.
 
   sorted_and_locate_full_topk    pallas_query.py:498
   variants_and_locate_full_topk  pallas_query.py:526
-  union_locate_full_topk         pallas_query.py:550 (any V >= 1)
+  union_locate_full_topk         pallas_query.py:550 (any V >= 1: V = 1
+                                 on the W = 1 body, V > 1 on the
+                                 variant merge body)
   single_locate_full_topk        pallas_query.py:218
 
   merge_and_locate        W = 2, 2 cap <= 4096: the kept stream and the

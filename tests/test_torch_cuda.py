@@ -9,7 +9,12 @@ Tolerances: int fields and hits exact; ranks within 1 ulp (the kernel's
 logf and torch.log on the card)."""
 
 import importlib.util
+import json
+import os
 import re
+import subprocess
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -773,6 +778,200 @@ def test_fused_kernels_match_plain_on_card(cuda_device, cap, rows):
             assert torch.equal(g, w), field
     if rows > 1:
         assert int(got[3].max()) > 64 and int((got[4] == 0).sum()) > 0
+
+
+# (cap, rows) of row 14, the W = 1 kernel with the page-level tail: a
+# lane a thread within one wave (1-129 rows) and 4 lanes past it (4093
+# rows, the last block part-filled), at caps 32-128 and at a cap that is
+# no multiple of 4 (scalar loads)
+PAGE_W1_SHAPES = [(cap, rows) for cap in (32, 64, 128, 126)
+                  for rows in (1, 7, 128, 129, 4093)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,rows", PAGE_W1_SHAPES)
+@pytest.mark.parametrize("carried", [True, False])
+def test_page_w1_kernel_row_groups_match_plain_on_card(cuda_device, cap,
+                                                       rows, carried):
+    """batched_single_locate on the W = 1 kernel's row groups, with
+    carried pages and with pages looked up in the bounds inside the
+    kernel, at topk 16 (below most full rows' runs, with runs tied at
+    the cut), at the most runs a row holds and past every row's runs;
+    lengths past cap on every 11th row, empty rows."""
+    rng = np.random.default_rng(cap * rows + carried)
+    a, na, _, _, _, _, bounds, apg, _ = _spread_batch(rng, rows, cap)
+    a, na = _w1_rows(rng, a, na, cap, dups=False)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (c(a), c(na), c(bounds))
+    pgs = dict(a_pg=c(apg) if carried else None)
+    every = qk.batched_single_locate_plain(*args, topk=cap + 5, **pgs)
+    runs = (every[0] >= 0).sum(dim=1)
+    most = max(int(runs.max()), 1)
+    for topk in (16, most, cap + 5):
+        got = qk.batched_single_locate(*args, topk=topk, **pgs)
+        torch.cuda.synchronize()
+        want = qk.batched_single_locate_plain(*args, topk=topk, **pgs)
+        _assert_topk_equal(got, want)
+    if rows > 8:
+        assert int((runs == 0).sum()) > 0 and bool((runs > 16).any())
+        # a row whose 16th and 17th runs tie: the cut falls inside a tie
+        rk = every[1]
+        assert bool(((rk[:, 15] == rk[:, 16]) & (every[0][:, 16] >= 0))
+                    .any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [256, 512, 1024, 1021])
+@pytest.mark.parametrize("rows", [128, 4093])
+def test_union_v1_topk_mode_matches_plain_on_card(cuda_device, cap, rows):
+    """Row 15c at V = 1 (union_locate_full with sort_topk=False on the
+    W = 1 body with the top-k tail) against its plain version: about one
+    lane in ten repeating the lane before it, lengths past cap, topk 64
+    with hit_cap 1024 and a topk past the stream with hit_cap 8192."""
+    rng = np.random.default_rng(cap + rows)
+    a, na, *_ = _spread_batch(rng, rows, cap)
+    a, na = _w1_rows(rng, a, na, cap, dups=True)
+    c = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (c(a)[:, None], c(na)[:, None], c(BOUNDS))
+    for topk, hit_cap in ((64, 1024), (cap + 5, 8192)):
+        kw = dict(topk=topk, hit_cap=hit_cap, sort_topk=False,
+                  a_pg=c(_pages(a))[:, None])
+        got = qk.union_locate_full(*args, **kw)
+        torch.cuda.synchronize()
+        want = qk.union_locate_full_plain(*args, **kw)
+        _assert_finished_equal(got, want)
+    assert int(want[3].max()) > 64  # rows with more runs than topk
+    assert bool((want[4].cpu() < torch.as_tensor(na).clamp(0, cap))
+                .any())  # repeated lanes dropped
+
+
+THREADS = 6
+
+
+def _thread_calls(rng, dev):
+    """One thread's calls: (kernel name, wrapper, plain, args, kwargs), a
+    slot kernel launched through launch_by_rows in each of its launch
+    shapes (a wave's rows and more) and the fused kernels, which raise
+    their shared memory limit at their first launch."""
+    c = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    calls = []
+    for rows in (128, 4093):
+        a, na, ra, b, nb, rb, bounds, apg, bpg = _spread_batch(rng, rows, 128)
+        w1 = (c(a), c(na), c(bounds))
+        calls += [
+            ("single_locate_full", qk.single_locate_full, w1,
+             dict(topk=16, hit_cap=1024, tail=False, a_pg=c(apg))),
+            ("single_locate_topk", qk.batched_single_locate, w1,
+             dict(topk=16, a_pg=c(apg))),
+            ("single_locate_topk", qk.batched_single_locate, w1,
+             dict(topk=16)),
+            ("sorted_and_locate_full", qk.sorted_and_locate_full,
+             (c(a), c(na), c(ra), c(b), c(nb), c(rb), c(bounds)),
+             dict(topk=16, hit_cap=1024, tail=False, a_pg=c(apg),
+                  b_pg=c(bpg)))]
+        x = _variant_blocks(rng, rows, 4, 1, 128, dev)
+        calls.append(("union_merge_locate_full", qk.union_merge_locate_full,
+                      (x["a"], x["na"], x["bounds"]),
+                      dict(topk=16, hit_cap=1024, tail=False,
+                           a_pg=x["a_pg"])))
+        a, na, *_ = _spread_batch(rng, rows, 1024)
+        v1 = (c(a)[:, None], c(na)[:, None], c(BOUNDS))
+        v1_pg = c(_pages(a))[:, None]
+        calls += [("union_locate_full", qk.union_locate_full, v1,
+                   dict(topk=64, hit_cap=1024, tail=False, a_pg=v1_pg)),
+                  ("union_locate_full_topk", qk.union_locate_full, v1,
+                   dict(topk=64, hit_cap=1024, sort_topk=False,
+                        a_pg=v1_pg))]
+    a, na, ra, b, nb, rb, _, apg, bpg = _spread_batch(rng, 16, 2048)
+    fused = tuple(c(x) for x in (a, na, ra, b, nb, rb, apg, bpg))
+    calls += [("merge_and_locate_topk", qk.merge_and_locate_topk, fused,
+               dict(topk=64, hit_cap=1024)),
+              ("merge_and_locate", qk.merge_and_locate, fused, {})]
+    return calls
+
+
+def launch_from_threads(n_threads: int = THREADS) -> dict:
+    """Each of n_threads threads on its own stream makes _thread_calls'
+    calls at once (a barrier before the first), then holds each output
+    against its plain version on that stream. Returns the calls made and
+    the launches counted per kernel, and the outputs that differ. Run in
+    a fresh process, so that the launch caches start cold."""
+    from docodo_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    start = threading.Barrier(n_threads, timeout=300)
+    made, differ, errors = {}, [], []
+    lock = threading.Lock()
+
+    def work(k):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                calls = _thread_calls(np.random.default_rng(k), dev)
+                stream.synchronize()
+                start.wait()
+                outs = [fn(*args, **kw) for _, fn, args, kw in calls]
+                stream.synchronize()
+                for (name, fn, args, kw), got in zip(calls, outs):
+                    plain = getattr(qk, fn.__name__ + "_plain")
+                    try:
+                        if name == "single_locate_topk":
+                            _assert_topk_equal(got, plain(*args, **kw))
+                        elif name == "merge_and_locate":  # rank_s: 1 ulp
+                            for i, (g, w) in enumerate(zip(got,
+                                                           plain(*args))):
+                                d = (g.view(torch.int32).long()
+                                     - w.view(torch.int32).long()).abs()
+                                assert int(d.max()) <= (i == 2)
+                        elif kw.get("sort_topk") is False:
+                            _assert_finished_equal(got, plain(*args, **kw))
+                        else:
+                            _assert_fields_equal(got, plain(*args, **kw))
+                    except AssertionError as e:
+                        with lock:
+                            differ.append(f"thread {k} {name}: {e}")
+                with lock:
+                    for name, *_ in calls:
+                        made[name] = made.get(name, 0) + 1
+        except Exception as e:  # reported, not lost with the thread
+            with lock:
+                errors.append(f"thread {k}: {e!r}")
+
+    threads = [threading.Thread(target=work, args=(k,))
+               for k in range(n_threads)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # interleave the threads' Python often
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    errors += [f"{t.name} did not finish" for t in threads if t.is_alive()]
+    return dict(made=made, errors=errors, differ=differ,
+                launches={name: _cuda.KERNELS[name].launches
+                          for name in made})
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_threads_with_cold_caches(cuda_device):
+    """The batcher launches from several threads. Six threads, each on
+    its own stream, launch the slot kernels and the fused kernels at once
+    in a process that has launched nothing yet (cold wave caches and
+    shared-memory bits); every output equals its plain version and every
+    kernel's launch count equals the calls made."""
+    repo = Path(__file__).resolve().parents[1]
+    code = ("import json, test_torch_cuda as t; "
+            "print(json.dumps(t.launch_from_threads()))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(repo), str(repo / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert not res["errors"] and not res["differ"], res
+    assert len(res["made"]) == 8 and res["launches"] == res["made"], res
 
 
 def test_profiler_kernel_names_are_kernels():

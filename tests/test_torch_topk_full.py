@@ -144,6 +144,7 @@ def _variant_blocks(rng, bsz, v, cap):
     (1, 128, 64, "carried"),
     (1, 256, 128, "carried"),
     (1, 512, 1024, "shared"),
+    (1, 1024, 1024, "none"),
     (2, 128, 200, "carried"),
     (4, 64, 512, "none"),
     (8, 64, 300, "carried"),

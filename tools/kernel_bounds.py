@@ -4,7 +4,8 @@ their shapes alone (PERF.md's kernel table).
     python3 tools/kernel_bounds.py
 
 Rows 13, 14 and 17 (the page-level kernels, ported as
-docodo_and_locate_topk and docodo_single_locate_topk) at the shapes the
+docodo_and_locate_topk and docodo_single_locate_topk, both entry points
+of docodo_tpu_torch/csrc/locate_full.cu) at the shapes the
 page-level standard 10k batch launches them on the 64 MB corpus of
 chip_smoke.py (cap and rows of each bucket, topk 16), with every lane of
 a block counted: an upper estimate of what chip_smoke.py measures on

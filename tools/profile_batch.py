@@ -69,7 +69,7 @@ RUNS = 5
 ROUTES = {"kernel": True, "plain": False}
 # each CUDA kernel's name in the profiler's device events (the keep
 # kernels launch two each); the W = 1 kernel is one template on its keep
-# rule and its tail
+# rule and its tail (rows 2, 3 at V = 1, 14, 15c at V = 1 and 15d)
 W1 = "w1_locate_full_kernel<docodo::"
 KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                 "single_locate_full": W1 + "SingleKeep, docodo::SlotsTail",
@@ -85,7 +85,7 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                                   "keep_resolve_kernel<true>"),
                 "and_locate_topk": (
                     "sorted_and_locate_full_kernel<docodo::PageTopkTail"),
-                "single_locate_topk": "single_locate_topk_kernel",
+                "single_locate_topk": W1 + "SingleKeep, docodo::PageTopkTail",
                 "merge_and_locate": "merge_and_locate_kernel",
                 "single_locate_full_topk": W1 + "SingleKeep, docodo::TopkTail"}
 # the other slot kernels are one template each, instantiated for both
@@ -97,6 +97,9 @@ for _name in ("sorted_and_locate_full", "variants_and_locate_full",
     KERNEL_NAMES[_name] = _fn + "<docodo::SlotsTail"
     KERNEL_NAMES[_name.replace("union_merge", "union") + "_topk"] = (
         _fn + "<docodo::TopkTail")
+# the V = 1 union's top-k form runs the W = 1 body
+KERNEL_NAMES["union_locate_full_topk"] = (
+    KERNEL_NAMES["union_locate_full_topk"], W1 + "UnionKeep, docodo::TopkTail")
 WIDE_SEED = 77  # bench.py:353
 
 

@@ -24,14 +24,12 @@ time of a wrapper call, on seeded chip_smoke.py inputs:
   512 rows, topk 128, hit_cap 2048), at each stream width they are
   compiled for (n = 128, 256, 512) and at 16 and 32 blocks a row;
 - the W = 1 kernel: single_locate_full (both tails: the slots tail and
-  single_locate_full_topk) at caps 64 and 128 and union_locate_full
-  (V = 1) at caps 256, 512 and 1024, each at 128 rows (one wave of the
-  serving launches) and 4096 rows (more than a wave); at caps 256 and
-  1024 also union_locate_full_topk at V = 1 (the variant kernel's body
-  with the top-k tail, its top-k form) beside the W = 1 body with the
-  top-k tail on the same rows (single_locate_full_topk's entry point
-  past the wrapper's cap of 128: the rows hold no repeated lane, so the
-  two keep the same lanes);
+  single_locate_full_topk) at caps 64 and 128, union_locate_full (V = 1)
+  and its top-k form union_locate_full_topk at V = 1 at caps 256, 512
+  and 1024, and the page-level batched_single_locate (topk 16, pages
+  carried and looked up in the bounds) at caps 32, 64 and 128, each at
+  128 rows (one wave of the serving launches) and 4096 rows (more than
+  a wave);
 - the host microseconds of one call of merge_tagged and of
   sorted_and_locate_full at 8 rows of cap 64, of
   variants_and_locate_full (V 4 + 4) and union_merge_locate_full (V 4)
@@ -47,7 +45,8 @@ kernel route) replayed by shape: merge_tagged's in the wide fused batch
 (the wide mix and its alternations), merge_and_locate_topk's in the
 standard and the wide fused batch, and the page-level W = 2 kernel's in
 the page-level batch (the standard mix through search_batch, topk 16),
-also with its pages from bounds, and the variant slot kernels' and the
+also with its pages from bounds, the page-level W = 1 kernel's there
+(its carried calls also from bounds), and the variant slot kernels' and the
 W = 1 kernel's calls (both tails) in the fused batches and in one
 standard and one wide serving pass per sort_topk mode
 (tools/profile_batch.py's serve_pass: waves of 512 rows, the cap
@@ -98,6 +97,14 @@ SINGLE_TOPK = ("single_locate_full_kernel<docodo::TopkTail",
                "w1_locate_full_kernel<docodo::SingleKeep, docodo::TopkTail")
 W1_UNION = ("::union_locate_full_kernel",
             "w1_locate_full_kernel<docodo::UnionKeep")
+# the V = 1 union's top-k form: the variant body in older trees, the W = 1
+# body with the top-k tail since
+UNION_TOPK = UNION + ("w1_locate_full_kernel<docodo::UnionKeep, "
+                      "docodo::TopkTail",)
+# the page-level W = 1 kernel: its own body in older trees, the W = 1
+# template with the page-level tail since
+PAGE_W1 = ("single_locate_topk_kernel",
+           "w1_locate_full_kernel<docodo::SingleKeep, docodo::PageTopkTail")
 # (rows, cap) of W = 2 buckets: a wide bucket at the largest cap, a few
 # rows at cap 32768, and many-row buckets within one tile
 W2_SHAPES = ((8, 262144), (8, 32768), (64, 2048), (1024, 1024))
@@ -115,10 +122,12 @@ VARIANT_SLOT_SHAPES = ((8, 0, 128, 128, 64, 1024), (4, 4, 128, 128, 64, 1024),
                        (4, 0, 32, 512, 64, 1024), (2, 2, 64, 512, 64, 1024),
                        (4, 0, 128, 512, 64, 1024), (8, 8, 64, 128, 64, 1024),
                        (32, 0, 32, 128, 64, 1024))
-# caps of the W = 1 kernel (row 2: 64, 128; row 3 at V = 1: 256-1024) and
-# its rows: one wave of the serving launches, and more than a wave
+# caps of the W = 1 kernel (row 2: 64, 128; row 3 at V = 1: 256-1024; row
+# 14: 32-128) and its rows: one wave of the serving launches, and more
+# than a wave
 W1_CAPS = {"single_locate_full": (64, 128),
-           "union_locate_full": (256, 512, 1024)}
+           "union_locate_full": (256, 512, 1024),
+           "single_locate_topk": (32, 64, 128)}
 W1_ROWS = (128, 4096)
 
 
@@ -184,7 +193,8 @@ BATCH_CORES = {"_merge_tagged_kernel": ("merge_tagged", MERGE),
                "_single_kernel": ("single_locate_full", SINGLE),
                "_single_topk_mode_kernel": ("single_locate_full_topk",
                                             SINGLE_TOPK),
-               "_union_kernel": ("union_locate_full", W1_UNION)}
+               "_union_kernel": ("union_locate_full", W1_UNION),
+               "_single_topk_kernel": ("single_locate_topk", PAGE_W1)}
 # the variant cores' top-k twins go through the same cores with their
 # kernel= argument (the W = 1 kernel's is a core of its own)
 TWINS = {"union_merge_locate_full": "union_locate_full_topk",
@@ -255,6 +265,9 @@ def batch_calls(cs, qk) -> dict:
             elif name in W1_CORES:
                 shape = (f"B{a.shape[0]} cap{a.shape[1]} kpad{args[3]} "
                          f"hpad{args[4]}")
+            elif name == "single_locate_topk":
+                shape = (f"B{a.shape[0]} cap{a.shape[1]} topk{args[4]} "
+                         f"{'carried' if args[1] is not None else 'bounds'}")
             else:
                 shape = f"B{a.shape[0]} cap{a.shape[1]} topk{args[9]}"
             groups.setdefault((name, label[0], shape), []).append((args, {}))
@@ -274,6 +287,8 @@ def batch_calls(cs, qk) -> dict:
     cores = {name: (saved[core], names)
              for core, (name, names) in BATCH_CORES.items()}
     cores.update({twin: cores[name] for name, twin in TWINS.items()})
+    cores["union_locate_full_topk"] = (cores["union_locate_full_topk"][0],
+                                       UNION_TOPK)
     for (name, where, shape), calls in sorted(groups.items()):
         core, names = cores[name]
         key = f"{name} {where} {shape}"
@@ -289,9 +304,13 @@ def batch_calls(cs, qk) -> dict:
                     qk.locate_runs(hv, dix.bounds, topk=kpad, hit_cap=hpad,
                                    pg=pg)
             out[key].append(device_ms(chunked, MERGE + TILED))
+        other = None
         if name == "and_locate_topk":
             other = [(a[0], None, a[2], a[3], a[4], None) + tuple(a[6:])
                      for a in calls]
+        elif name == "single_locate_topk" and calls[0][1] is not None:
+            other = [(a[0], None) + tuple(a[2:]) for a in calls]
+        if other:
             out[key + " from bounds"] = [len(other), device_ms(
                 lambda: [core(*a) for a in other], names),
                 sum(bound_ms(cs, name, a) for a in other)]
@@ -438,40 +457,41 @@ def measure(root: Path, batch: bool = False) -> dict:
             lambda: fn(*args, topk=topk, hit_cap=hit_cap, sort_topk=False,
                        **pgs), names)
 
-    # the W = 1 kernel, both launch shapes; at caps 256 and 1024 the V = 1
-    # top-k form of row 3 (variants.cu) beside the W = 1 body with the
-    # top-k tail on the same rows
+    # the W = 1 kernel, both launch shapes, in each of its forms: rows 2
+    # and 15d (both tails), row 3 and its top-k form 15c at V = 1, and
+    # row 14 (the page-level tail, pages carried and looked up)
     for name, caps in W1_CAPS.items():
         for cap, rows in [(c, r) for c in caps for r in W1_ROWS]:
             x = cs._parity_inputs(rng, rows, cap, dev)
             a, na, a_pg = x["a"], x["na"], x["a_pg"]
+            key = f"w1 cap{cap} B{rows}"
+            if name == "single_locate_topk":
+                for label, p in (("carried", a_pg), ("bounds", None)):
+                    out[f"{key} {name} {label}"] = device_ms(
+                        lambda p=p: qk.batched_single_locate(
+                            a, na, x["bounds"], topk=cs.PAGE_TOPK, a_pg=p),
+                        PAGE_W1)
+                    out[f"{key} {name} {label} bound"] = bound_ms(
+                        cs, name, (a, p, na, x["bounds"], cs.PAGE_TOPK))
+                continue
             v1 = (a[:, None], na[:, None], x["bounds"])
             args = (a, na, x["bounds"]) if name == "single_locate_full" else v1
             pgs = dict(a_pg=a_pg if name == "single_locate_full"
                        else a_pg[:, None])
             names = SINGLE if name == "single_locate_full" else W1_UNION
             kpad, hpad = min(64, cap), min(1024, cap)
-            key = f"w1 cap{cap} B{rows}"
             out[f"{key} {name}"] = device_ms(
                 lambda: getattr(qk, name)(*args, topk=64, hit_cap=1024,
                                           tail=False, **pgs), names)
             out[f"{key} {name} bound"] = bound_ms(
                 cs, name, (a, a_pg, na, kpad, hpad))
-            if name == "single_locate_full":
-                out[f"{key} single_locate_full_topk"] = device_ms(
-                    lambda: qk.single_locate_full(
-                        *args, topk=64, hit_cap=1024, sort_topk=False,
-                        **pgs), SINGLE_TOPK)
-            elif cap in (256, 1024):
-                out[f"{key} union_locate_full_topk V1"] = device_ms(
-                    lambda: qk.union_locate_full(
-                        *v1, topk=64, hit_cap=1024, sort_topk=False,
-                        a_pg=a_pg[:, None]), UNION)
-                out[f"{key} w1 body top-k tail"] = device_ms(
-                    lambda: _cuda.full_result(
-                        _cuda.SINGLE_TOPK, [a, a_pg, na], cap,
-                        qk.MAX_STREAM_WIDTH, 64, hpad, topk_mode=True),
-                    SINGLE_TOPK)
+            topk_form = ("single_locate_full_topk"
+                         if name == "single_locate_full"
+                         else "union_locate_full_topk V1")
+            out[f"{key} {topk_form}"] = device_ms(
+                lambda: getattr(qk, name)(*args, topk=64, hit_cap=1024,
+                                          sort_topk=False, **pgs),
+                SINGLE_TOPK if name == "single_locate_full" else UNION_TOPK)
 
     if batch:
         out.update(batch_calls(cs, qk))
