@@ -15,7 +15,12 @@ with one wave in flight while the next is dispatched, then the truncated
 rows of cap <= 2048 once more at the escalated budgets (topk 2048,
 hit_cap 8192, clamp_budgets), once with each bucket's first-topk runs
 and the torch tail (sort_topk=True) and once through the top-k-mode
-kernels and merge_and_locate (sort_topk=False).
+kernels and merge_and_locate (sort_topk=False). Last, the serving path
+as a user reaches it: request strings (benchmarks/serve_qps.py's recipe
+and wide ones) through BatchExecutor.search from 64 client threads in
+four configurations, pipeline and materialize on and off, with a
+rebuild mid-stream, every request held against the host engine
+(Index.search), then through DocodoServer on the loopback.
 
     python3 chip_smoke.py [--corpus-mb 64] [--seed 0]
 
@@ -111,6 +116,28 @@ TOPK_MODE_KERNELS = ("sorted_and_locate_full_topk",
                      "variants_and_locate_full_topk",
                      "union_locate_full_topk", "single_locate_full_topk")
 SERVE_KERNELS = TOPK_MODE_KERNELS + ("merge_and_locate",)
+SERVE_REQUESTS = 10_000  # benchmarks/serve_qps.py's --n default
+WIDE_REQUESTS = 2_000
+BATCHER_CLIENTS = 64     # serve_qps.py's --conc default
+# per configuration, the first of each stream, not all 12,000: at 64 MB
+# a third of the recipe's requests overflow even the escalated budget
+# and the host engine answers them, each finding 1,000-10,000 pages whose
+# snippets it makes. A request costs ~45 ms of the phase and a distinct
+# one ~75 ms more to check (PERF.md section 6, PR 12), so 12,000 would
+# take ~9 minutes a configuration; 1,500 keep the script near 560 s
+BATCHER_SERVED = (1_275, 225)
+BATCHER_TAIL = 100       # served after the restage has landed
+BATCHER_PROFILED = 256
+BATCHER_HTTP = 128
+BATCHER_CONFIGS = ((True, True), (False, True), (True, False),
+                   (False, False))  # (pipeline, materialize)
+# the kernels of PERF.md rows 1-12 the batcher's requests reach at 64
+# MB: there every word of the recipe has more than 1,024 postings, so
+# each bucket's cap is a rung of 16,384 or more (field rows: 1,024),
+# past the slot kernels' admission; all go through the chunked and
+# fused kernels
+BATCHER_KERNELS = ("merge_and_locate_topk", "merge_tagged", "and_keep",
+                   "locate_runs", "variants_keep")
 # the kernels that give a row many blocks (tiles of _cuda.tile_lanes())
 TILED = ("and_keep", "variants_keep", "locate_runs")
 PAGE_CAPS = {"and_locate_topk": (64, 128, 256, 512),
@@ -900,14 +927,20 @@ def phase_parity(rng) -> dict:
 
 
 def phase_index(corpus_mb: float, seed: int):
+    """The corpus indexed by the port's host engine (docodo_tpu_torch.index
+    Index, which keeps the page text for snippets) and staged on the
+    card. Returns (index, device index)."""
+    from docodo_tpu_torch.index import Index, ListDataSource
     from docodo_tpu_torch.lang import tokenizer
     from docodo_tpu_torch.ops.device_index import DeviceIndex, build_postings
-    from docodo_tpu_torch.synthetic import build_index, zipf_documents
+    from docodo_tpu_torch.synthetic import zipf_documents
 
     t0 = time.perf_counter()
     docs = zipf_documents(int(corpus_mb * 1e6), seed=seed)
     t1 = time.perf_counter()
-    ind = build_index(docs)
+    ind = Index()
+    ind.add_data_source(ListDataSource("synth", docs))
+    ind.create()
     t2 = time.perf_counter()
     dix = DeviceIndex.from_index(ind)
     torch.cuda.synchronize()
@@ -945,7 +978,7 @@ def phase_index(corpus_mb: float, seed: int):
             "build_postings differs from numpy lexsort")
     say(f"build_postings: {tids.size} tokens, {n_terms} terms, "
         f"{t_build * 1e3:.2f} ms on the card; equals numpy lexsort")
-    return dix
+    return ind, dix
 
 
 def _queries(dix, n: int):
@@ -1685,17 +1718,286 @@ def phase_vocabulary(seed: int, rng) -> None:
                  n=len(queries), topk=topk, hit_cap=hit_cap)
 
 
+def _serve(ex, reqs, clients: int, restage=None):
+    """`reqs` through ex.search from `clients` threads. With `restage`
+    (a callable), a thread runs it once a quarter of the requests are
+    answered, while the clients go on. Returns (results, latencies s,
+    seconds, the restage's (start, end) on the same clock)."""
+    import concurrent.futures as cf
+    import threading
+
+    out = [None] * len(reqs)
+    lat = np.zeros(len(reqs))
+    answered = [0]
+    lock = threading.Lock()
+    quarter = threading.Event()
+    span = []
+
+    def one(i):
+        t0 = time.perf_counter()
+        out[i] = ex.search(reqs[i])
+        lat[i] = time.perf_counter() - t0
+        with lock:
+            answered[0] += 1
+            if answered[0] >= len(reqs) // 4:
+                quarter.set()
+
+    def run_restage():
+        quarter.wait()
+        t0 = time.perf_counter()
+        restage()
+        span.extend((t0, time.perf_counter()))
+
+    side = threading.Thread(target=run_restage) if restage else None
+    t0 = time.perf_counter()
+    if side:
+        side.start()
+    with cf.ThreadPoolExecutor(clients) as pool:
+        for f in [pool.submit(one, i) for i in range(len(reqs))]:
+            f.result()
+    secs = time.perf_counter() - t0
+    if side:
+        side.join()
+    return out, lat, secs, [t - t0 for t in span]
+
+
+def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
+    """The serving path as a user reaches it: request strings (the
+    serve_qps.py recipe, and wide ones: alternations, wildcards, long
+    phrases, field requests, `~` and `-filter:`) through
+    BatchExecutor.search from BATCHER_CLIENTS threads in four
+    configurations (pipeline on / off, materialize on / off), the first
+    with a create() on the same documents mid-stream; every request
+    served is held against the host engine (Index.search), whole where
+    materialized, and in brief mode with doc ranks within 1 ulp and
+    orders equal; the stats add up and host fallbacks have only the
+    reference's reasons; then BATCHER_HTTP requests through DocodoServer
+    on the loopback. Launch counts are zeroed just before the first
+    configuration and read after the last; every kernel in `required`
+    (and at least one) must launch, and no bucket takes the plain route
+    but W >= 3 with variants. Returns the launches."""
+    import concurrent.futures as cf
+    import random
+    import urllib.parse
+    import urllib.request
+
+    from docodo_tpu_torch.mix import serve_requests, wide_requests
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.query.batcher import BatchExecutor
+    from docodo_tpu_torch.query.search import brief_ulps, result_fields
+    from docodo_tpu_torch.server import DocodoServer, result_to_json
+
+    t_phase = time.perf_counter()
+    std = serve_requests(index, SERVE_REQUESTS)
+    wide = wide_requests(index, WIDE_REQUESTS)
+    stream = std[: BATCHER_SERVED[0]] + wide[: BATCHER_SERVED[1]]
+    random.Random(5).shuffle(stream)
+    t_reqs = time.perf_counter() - t_phase
+    hosts: dict = {}
+
+    def host(req):
+        """The host engine's result; the same documents before and after
+        the restage, so one result serves both."""
+        if req not in hosts:
+            hosts[req] = index.search(req)
+        return hosts[req]
+
+    plain = []
+    inner = tdi.query_step_full
+
+    def plain_bucket(*a, **k):
+        plain.append((int(a[5].shape[1]), tdi._variants(a[5])))
+        return inner(*a, **k)
+
+    checking = [0.0]
+
+    def check(reqs, got, brief: bool, what: str) -> int:
+        """Every result against the host engine; returns the largest doc
+        rank ulp (brief mode)."""
+        t0 = time.perf_counter()
+        worst = 0
+        for req, res in zip(reqs, got):
+            want = host(req)
+            if result_fields(res) == result_fields(want):
+                continue  # materialized, or a host fallback
+            ulp = brief_ulps(res, want) if brief else None
+            require(ulp is not None,
+                    f"{what}: {req!r} differs from Index.search")
+            worst = max(worst, ulp)
+        checking[0] += time.perf_counter() - t0
+        return worst
+
+    tdi.query_step_full = plain_bucket
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    rows = []
+    try:
+        for n, (pipeline, materialize) in enumerate(BATCHER_CONFIGS):
+            ex = BatchExecutor(index, device_index=dix, pipeline=pipeline,
+                               materialize=materialize)
+            gen = index.generation
+            try:
+                got, lat, secs, span = _serve(
+                    ex, stream, BATCHER_CLIENTS,
+                    restage=index.create if n == 0 else None)
+                if n == 0:  # served after the restage, equal too
+                    tail, _, _, _ = _serve(ex, stream[:BATCHER_TAIL],
+                                           BATCHER_CLIENTS)
+                    require(index.generation == gen + 1
+                            and ex._gen == index.generation
+                            and ex.di is not dix, "the restage was not "
+                            "staged by the executor")
+                    worst = check(stream[:BATCHER_TAIL], tail,
+                                  not materialize, "after the restage")
+                st = dict(ex.stats)
+            finally:
+                ex.close()
+            worst = max(check(stream, got, not materialize,
+                              f"pipeline={pipeline} "
+                              f"materialize={materialize}"),
+                        worst if n == 0 else 0)
+            served = len(stream) + (BATCHER_TAIL if n == 0 else 0)
+            require(st["device_timeouts"] == 0,
+                    f"{st['device_timeouts']} requests timed out: {st}")
+            require(st["device_queries"] + st["host_queries"]
+                    + st["truncated_fallbacks"] == served,
+                    f"stats do not add up to the {served} requests: {st}")
+            require(st["host_queries"] == st["fallback_unsupported"]
+                    + st["fallback_shape"] + st["fallback_no_index"]
+                    and st["fallback_no_index"] == 0,
+                    f"host fallbacks of another reason: {st}")
+            n_tilde = sum("~" in r for r in stream) + (
+                sum("~" in r for r in stream[:BATCHER_TAIL]) if n == 0
+                else 0)
+            require(st["fallback_unsupported"] == n_tilde,
+                    f"{st['fallback_unsupported']} unsupported fallbacks "
+                    f"for {n_tilde} `~` requests")
+            require(worst <= 1, f"brief doc ranks {worst} ulp apart")
+            p50, p95, p99 = np.percentile(lat, [50, 95, 99]) * 1e3
+            dispatched = (served - st["host_queries"] + st["escalations"])
+            reasons = {k: f"{st[k]} ({st[k] / served:.1%})" for k in (
+                "fallback_unsupported", "fallback_shape",
+                "fallback_no_index", "truncated_fallbacks")}
+            say(f"batcher, pipeline={pipeline} materialize={materialize}: "
+                f"{len(stream)} requests from {BATCHER_CLIENTS} clients in "
+                f"{secs:.2f} s, {len(stream) / secs:.1f} requests/s, "
+                f"latency p50 {p50:.1f} / p95 {p95:.1f} / p99 {p99:.1f} ms, "
+                f"on {card}; device_s {st['device_s']:.2f}, material_s "
+                f"{st['material_s']:.2f}, {st['batches']} batches, "
+                f"{dispatched / max(st['batches'], 1):.1f} requests a "
+                f"batch; device {st['device_queries']}, escalated "
+                f"{st['escalations']}, host {st['host_queries']}; "
+                f"fallbacks {reasons}; every request equal to "
+                f"Index.search" + (f" (doc ranks within {worst} ulp)"
+                                   if not materialize else "")
+                + (f"; restage (create() on the same documents) from "
+                   f"{span[0]:.2f} to {span[1]:.2f} s, then "
+                   f"{BATCHER_TAIL} more requests equal" if n == 0
+                   else ""))
+            rows.append(len(stream) / secs)
+        launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+    finally:
+        tdi.query_step_full = inner
+    say(f"batcher: launches over the four configurations "
+        f"{({n: c for n, c in launches.items() if c})}; buckets on the "
+        f"plain route by (W, V): {sorted(set(plain))} ({len(plain)})")
+    require(any(launches.values()), "the batcher launched no kernel")
+    for name in required:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched by the batcher")
+    require(all(w >= 3 and v > 1 for w, v in plain),
+            f"buckets {sorted(set(plain))} took query_step_full")
+
+    # one pass under the profiler: the device's busy share
+    from torch.autograd import DeviceType
+
+    ex = BatchExecutor(index, device_index=dix)
+    try:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, _, secs, _ = _serve(ex, stream[:BATCHER_PROFILED],
+                                   BATCHER_CLIENTS)
+            torch.cuda.synchronize()
+    finally:
+        ex.close()
+    events = prof.key_averages()
+    dev_ms = sum(float(getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "self_cuda_time_total", 0))
+                 for e in events if e.device_type != DeviceType.CPU) / 1e3
+    # the waves' pinned readback buffers: PyTorch's host cache, or new
+    # pinned allocations
+    pinned = [(e.count, e.cpu_time_total / 1e3) for e in events
+              if e.key == "cudaHostAlloc"]
+    say(f"batcher profile: {BATCHER_PROFILED} requests (pipeline, "
+        f"materialize) in {secs * 1e3:.1f} ms under torch.profiler, device "
+        f"{dev_ms:.2f} ms: busy {dev_ms / (secs * 1e3):.4f}; cudaHostAlloc "
+        f"{pinned[0][0] if pinned else 0} calls, "
+        f"{pinned[0][1] if pinned else 0.0:.2f} ms")
+
+    # over HTTP
+    srv = DocodoServer(index, port=0, host="127.0.0.1")  # on the card
+    srv.start(background=True)
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=600) as r:
+            return json.loads(r.read().decode("utf-8"))
+
+    try:
+        reqs = stream[:BATCHER_HTTP]
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(BATCHER_CLIENTS) as pool:
+            bodies = list(pool.map(
+                lambda r: get("/search?req=" + urllib.parse.quote(r)), reqs))
+        secs = time.perf_counter() - t0
+        for req, body in zip(reqs, bodies):
+            want = json.loads(json.dumps(result_to_json(host(req)),
+                                         ensure_ascii=False))
+            require(body == want, f"HTTP /search {req!r} differs from "
+                    "result_to_json(Index.search)")
+        prefixes = sorted({r.strip('"')[:3] for r in reqs[:16]})
+        for pre in prefixes:
+            require(get("/suggest?req=" + urllib.parse.quote(pre))
+                    == index.get_suggestions(pre), f"/suggest {pre!r}")
+        status = get("/status")
+        require(status["canSearch"] and status["batcher"]["device_queries"]
+                > 0 and status["batcher"]["device_timeouts"] == 0,
+                f"/status without the batcher's stats, or with timeouts: "
+                f"{status}")
+    finally:
+        srv.stop()
+    say(f"batcher over HTTP: {len(reqs)} /search requests from "
+        f"{BATCHER_CLIENTS} clients in {secs:.2f} s "
+        f"({len(reqs) / secs:.1f}/s), every body equal to "
+        f"result_to_json(Index.search); /suggest equal on {len(prefixes)} "
+        f"prefixes; /status batcher {status['batcher']}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s, of which the requests' "
+        f"making {t_reqs:.1f} s and their checks against Index.search "
+        f"{checking[0]:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    marks = [("start", time.perf_counter())]
+
+    def lap(name):  # the seconds each phase took, printed at the end
+        marks.append((name, time.perf_counter()))
+
     card, smi = phase_device()
     phase_build()
+    lap("build")
     rng = np.random.default_rng(args.seed)
     err = phase_parity(rng)
-    dix = phase_index(args.corpus_mb, args.seed)
+    lap("parity")
+    index, dix = phase_index(args.corpus_mb, args.seed)
+    lap("index")
     queries = _queries(dix, N_QUERIES)
     wide = _wide_queries(dix, N_QUERIES, N_ALTERNATIONS)
     out, launches = phase_main(dix, queries, f"{card} ({smi})",
@@ -1703,10 +2005,12 @@ def main() -> None:
     wout, wlaunches = phase_main(dix, wide, f"{card} ({smi})",
                                  "wide mix + alternations", WIDE_KERNELS)
     pout, planches = phase_page(dix, queries, f"{card} ({smi})")
+    lap("main and page")
     slaunches = phase_serve(
         dix, queries + wide,
         {f: np.concatenate([out[f], wout[f]]) for f in out},
         f"{card} ({smi})", rng)
+    lap("serve")
     earlier = [n for n in KERNELS if n not in SERVE_KERNELS]
     times = phase_kernel_times([
         lambda: dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
@@ -1728,14 +2032,25 @@ def main() -> None:
         ("variants_and_locate_full", "union_merge_locate_full",
          "single_locate_full", "union_locate_full"), most=64,
         where="the serving pass")
+    lap("kernel times")
     phase_oracle(dix, queries, out, rng, "standard mix")
     phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
     phase_page_oracle(dix, queries, pout, rng)
     phase_vocabulary(args.seed, rng)
+    lap("oracle and vocabulary")
+    # BATCHER_KERNELS are the ones the requests reach at the default size
+    blaunches = phase_batcher(
+        index, dix, f"{card} ({smi})",
+        BATCHER_KERNELS if args.corpus_mb == 64 else ())
+    lap("batcher")
+    say("phases (s): " + ", ".join(
+        f"{name} {t - prev:.1f}"
+        for (name, t), (_, prev) in zip(marks[1:], marks))
+        + f"; in all {marks[-1][1] - marks[0][1]:.1f}")
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=(launches[name] + wlaunches[name] + planches[name]
-                       + slaunches[name]),
+                       + slaunches[name] + blaunches[name]),
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
         for name, (src, replaces, _) in KERNELS.items()]}))

@@ -1,5 +1,6 @@
 """The port's own host index build: paged documents -> the CSR postings and
-the page table that DeviceIndex.from_index stages.
+the page table that DeviceIndex.from_index stages; and the host engine
+over it, `Index`, which the batcher and the server serve.
 
 It follows the pure-Python page path of the JAX package's build
 (docodo_tpu/index.py: Index._index_task :436-481, _index_header_page
@@ -20,25 +21,66 @@ key (lang/wordcodes.py).
 
 A document is an iterable of IndexPage(id, text) with a `name`; page
 "0" is the header page of 'name=value' lines.
+
+The host engine (docodo_tpu/index.py:83 `Index`, trimmed to what the
+batcher and the server read): data sources whose page text it keeps in
+memory as the build reads it, `create()` (a rebuild bumps `generation`),
+and `search(req)`, the request parser and the posting algebra over the
+build with snippets and highlights.
+
+    from docodo_tpu_torch.index import Index, IndexPagedTextFile
+    ind = Index()
+    ind.add_data_source(ListDataSource("docs", [
+        IndexPagedTextFile("pick", text, "author=dickens")]))
+    ind.create()
+    res = ind.search('"pickwick club" {author=dickens}')
 """
 
 from __future__ import annotations
 
+import bisect
+import math
 import re
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from docodo_tpu_torch import constants as C
+from docodo_tpu_torch.core.postings import PostingSeq
 from docodo_tpu_torch.lang import tokenizer
 from docodo_tpu_torch.lang.wordcodes import WordCoder
+from docodo_tpu_torch.query import parser as qparser
+from docodo_tpu_torch.query.search import (
+    ErrorSearchResult,
+    SearchResult,
+    combine_search_results,
+    highlight_positions,
+    prepare_page_text,
+    prepare_search_result,
+)
 
 
 @dataclass
 class IndexPage:
     id: str
     text: str
+
+
+class IndexPagedTextFile:
+    """A pre-paged text document: header page "0" of 'name=value' lines
+    and one body page "1" (docodo_tpu/sources/base.py:29)."""
+
+    def __init__(self, name: str, text: str, headers: str):
+        self.name = name
+        self.pages = [IndexPage("0", headers), IndexPage("1", text)]
+
+    def __iter__(self):
+        return iter(self.pages)
+
+    def close(self) -> None:
+        pass
 
 
 class ListDataSource:
@@ -77,6 +119,33 @@ class Postings:
 
     def __post_init__(self):
         self._tmap = {t: i for i, t in enumerate(self.terms)}
+        self._enc_counts = None
+
+    def __len__(self) -> int:
+        return len(self.terms)
+
+    def get(self, term: str) -> Optional[np.ndarray]:
+        """A term's coordinates, or None for a term the index lacks."""
+        tid = self._tmap.get(term)
+        if tid is None:
+            return None
+        return self.coords[self.offsets[tid]: self.offsets[tid + 1]]
+
+    def enc_count(self, tid: int) -> int:
+        """The u16 words a term's list takes in the JAX package's varint
+        storage, which ranks its suggestions: per delta from the previous
+        coordinate (the first from 0), max(1, ceil(bits / 15))
+        (docodo_tpu/core/storage.py:101-113, core/varint.py:46)."""
+        if self._enc_counts is None:
+            deltas = np.diff(self.coords, prepend=np.uint64(0))
+            starts = self.offsets[:-1][self.offsets[:-1] < self.offsets[1:]]
+            deltas[starts] = self.coords[starts]
+            words = np.ones(deltas.shape, dtype=np.int64)
+            for j in (15, 30, 45, 60):
+                words += deltas >= (np.uint64(1) << np.uint64(j))
+            cs = np.concatenate([[0], np.cumsum(words)])
+            self._enc_counts = cs[self.offsets[1:]] - cs[self.offsets[:-1]]
+        return int(self._enc_counts[tid])
 
 
 @dataclass
@@ -88,6 +157,23 @@ class PageTable:
     page_doc: np.ndarray  # int64 [P]
     page_ids: List[str]
     doc_names: List[str]
+
+    def __len__(self) -> int:
+        return len(self.page_ids)
+
+    def locate(self, coords: np.ndarray):
+        """For each coordinate its (page index, position in the page), by
+        binary search of the page ends (pagetable.py:77); a coordinate
+        past the last bound maps to the last page."""
+        coords = np.asarray(coords, dtype=np.uint64)
+        page = np.searchsorted(self.bounds, coords, side="right")
+        page = np.minimum(page, len(self.bounds) - 1)
+        base = np.where(page > 0, self.bounds[np.maximum(page - 1, 0)], 0)
+        pos = (coords - base).astype(np.int64)
+        return page.astype(np.int64), pos
+
+    def page_base(self, page_idx: int) -> int:
+        return int(self.bounds[page_idx - 1]) if page_idx > 0 else 0
 
 
 @dataclass
@@ -265,13 +351,29 @@ def build_index(source: ListDataSource, vocs: Sequence = (),
     `stop_words` key the words as docodo_tpu.Index(vocs=...) with
     add_stop_words does; a stop word keeps its coordinate and gets no
     posting."""
-    coder = WordCoder(vocs=vocs, stop_words=stop_words)
+    return _build([source], WordCoder(vocs=vocs, stop_words=stop_words))
+
+
+def _build(sources: Sequence, coder: WordCoder) -> HostIndex:
+    """build_index over several sources, one after the other in one
+    coordinate space."""
     stream = _Stream(coder)
     bounds: List[int] = []
     page_doc: List[int] = []
     page_ids: List[str] = []
     doc_names: List[str] = []
     coord = 0
+    for source in sources:
+        coord = _build_source(source, stream, coord, bounds, page_doc,
+                              page_ids, doc_names)
+    pages = PageTable(np.array(bounds, dtype=np.uint64),
+                      np.array(page_doc, dtype=np.int64), page_ids,
+                      doc_names)
+    return HostIndex(stream.postings(), pages, coder)
+
+
+def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
+                  page_ids, doc_names) -> int:
     source.reset()
     while (doc := source.next_document()) is not None:
         doc_names.append(f"{source.name}{C.DOC_SEP}{doc.name}")
@@ -295,7 +397,298 @@ def build_index(source: ListDataSource, vocs: Sequence = (),
         close = getattr(doc, "close", None)
         if close:
             close()
-    pages = PageTable(np.array(bounds, dtype=np.uint64),
-                      np.array(page_doc, dtype=np.int64), page_ids,
-                      doc_names)
-    return HostIndex(stream.postings(), pages, coder)
+    return coord
+
+
+# --------------------------------------------------------------------------
+# the host engine
+# --------------------------------------------------------------------------
+
+class _CachedDoc:
+    """A live document whose pages' text goes into `pages` as the build
+    iterates it."""
+
+    def __init__(self, doc, pages: Dict[str, str]):
+        self._doc = doc
+        self._pages = pages
+        self.name = doc.name
+
+    def __iter__(self):
+        for page in self._doc:
+            self._pages[page.id] = page.text
+            yield page
+
+    def close(self) -> None:
+        close = getattr(self._doc, "close", None)
+        if close:
+            close()
+
+
+class _StoredDoc:
+    """A built document's pages by id; a page the build did not see reads
+    as empty text, as the JAX package's zip cache reads it."""
+
+    def __init__(self, pages: Dict[str, str]):
+        self._pages = pages
+
+    def __getitem__(self, page_id: str) -> IndexPage:
+        return IndexPage(page_id, self._pages.get(page_id, ""))
+
+    def close(self) -> None:
+        pass
+
+
+class TextCacheDataSource:
+    """A data source wrapper that keeps every page's text as the build
+    reads it and serves it back at result time, source[doc][page].text,
+    for snippets and highlights (docodo_tpu/sources/cache.py:56
+    IndexTextCacheDataSource, in memory where that one keeps a zip file).
+    A build reads into a new table, which publish() swaps in when the
+    index it belongs to is installed."""
+
+    def __init__(self, source):
+        self.source = source
+        self._built: Optional[Dict[str, Dict[str, str]]] = None
+        self._reading: Dict[str, Dict[str, str]] = {}
+
+    @property
+    def name(self) -> str:
+        return self.source.name
+
+    def reset(self) -> None:
+        self.source.reset()
+        self._reading = {}
+
+    def next_document(self):
+        doc = self.source.next_document()
+        if doc is None:
+            return None
+        return _CachedDoc(doc, self._reading.setdefault(doc.name, {}))
+
+    def publish(self) -> None:
+        self._built, self._reading = self._reading, {}
+
+    def __getitem__(self, doc_name: str):
+        if self._built is None:
+            return None
+        return _StoredDoc(self._built.get(doc_name, {}))
+
+
+_FILTER_RE = re.compile(r"\B-filter:((?:[\w*?\\.()+{}/]+,?)+)")
+
+
+class Index:
+    """The host engine over the port's build (docodo_tpu/index.py:83):
+    what the batcher and the server read of docodo_tpu.Index. Always
+    indexes full forms (the JAX package's b_keep_forms = True), in
+    memory, on one build thread."""
+
+    def __init__(self, vocs: Sequence = (), stop_words=None):
+        self.vocs = list(vocs)
+        self.stop_words: set = set(stop_words) if stop_words else set()
+        self.sources: List[TextCacheDataSource] = []
+        self.host: Optional[HostIndex] = None
+        self.can_search = False
+        self.status = "Idle"
+        # bumped whenever a build installs: a device index restages then
+        self.generation = 0
+        self._search_lock = threading.RLock()
+
+    def add_data_source(self, source) -> None:
+        self.sources.append(TextCacheDataSource(source))
+
+    @property
+    def arr(self) -> Optional[Postings]:
+        return self.host.arr if self.host is not None else None
+
+    @property
+    def pages(self) -> Optional[PageTable]:
+        return self.host.pages if self.host is not None else None
+
+    @property
+    def word_coder(self) -> WordCoder:
+        return self.host.coder
+
+    @property
+    def count(self) -> int:
+        return len(self.arr) if self.arr is not None else 0
+
+    @property
+    def max_coord(self) -> int:
+        return self.arr.max_coord if self.arr is not None else 0
+
+    def create(self) -> None:
+        """Rebuild from the data sources (index.py:219) and install the
+        build, its page text and a new generation at once."""
+        if not self.sources or self.status != "Idle":
+            return
+        self.status = "Index"
+        try:
+            host = _build(self.sources, WordCoder(vocs=self.vocs,
+                                                  stop_words=set(
+                                                      self.stop_words)))
+            with self._search_lock:
+                for source in self.sources:
+                    source.publish()
+                self.host = host
+                self.generation += 1
+                self.can_search = True
+        except Exception:
+            self.can_search = False
+            raise
+        finally:
+            self.status = "Idle"
+
+    # ---- lookup ---------------------------------------------------------
+    def get_like_words(self, word: str) -> List[str]:
+        return self.host.get_like_words(word)
+
+    def search_word(self, word: str) -> PostingSeq:
+        """Single-word lookup with exact / wildcard handling (index.py:589,
+        ref Search.cs:192-260): an all-uppercase word is exact (its full
+        form only), a '_' wildcard ORs up to 100 full forms, exact; any
+        other word is searched by its vocabulary or stem keys where it
+        has them, else its full form."""
+        b_exact = word.upper() == word
+        word = word.lower()
+        words = [word]
+        if "_" in word:
+            b_exact = True
+            words = self.get_like_words(word)
+        total: Optional[PostingSeq] = None
+        for wword in words:
+            for code in _chosen_codes(self.host, wword, b_exact):
+                coords = self.arr.get(code)
+                if coords is not None:
+                    res = PostingSeq(coords)
+                    total = res if total is None else total + res
+        if total is None:
+            total = PostingSeq()
+        if b_exact:
+            total.R = -1
+        return total
+
+    def search_field(self, field_name: str, value: str) -> PostingSeq:
+        """{field=value} lookup (index.py:622, ref Search.cs:126-155): the
+        field's key, exact, proximity-AND the value's lookup."""
+        coords = self.arr.get(C.FIELD_NAME_CHAR + field_name.lower())
+        if coords is None:
+            return PostingSeq()
+        return PostingSeq(coords, R=-1) * self.search_word(value.lower())
+
+    def get_suggestions(self, req: str, n: int = 10) -> List[str]:
+        """Prefix completions of the request's last word, by posting
+        volume (index.py:654, ref Search.cs:176-188)."""
+        if len(req) < 2 or self.arr is None:
+            return []
+        parts = [s for s in re.split(r"\b", req) if len(s) > 0]
+        if not parts:
+            return []
+        lastword = parts[-1].lower()
+        if len(lastword) < 2:
+            return []
+        terms = self.arr.terms
+        cands = []
+        for tid in range(bisect.bisect_left(terms, lastword), len(terms)):
+            key = terms[tid]
+            if not key.startswith(lastword):
+                break
+            if key[0] >= "A" and len(key) > len(lastword):
+                cands.append((-self.arr.enc_count(tid), tid, key))
+        cands.sort(key=lambda c: c[0])
+        return [key[len(lastword):] for _, _, key in cands[:n]]
+
+    # ---- search ---------------------------------------------------------
+    def search(self, req: str) -> SearchResult:
+        """One request (index.py:714, ref Search.cs:440-601): `-filter:`
+        doc-name regexes out, the request sanitized and parsed, its
+        expression and its {field=value} part evaluated over the
+        postings, the two doc-intersected, the docs materialized and
+        sorted by rank (ascending, as the reference does)."""
+        if not self.can_search:
+            return ErrorSearchResult("Index is not built")
+        try:
+            with self._search_lock:
+                req = req.lower()
+                filters: List[str] = []
+                m = _FILTER_RE.search(req)
+                if m:
+                    filters = [f for f in m.group(1).split(",") if f]
+                req = _FILTER_RE.sub(" ", req)
+
+                thunks: List[qparser.WordThunk] = []
+                main_expr, fields_expr = qparser.prepare_search_request(
+                    req, thunks, search_word=self.search_word,
+                    search_field=self.search_field,
+                    stop_words=self.stop_words)
+                for t in thunks:
+                    t.dist = C.DEFAULT_DIST
+                res: Optional[PostingSeq] = None
+                resf: Optional[PostingSeq] = None
+                try:
+                    if main_expr.strip():
+                        ast = qparser.parse_expression(main_expr, thunks)
+                        if ast is not None:
+                            res = qparser.eval_ast(ast)
+                    if fields_expr.strip():
+                        astf = qparser.parse_expression(fields_expr, thunks)
+                        if astf is not None:
+                            resf = qparser.eval_ast(astf)
+                except qparser.QuerySyntaxError:
+                    return ErrorSearchResult("Syntax Error in search request")
+                if res is None:
+                    res = resf
+                if res is None:
+                    return SearchResult()
+                result = prepare_search_result(res.coords, self.pages,
+                                               filters)
+                if resf is not None:
+                    result = combine_search_results(
+                        result, prepare_search_result(resf.coords,
+                                                      self.pages, []))
+                self._materialize_docs(result)
+                result.found_docs.sort(key=lambda d: d.rank)
+                result.words = [t.info for t in thunks]
+                return result
+        except Exception as e:  # noqa: BLE001 — an error result, as
+            # the JAX package's engine returns one
+            return ErrorSearchResult(f"Error: {e}")
+
+    def _materialize_docs(self, result: SearchResult) -> None:
+        """Doc ranks, headers, snippets (index.py:774, ref
+        Search.cs:552-597): doc rank 1 + ln(sum of page ranks), x10 when
+        the header page leads; the header page's fields, highlighted when
+        it matched; each body page's snippet; the summary of the three
+        lowest-ranked pages in page-id order."""
+        for doc in result.found_docs:
+            total = sum(p.rank for p in doc.pages)
+            doc.rank = 1 + math.log(total) if total > 0 else 1.0
+            first_is_header = bool(doc.pages) and doc.pages[0].id == "0"
+            if first_is_header:
+                doc.rank *= C.DOC_RANK_MULTIPLY
+            doc.found_words = []
+            srcname = doc.name.split(C.DOC_SEP)[0]
+            source = next((s for s in self.sources if s.name == srcname),
+                          None)
+            document = (source[doc.name[len(srcname) + 1:]]
+                        if source is not None else None)
+            if document is not None:
+                headers_text = document["0"].text
+                if first_is_header:
+                    headers_text = highlight_positions(headers_text,
+                                                       doc.pages[0].pos)
+                doc.make_headers(headers_text)
+                doc.pages = [p for p in doc.pages if p.id != "0"]
+                for page in doc.pages:
+                    text, matched = prepare_page_text(
+                        page, document[page.id].text, C.MAX_FOUND_PAGE_TEXT)
+                    page.text = text
+                    doc.found_words.extend(matched)
+                if doc.pages:
+                    top = sorted(doc.pages, key=lambda p: p.rank)[:3]
+                    top = sorted(top, key=lambda p: p.id)
+                    doc.summary = " ... ".join(p.text or "" for p in top)
+                document.close()
+            seen = set()
+            doc.found_words = [w for w in doc.found_words
+                               if not (w in seen or seen.add(w))]

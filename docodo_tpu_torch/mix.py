@@ -1,8 +1,12 @@
 """The query mixes of the benchmarks: copies of
 benchmarks/common.standard_mix and wide_mix for the port, which imports
-nothing of the benchmarks or the JAX package."""
+nothing of the benchmarks or the JAX package; and the request strings a
+server is sent (benchmarks/serve_qps.py's recipe, and a wide one beside
+it)."""
 
 from __future__ import annotations
+
+import random
 
 import numpy as np
 
@@ -104,3 +108,80 @@ def mix_queries(terms: np.ndarray, rs: np.ndarray, id_to_term):
                 groups.append((keys[0] if len(keys) == 1 else keys, int(r)))
         out.append(groups)
     return out
+
+
+def serve_words(index) -> list:
+    """The words serve_qps.py draws its requests from (:70-72): the 1000
+    terms of most stored posting volume (Index.calc_histogram, ranked by
+    the words their varint lists take), alphabetic and of 4 letters or
+    more, ranked 50-400."""
+    arr = index.arr
+    vol = np.array([arr.enc_count(t) for t in range(len(arr))])
+    top = np.argsort(-vol, kind="stable")[:1000]
+    words = [arr.terms[t] for t in top.tolist()]
+    return [w for w in words if w[0].isalpha() and len(w) >= 4][50:400]
+
+
+def serve_requests(index, n: int, seed: int = 7) -> list:
+    """benchmarks/serve_qps.py's requests (:73-84): with random.Random(7)
+    over serve_words, request i is a word, a "quoted phrase" of two or
+    a proximity AND of two, by i % 3."""
+    words = serve_words(index)
+    rng = random.Random(seed)
+    reqs = []
+    for i in range(n):
+        kind = i % 3
+        if kind == 0:
+            reqs.append(rng.choice(words))
+        elif kind == 1:
+            reqs.append(f'"{rng.choice(words)} {rng.choice(words)}"')
+        else:
+            reqs.append(f"{rng.choice(words)} {rng.choice(words)}")
+    return reqs
+
+
+def wide_requests(index, n: int, seed: int = 77) -> list:
+    """Wide request strings over the same words, by i % 8: `c (a|b)` and
+    `a|b` alternations, a `?` wildcard (inside a word of 6 letters or
+    more: few full forms match) alone and in an AND, 3- and 4-word
+    phrases, a 3-word proximity AND, and a {name=...} field request of a
+    document's header page alone or with a word; every 25th request
+    instead holds a `~` (host-served: the reference gives it no
+    meaning), every 20th a `-filter:` doc-name regex."""
+    words = serve_words(index)
+    long_words = [w for w in words if len(w) >= 6]
+    docs = [d.split(":", 1)[1] for d in index.pages.doc_names]
+    rng = random.Random(seed)
+    pick = lambda k: [rng.choice(words) for _ in range(k)]
+    reqs = []
+    for i in range(n):
+        if i % 25 == 24:
+            a, b = pick(2)
+            reqs.append(f"{a} ~{b}")
+            continue
+        kind = i % 8
+        if kind == 0:
+            a, b, c = pick(3)
+            req = f"{c} ({a}|{b})"
+        elif kind == 1:
+            a, b = pick(2)
+            req = f"{a}|{b}"
+        elif kind in (2, 3):
+            w = rng.choice(long_words)
+            req = w[:2] + "?" + w[3:]
+            if kind == 3:
+                req = f"{req} {rng.choice(words)}"
+        elif kind == 4:
+            req = '"' + " ".join(pick(3)) + '"'
+        elif kind == 5:
+            req = '"' + " ".join(pick(4)) + '"'
+        elif kind == 6:
+            req = " ".join(pick(3))
+        else:
+            req = "{name=" + rng.choice(docs) + "}"
+            if i % 16 == 15:
+                req = f"{rng.choice(words)} {req}"
+        if i % 20 == 19:
+            req += f" -filter:{rng.choice(docs)[:-1]}.*"
+        reqs.append(req)
+    return reqs

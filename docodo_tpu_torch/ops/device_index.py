@@ -31,6 +31,7 @@ itself; every other bucket takes the torch route (query_step).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -922,6 +923,9 @@ class DeviceIndex:
     page_doc_np: np.ndarray
     bounds_np: np.ndarray
     _cgq_cache: dict = field(default_factory=dict)
+    # a batcher's collector and completion threads both fill the cache
+    _cgq_lock: threading.Lock = field(default_factory=threading.Lock,
+                                      repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -1114,11 +1118,15 @@ class DeviceIndex:
             )
         except TypeError:
             key = None
-        if key is not None and key in self._cgq_cache:
-            return self._cgq_cache[key]
+        if key is None:
+            return self._compile_group_query_uncached(query)
+        with self._cgq_lock:
+            if key in self._cgq_cache:
+                return self._cgq_cache[key]
         out = self._compile_group_query_uncached(query)
-        if key is not None and len(self._cgq_cache) < 200_000:
-            self._cgq_cache[key] = out
+        with self._cgq_lock:
+            if len(self._cgq_cache) < 200_000:
+                self._cgq_cache[key] = out
         return out
 
     def _compile_group_query_uncached(self, query):

@@ -1,122 +1,15 @@
-"""The host posting oracle: copies of docodo_tpu/core/postings.py's
-group_and, or_merge and their helpers (ref Docodo.NET/IndexSequence.cs
-:205-322), and the wide-row fold of tests/test_wide_mix.py, for checking
-the port's results without the JAX package.
-
-AND (proximity with grouping window): the window is max(|R1|, |R2|),
-ordered (R < 0) iff both operands are; the merged coordinates cut into
-groups at gaps wider than the window, in ordered mode also at the first
-left-operand coordinate of each gap segment; a group is emitted, all of
-its coordinates, iff it holds a coordinate of each operand; equal
-coordinates across operands merge into one.
+"""The host posting oracle: the wide-row fold of tests/test_wide_mix.py
+over the host posting algebra (core/postings.py's group_and and
+or_merge), for checking the port's results without the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from docodo_tpu_torch.core.postings import group_and, or_merge
 
-def _rle(arr: np.ndarray):
-    """Run-length encode a sorted array -> (distinct values, counts)."""
-    n = arr.size
-    if n == 0:
-        return arr, np.zeros(0, dtype=np.int64)
-    change = np.empty(n, dtype=bool)
-    change[0] = True
-    np.not_equal(arr[1:], arr[:-1], out=change[1:])
-    idx = np.flatnonzero(change)
-    vals = arr[idx]
-    counts = np.diff(np.append(idx, n))
-    return vals, counts
-
-
-def _aligned_counts(vals, side_vals, side_counts):
-    """Counts of each of `vals` inside (side_vals, side_counts) RLE."""
-    if side_vals.size == 0:
-        return np.zeros(vals.size, dtype=np.int64)
-    pos = np.searchsorted(side_vals, vals)
-    pos_c = np.minimum(pos, side_vals.size - 1)
-    hit = side_vals[pos_c] == vals
-    out = np.where(hit, side_counts[pos_c], 0)
-    return out
-
-
-def _combine_r(r1: int, r2: int) -> int:
-    abs_r = max(abs(r1), abs(r2))
-    return -abs_r if (r1 < 0 and r2 < 0) else abs_r
-
-
-def group_and(a: np.ndarray, b: np.ndarray, r1: int, r2: int):
-    """Proximity-AND of two ascending coordinate arrays.
-
-    Returns (coords, R) where coords contains every coordinate of every
-    qualifying group (both operands' positions are kept — phrase results
-    report the positions of all matched words).
-    """
-    r = _combine_r(r1, r2)
-    abs_r = abs(r)
-    a = np.asarray(a, dtype=np.uint64)
-    b = np.asarray(b, dtype=np.uint64)
-    if a.size == 0 or b.size == 0:
-        return np.zeros(0, dtype=np.uint64), r
-
-    av, ac = _rle(a)
-    bv, bc = _rle(b)
-    vals = np.unique(np.concatenate([av, bv]))
-    ca = _aligned_counts(vals, av, ac)
-    cb = _aligned_counts(vals, bv, bc)
-    mult = np.maximum(ca, cb)
-    has_a = ca > 0
-    has_b = cb > 0
-
-    k = vals.size
-    start = np.empty(k, dtype=bool)
-    start[0] = True
-    if abs_r != 0:
-        np.greater(vals[1:] - vals[:-1], np.uint64(abs_r), out=start[1:])
-    else:
-        start[1:] = False
-
-    if r < 0:
-        # ordered mode: additionally cut before the first left-operand value
-        # of each gap segment when it does not already start the segment.
-        seg_id = np.cumsum(start) - 1
-        seg_start_idx = np.flatnonzero(start)
-        c_a = np.cumsum(has_a)
-        before = c_a - has_a  # number of A strictly before position i
-        before_seg = before[seg_start_idx]  # A strictly before segment start
-        prev_a_in_seg = before - before_seg[seg_id]
-        is_seg_start = start
-        ordered_cut = has_a & (prev_a_in_seg == 0) & ~is_seg_start
-        start = start | ordered_cut
-
-    seg_id = np.cumsum(start) - 1
-    nseg = int(seg_id[-1]) + 1
-    seg_a = np.zeros(nseg, dtype=bool)
-    seg_b = np.zeros(nseg, dtype=bool)
-    np.logical_or.at(seg_a, seg_id, has_a)
-    np.logical_or.at(seg_b, seg_id, has_b)
-    keep = (seg_a & seg_b)[seg_id]
-    out = np.repeat(vals[keep], mult[keep])
-    return out.astype(np.uint64), r
-
-
-def or_merge(a: np.ndarray, b: np.ndarray, r1: int, r2: int):
-    """OR-merge of two ascending coordinate arrays (dedupe across operands)."""
-    r = _combine_r(r1, r2)
-    a = np.asarray(a, dtype=np.uint64)
-    b = np.asarray(b, dtype=np.uint64)
-    if a.size == 0:
-        return b.copy(), r
-    if b.size == 0:
-        return a.copy(), r
-    av, ac = _rle(a)
-    bv, bc = _rle(b)
-    vals = np.unique(np.concatenate([av, bv]))
-    ca = _aligned_counts(vals, av, ac)
-    cb = _aligned_counts(vals, bv, bc)
-    out = np.repeat(vals, np.maximum(ca, cb))
-    return out.astype(np.uint64), r
+__all__ = ["fold_row", "group_and", "or_merge"]
 
 
 def fold_row(words, rs):

@@ -997,3 +997,87 @@ def test_profiler_kernel_names_are_kernels():
             assert event.split("<")[0] in kernels, (name, event)
             for t in re.findall(r"docodo::(\w+)", event):
                 assert t in structs, (name, event, t)
+
+
+def _serving_index():
+    """A seeded Zipf corpus through the port's host engine (page text
+    kept), with its serve_qps-recipe and wide requests."""
+    from docodo_tpu_torch.index import Index, ListDataSource
+    from docodo_tpu_torch.mix import serve_requests, wide_requests
+    from docodo_tpu_torch.synthetic import zipf_documents
+
+    ind = Index()
+    ind.add_data_source(ListDataSource(
+        "synth", zipf_documents(400_000, seed=2, vocab=3000,
+                                doc_chars=20_000)))
+    ind.create()
+    return ind, serve_requests(ind, 240) + wide_requests(ind, 80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["direct", "pipelined"])
+@pytest.mark.parametrize("materialize", [True, False],
+                         ids=["materialized", "brief"])
+def test_batcher_on_card_from_threads_with_a_restage(cuda_device, pipeline,
+                                                     materialize):
+    """The executor on a CUDA index, 16 client threads, create() on the
+    same documents after the first third of the requests: every request
+    equal to the host engine (brief doc ranks within 1 ulp, orders
+    equal), the stats adding up, and every kernel's launch count equal
+    to the sum of the launches the executor's batches made."""
+    import concurrent.futures as cf
+
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.query.batcher import BatchExecutor
+    from docodo_tpu_torch.query.search import brief_ulps, result_fields
+
+    ind, reqs = _serving_index()
+    hosts = {r: ind.search(r) for r in set(reqs)}
+    want = {r: result_fields(h) for r, h in hosts.items()}
+    ex = BatchExecutor(ind, pipeline=pipeline, materialize=materialize,
+                       max_wait_ms=2.0)
+    assert ex.di.device.type == "cuda"
+    waves = []
+    total = lambda: sum(k.launches for k in _cuda.KERNELS.values())
+    search_batch_full = type(ex.di).search_batch_full
+
+    def counted(self, *a, **k):  # the collector's calls, one a batch
+        before = total()
+        out = search_batch_full(self, *a, **k)
+        waves.append(total() - before)
+        return out
+
+    gen = ind.generation
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    type(ex.di).search_batch_full = counted
+    try:
+        def client(k):
+            out = []
+            for i, req in enumerate(reqs[k::16]):
+                if k == 0 and i == len(reqs) // 48:
+                    ind.create()
+                out.append((req, ex.search(req)))
+            return out
+
+        with cf.ThreadPoolExecutor(16) as pool:
+            served = [r for f in [pool.submit(client, k) for k in range(16)]
+                      for r in f.result(timeout=600)]
+        # a few more on the restaged index
+        served += [(r, ex.search(r)) for r in reqs[:32]]
+    finally:
+        type(ex.di).search_batch_full = search_batch_full
+        ex.close()
+    assert ind.generation == gen + 1 and ex._gen == ind.generation
+    for req, res in served:
+        if result_fields(res) == want[req]:
+            continue
+        assert not materialize, req
+        worst = brief_ulps(res, hosts[req])
+        assert worst is not None and worst <= 1, (req, worst)
+    st = ex.stats
+    assert st["device_queries"] + st["host_queries"] \
+        + st["truncated_fallbacks"] == len(served)
+    assert st["device_queries"] > len(served) // 2
+    assert sum(waves) == total() > 0 and len(waves) == st["batches"]

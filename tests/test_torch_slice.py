@@ -183,9 +183,10 @@ def test_plain_route_equals_jax(corpus):
 def test_port_imports_no_jax():
     """The port's host build (with a vocabulary too), both searches
     (standard and wide rows, the page level, the per-bucket serving
-    shape with its deferred finish), and chip_smoke's CPU-runnable
-    helpers (the mixes, the oracles) run without loading jax, the JAX
-    package or the benchmarks."""
+    shape with its deferred finish), chip_smoke's CPU-runnable helpers
+    (the mixes, the oracles), the host engine `Index`, the batcher and
+    the HTTP server run without loading jax, the JAX package or the
+    benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -231,6 +232,30 @@ def test_port_imports_no_jax():
             words = [[c[off[t]:off[t + 1]] for t in vs if t >= 0]
                      for vs in wt[i] if vs[0] >= 0]
             assert out["n_hits"][i] == fold_row(words, wr[i]).size
+        import json, urllib.request
+        from docodo_tpu_torch.index import Index, IndexPagedTextFile
+        from docodo_tpu_torch.index import ListDataSource
+        from docodo_tpu_torch.query.batcher import BatchExecutor
+        from docodo_tpu_torch.server import DocodoServer, result_to_json
+        idx = Index()
+        idx.add_data_source(ListDataSource("docs", [IndexPagedTextFile(
+            "a", "the pickwick club met at noon", "author=dickens")]))
+        idx.create()
+        ex = BatchExecutor(idx, device="cpu", max_wait_ms=1.0)
+        for req in ('"pickwick club"', "club {author=dickens}", "clu?"):
+            assert ex.search(req) == idx.search(req)
+            assert idx.search(req).found_pages
+        assert ex.stats["device_queries"] == 3
+        ex.close()
+        srv = DocodoServer(idx, port=0, host="127.0.0.1",
+                           device_batching=True, device="cpu")
+        srv.start()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/search?req=club") as r:
+            body = json.loads(r.read())
+        srv.stop()
+        assert body == json.loads(json.dumps(result_to_json(
+            idx.search("club")))) and body["found"] == 1
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
         assert not loaded, loaded
