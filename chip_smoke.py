@@ -1,8 +1,12 @@
 """Smoke run of docodo_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from the checkout, holds each against its plain PyTorch version,
-builds a seeded 64 MB Zipf corpus index with the port's host build,
-serves the standard 10k query mix and the wide 10k mix (3-4-word
-phrases, variant ORs, wildcard unions, field rows) plus 1,000 `a|b`
+builds a seeded 64 MB Zipf corpus index with the port's build (the
+native tokenizer and interner, the CSR sorted on the card; held array for
+array against the pure-Python build on the CPU), builds a 1 GB corpus's
+CSR by the packed protocol (tokenize on threads, pack, pinned copy, sort
+on the card; build_mb_s), serves the standard 10k query mix and the wide
+10k mix (3-4-word phrases, variant ORs, wildcard unions, field rows)
+plus 1,000 `a|b`
 alternations through the kernel route and the plain route of the
 full-result path (search_batch_full), the standard mix through both
 routes of the page-level path (search_batch, topk 16), times every
@@ -22,7 +26,7 @@ four configurations, pipeline and materialize on and off, with a
 rebuild mid-stream, every request held against the host engine
 (Index.search), then through DocodoServer on the loopback.
 
-    python3 chip_smoke.py [--corpus-mb 64] [--seed 0]
+    python3 chip_smoke.py [--corpus-mb 64] [--build-mb 1000] [--seed 0]
 
 Prints one line per phase, a JSON line with every kernel's launches,
 error, times and bound, the card's name and power limit, and as its last
@@ -928,19 +932,44 @@ def phase_parity(rng) -> dict:
 
 def phase_index(corpus_mb: float, seed: int):
     """The corpus indexed by the port's host engine (docodo_tpu_torch.index
-    Index, which keeps the page text for snippets) and staged on the
-    card. Returns (index, device index)."""
-    from docodo_tpu_torch.index import Index, ListDataSource
+    Index, which keeps the page text for snippets): body pages through the
+    native tokenizer and interner, the CSR sorted on the card. Its build
+    must equal, array for array, the pure-Python build sorted on the CPU
+    (build_index(native=False, device="cpu")). Staged on the card.
+    Returns (index, device index)."""
+    from docodo_tpu_torch.index import Index, ListDataSource, build_index
     from docodo_tpu_torch.lang import tokenizer
     from docodo_tpu_torch.ops.device_index import DeviceIndex, build_postings
     from docodo_tpu_torch.synthetic import zipf_documents
+    from docodo_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     docs = zipf_documents(int(corpus_mb * 1e6), seed=seed)
     t1 = time.perf_counter()
+    profiling.reset()
     ind = Index()
     ind.add_data_source(ListDataSource("synth", docs))
     ind.create()
+    t_native = time.perf_counter() - t1
+    native_report = profiling.format_report()
+    profiling.reset()
+    t2 = time.perf_counter()
+    ref = build_index(ListDataSource("synth", docs), native=False,
+                      device="cpu")
+    t_ref = time.perf_counter() - t2
+    python_report = profiling.format_report()
+    got, want = ind.host, ref
+    require(got.arr.terms == want.arr.terms
+            and got.pages.page_ids == want.pages.page_ids
+            and got.pages.doc_names == want.pages.doc_names
+            and got.arr.max_coord == want.arr.max_coord
+            and all(a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in ((got.arr.offsets, want.arr.offsets),
+                                 (got.arr.coords, want.arr.coords),
+                                 (got.pages.bounds, want.pages.bounds),
+                                 (got.pages.page_doc, want.pages.page_doc))),
+            "Index.create (native, on the card) differs from the "
+            "pure-Python build on the CPU")
     t2 = time.perf_counter()
     dix = DeviceIndex.from_index(ind)
     torch.cuda.synchronize()
@@ -950,8 +979,15 @@ def phase_index(corpus_mb: float, seed: int):
         f"{dix.bounds.numel()} pages, {len(dix.terms)} terms, "
         f"{dix.coords.numel()} postings, largest list {int(counts.max())}, "
         f"{dix.device_bytes() / 1e6:.1f} MB on device; corpus "
-        f"{t1 - t0:.1f} s, host build {t2 - t1:.1f} s, staging "
+        f"{t1 - t0:.1f} s, build {t_native:.2f} s (Index.create: "
+        f"native tokenizer, sort on the card), pure-Python build on the "
+        f"CPU {t_ref:.2f} s, equal array for array (terms, offsets, "
+        f"coords, bounds, page_doc, page_ids, doc_names); staging "
         f"{t3 - t2:.1f} s")
+    for label, report in (("native, card", native_report),
+                          ("pure Python, CPU", python_report)):
+        say(f"build phases ({label}): " + "; ".join(
+            " ".join(line.split()) for line in report.splitlines()))
 
     # the device build over the tokenizer's stream, against numpy
     text = " ".join(p.text for d in docs for p in d.pages[1:])
@@ -979,6 +1015,107 @@ def phase_index(corpus_mb: float, seed: int):
     say(f"build_postings: {tids.size} tokens, {n_terms} terms, "
         f"{t_build * 1e3:.2f} ms on the card; equals numpy lexsort")
     return ind, dix
+
+
+def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
+    """BASELINE.md's 1 GB build by the JAX package's build_mb_s protocol
+    (BUILD_r04.json, benchmarks/scale_build.py): the seeded Zipf corpus's
+    documents (body pages joined by newlines) tokenized and interned on
+    threads (parallel_tokenize_intern), packed with absolute starts (one
+    coordinate space over the documents in order), copied to the
+    card from pinned memory and sorted into one CSR there
+    (build_postings_packed). Requires offsets[-1] to be the token count,
+    every list ascending and 1,000 seeded terms' lists equal to a numpy
+    lexsort of the same stream. End to end is tokenize to the CSR on the
+    card; device-only the copy and the sort."""
+    import os
+
+    from docodo_tpu_torch.lang import tokenizer
+    from docodo_tpu_torch.native import pipeline
+    from docodo_tpu_torch.ops.device_index import (
+        build_postings_packed,
+        pack_tokens,
+    )
+    from docodo_tpu_torch.synthetic import zipf_documents
+
+    t0 = time.perf_counter()
+    # a text a document, its body pages joined by newlines: calls of a
+    # page each would hold the threads on the interpreter lock
+    texts = ["\n".join(p.text for p in d.pages[1:])
+             for d in zipf_documents(int(build_mb * 1e6), seed=seed)]
+    mb = sum(map(len, texts)) / 1e6  # ASCII: a character is a byte
+    t_corpus = time.perf_counter() - t0
+    workers = min(os.cpu_count() or 1, 8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ids_l, starts_l, terms = pipeline.parallel_tokenize_intern(
+        texts, workers=workers)
+    t2 = time.perf_counter()
+    bases = np.cumsum([0] + [tokenizer.char_len(t) for t in texts[:-1]])
+    counts = np.fromiter((a.size for a in ids_l), np.int64, len(ids_l))
+    ids = np.concatenate(ids_l)
+    starts = (np.concatenate(starts_l).astype(np.int64)
+              + np.repeat(bases, counts))
+    del ids_l, starts_l
+    packed = pack_tokens(ids, starts)
+    t3 = time.perf_counter()
+    pinned = torch.empty(packed.size, dtype=torch.int32, pin_memory=True)
+    pinned.numpy()[:] = packed.view(np.int32)
+    t4 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dev = pinned.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    num_terms = len(terms)
+    st, sc, off = build_postings_packed(dev, num_terms)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - held
+    n = ids.size
+    require(int(off[-1]) == n and int(off[0]) == 0,
+            f"build {mb:.0f} MB: offsets[-1] {int(off[-1])} != {n} tokens")
+    require(bool(((st[1:n] > st[:n - 1])
+                  | ((st[1:n] == st[:n - 1]) & (sc[1:n] > sc[:n - 1])))
+                 .all()), f"build {mb:.0f} MB: a list is not ascending")
+    rng = np.random.default_rng(seed)
+    sample = np.sort(rng.choice(np.flatnonzero(np.bincount(
+        ids, minlength=num_terms)), size=1000, replace=False))
+    pick = np.zeros(num_terms, dtype=bool)
+    pick[sample] = True
+    mask = pick[ids]
+    sub_ids, sub_starts = ids[mask], starts[mask]
+    want = sub_starts[np.lexsort((sub_starts, sub_ids))]
+    off_h = off.cpu().numpy().astype(np.int64)
+    lens = off_h[sample + 1] - off_h[sample]
+    at = (np.repeat(off_h[sample] - (np.cumsum(lens) - lens), lens)
+          + np.arange(int(lens.sum())))
+    got = sc[torch.from_numpy(at).cuda()].cpu().numpy()
+    require(np.array_equal(lens, np.bincount(sub_ids,
+                                             minlength=num_terms)[sample])
+            and np.array_equal(got, want),
+            f"build {mb:.0f} MB: the 1,000 sampled lists differ from numpy")
+    # the sort again, warm, on CUDA events
+    csr_bytes = sum(x.numel() * x.element_size() for x in (st, sc, off))
+    del st, sc, off
+    sort_ms = cuda_ms(lambda: build_postings_packed(dev, num_terms), reps=3)
+    # the least time: the packed rows read once, the CSR written once
+    bound_ms = (packed.nbytes + csr_bytes) / HBM_BYTES_PER_S * 1e3
+    say(f"build {mb:.1f} MB (seed {seed}, {len(texts)} documents): "
+        f"{n} tokens, {packed.size} packed rows, {num_terms} terms; corpus "
+        f"{t_corpus:.1f} s (untimed); tokenize+intern on {workers} threads "
+        f"{t2 - t1:.2f} s ({mb / (t2 - t1):.1f} MB/s), pack "
+        f"{t3 - t2:.2f} s, pinned copy {t4 - t3:.2f} s, H2D "
+        f"{(t5 - t4) * 1e3:.1f} ms ({packed.nbytes / (t5 - t4) / 1e9:.1f} "
+        f"GB/s), sort {(t6 - t5) * 1e3:.1f} ms (warm {sort_ms:.1f} ms, CUDA "
+        f"events; bytes bound {bound_ms:.3f} ms); end to end {t6 - t1:.2f} s = {mb / (t6 - t1):.1f} MB/s, "
+        f"device-only {mb / (t6 - t4):.1f} MB/s, tokenize "
+        f"{mb / (t2 - t1):.1f} MB/s; card: {packed.nbytes / 1e6:.1f} MB "
+        f"copied, CSR {csr_bytes / 1e6:.1f} MB, peak "
+        f"{peak / 1e9:.2f} GB; offsets[-1] = tokens, lists ascending, "
+        f"1,000 seeded lists equal numpy lexsort; {card}")
+    del dev, pinned
+    torch.cuda.empty_cache()
 
 
 def _queries(dix, n: int):
@@ -1983,6 +2120,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--build-mb", type=float, default=1000.0)
     args = ap.parse_args()
 
     marks = [("start", time.perf_counter())]
@@ -1998,6 +2136,8 @@ def main() -> None:
     lap("parity")
     index, dix = phase_index(args.corpus_mb, args.seed)
     lap("index")
+    phase_build_scale(args.build_mb, args.seed, f"{card} ({smi})")
+    lap("build at scale")
     queries = _queries(dix, N_QUERIES)
     wide = _wide_queries(dix, N_QUERIES, N_ALTERNATIONS)
     out, launches = phase_main(dix, queries, f"{card} ({smi})",

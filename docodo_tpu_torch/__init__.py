@@ -6,15 +6,21 @@ its own copies of the host modules it needs. The TPU kernels of the
 full-result and page-level query paths are CUDA kernels for Hopper
 (csrc/*.cu).
 
-  index.py             host index build over paged documents, and the
-                       query side's word -> (variant keys, R) rule
+  index.py             index build over paged documents (native
+                       tokenizer, CSR sorted on the card), the host
+                       engine Index, and the query side's word ->
+                       (variant keys, R) rule
+  native/              the C++ tokenizer, interner and bulk stemmers
+                       (g++ at first use + ctypes binding)
   lang/, constants.py  tokenizer, stemmers, vocabularies (.voc), stop
                        words, word coder
+  utils/profiling.py   build phase timings, torch.profiler traces
   mix.py, oracle.py    the standard and wide query mixes, the numpy oracle
   synthetic.py         seeded Zipf corpora
   ops/seqops.py        posting algebra on batched tensors
-  ops/device_index.py  the device index and the routing of both query
-                       paths (search_batch_full, search_batch)
+  ops/device_index.py  the device index, the packed build stream and its
+                       sort, and the routing of both query paths
+                       (search_batch_full, search_batch)
   ops/query_kernels.py the kernel wrappers and their plain versions
   ops/_cuda.py         nvcc build at first use + ctypes binding
 """

@@ -1,14 +1,20 @@
-"""The port's own host index build: paged documents -> the CSR postings and
+"""The port's own index build: paged documents -> the CSR postings and
 the page table that DeviceIndex.from_index stages; and the host engine
 over it, `Index`, which the batcher and the server serve.
 
-It follows the pure-Python page path of the JAX package's build
-(docodo_tpu/index.py: Index._index_task :436-481, _index_header_page
-:496-514, IndexBuilder._gather_sorted :1050-1080) on one thread, in
-memory, with no spills, varint or storage. Every word is keyed by
-itself and, with vocabularies (Dict/*.voc), by the '#HEX' group of its
-stem, else by its '$stem' where a stemmer covers it; stop words get no
-key (lang/wordcodes.py).
+It follows the page path of the JAX package's build (docodo_tpu/index.py:
+Index._index_task :390-481, _index_header_page :496-514,
+IndexBuilder.add_interned :957-1036, _gather_sorted :1050-1080) on one
+thread, in memory, with no spills, varint or storage. Body pages go
+through the native tokenizer and interner (native/), whose interned ids
+fan out to term ids by one gather, the new words' stems taken in bulk;
+header pages, and every page with native=False, through the pure-Python
+tokenizer. The (term, coordinate) stream is sorted into the CSR on
+`device` (ops/device_index.build_postings_packed, or build_postings
+where the stream does not pack), the card by default. Every word is
+keyed by itself and, with vocabularies (Dict/*.voc), by the '#HEX' group
+of its stem, else by its '$stem' where a stemmer covers it; stop words
+get no key (lang/wordcodes.py).
 
     from docodo_tpu_torch.index import IndexPage, ListDataSource, build_index
     from docodo_tpu_torch.lang.vocab import Vocab, load_stop_words
@@ -20,7 +26,8 @@ key (lang/wordcodes.py).
     dix.search_batch_full([[group]])
 
 A document is an iterable of IndexPage(id, text) with a `name`; page
-"0" is the header page of 'name=value' lines.
+"0" is the header page of 'name=value' lines. `device="cpu"` sorts on
+the CPU, as the tests do.
 
 The host engine (docodo_tpu/index.py:83 `Index`, trimmed to what the
 batcher and the server read): data sources whose page text it keeps in
@@ -46,11 +53,20 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from docodo_tpu_torch import constants as C
 from docodo_tpu_torch.core.postings import PostingSeq
 from docodo_tpu_torch.lang import tokenizer
 from docodo_tpu_torch.lang.wordcodes import WordCoder
+from docodo_tpu_torch.native import pipeline
+from docodo_tpu_torch.ops.device_index import (
+    INF32,
+    PACK_SENTINEL,
+    build_postings,
+    build_postings_packed,
+    pack_tokens,
+)
 from docodo_tpu_torch.query import parser as qparser
 from docodo_tpu_torch.query.search import (
     ErrorSearchResult,
@@ -60,6 +76,7 @@ from docodo_tpu_torch.query.search import (
     prepare_page_text,
     prepare_search_result,
 )
+from docodo_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -243,11 +260,19 @@ def word_group(index: HostIndex,
     return chosen, -(len(lw) + 4) if b_exact else C.DEFAULT_DIST + len(lw)
 
 
+# body pages pend until this many UTF-16 units, then go through one
+# native call; their tokens pend until FLUSH_TOKENS, then go to the
+# stream in one gather
+BODY_UNITS = 1 << 20
+FLUSH_TOKENS = 131072
+
+
 class _Stream:
     """The build's posting stream in coordinate order: (term id, coord)
-    parts, plus each word's row of term ids."""
+    parts, each word's row of term ids, and with `native` the native
+    interner of body-page words with each interned id's row."""
 
-    def __init__(self, coder: WordCoder):
+    def __init__(self, coder: WordCoder, native: bool):
         self.coder = coder
         self.terms: List[str] = []
         self.tmap: Dict[str, int] = {}
@@ -256,6 +281,14 @@ class _Stream:
         self.tids: List[np.ndarray] = []
         self.coords: List[np.ndarray] = []
         self.max_coord = 0
+        self.interner = pipeline.NativeInterner() if native else None
+        # interned id -> its word, and the start and length of its row of
+        # term ids in code_flat (length -1 until the id is first seen)
+        self.id_words: List[str] = []
+        self.code_offs = np.zeros(0, dtype=np.int64)
+        self.code_lens = np.zeros(0, dtype=np.int64)
+        self.code_flat = np.zeros(0, dtype=np.int64)
+        self.code_flat_n = 0
 
     def tid(self, code: str) -> int:
         t = self.tmap.get(code)
@@ -298,10 +331,58 @@ class _Stream:
                                      lens))
         self.max_coord = int(coords[-1])
 
-    def postings(self) -> Postings:
-        """Term-sorted CSR (IndexBuilder._gather_sorted): the stream is in
-        coordinate order, so a stable sort on the term's string rank
-        leaves every list ascending."""
+    def add_interned(self, ids: np.ndarray, coords: np.ndarray) -> None:
+        """Tokens as the native interner's ids (IndexBuilder.add_interned):
+        each id seen for the first time gets its row of term ids once,
+        after one bulk stem of the new words (WordCoder.prime), and the
+        tokens fan out to their rows by one gather."""
+        if ids.size == 0:
+            return
+        self.id_words.extend(self.interner.terms_range(len(self.id_words),
+                                                       len(self.interner)))
+        hi = len(self.id_words)
+        if self.code_lens.size < hi:
+            grow = max(hi, 2 * self.code_lens.size)
+            self.code_lens = np.concatenate(
+                [self.code_lens,
+                 np.full(grow - self.code_lens.size, -1, dtype=np.int64)])
+            self.code_offs = np.concatenate(
+                [self.code_offs,
+                 np.zeros(grow - self.code_offs.size, dtype=np.int64)])
+        unseen = self.code_lens[ids] < 0
+        if unseen.any():
+            new_ids = np.unique(ids[unseen])
+            words = [self.id_words[i] for i in new_ids.tolist()]
+            self.coder.prime(words)
+            rows = [[self.tid(c) for c in self.coder.codes(w)]
+                    for w in words]
+            row_lens = np.fromiter((len(r) for r in rows), np.int64,
+                                   len(rows))
+            pos = self.code_flat_n
+            need = pos + int(row_lens.sum())
+            if need > self.code_flat.size:
+                flat = np.empty(max(need, 2 * self.code_flat.size),
+                                dtype=np.int64)
+                flat[:pos] = self.code_flat[:pos]
+                self.code_flat = flat
+            self.code_flat[pos:need] = [t for r in rows for t in r]
+            self.code_flat_n = need
+            self.code_offs[new_ids] = pos + np.cumsum(row_lens) - row_lens
+            self.code_lens[new_ids] = row_lens
+        counts = self.code_lens[ids]
+        total = int(counts.sum())
+        if total:
+            first = self.code_offs[ids] - (np.cumsum(counts) - counts)
+            gather = np.repeat(first, counts) + np.arange(total)
+            self.tids.append(self.code_flat[gather])
+            self.coords.append(np.repeat(coords, counts))
+        self.max_coord = int(coords[-1])
+
+    def postings(self, device: torch.device) -> Postings:
+        """Term-sorted CSR (IndexBuilder._gather_sorted), sorted on
+        `device`: each posting's key is its term's rank in string order,
+        and the stream is in coordinate order, so sorting by (rank,
+        coordinate) leaves every list ascending."""
         if not self.tids:
             return Postings([], np.zeros(1, dtype=np.int64),
                             np.zeros(0, dtype=np.uint64), self.max_coord)
@@ -312,12 +393,46 @@ class _Stream:
         rank = np.empty(len(self.terms), dtype=np.int32)
         rank[np.array(order_terms, dtype=np.int64)] = np.arange(
             len(order_terms), dtype=np.int32)
-        keys = rank[tids]
-        perm = np.argsort(keys, kind="stable")
-        counts = np.bincount(keys, minlength=len(self.terms))
-        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        offsets, coords = sort_postings(rank[tids], coords, len(self.terms),
+                                        device)
         return Postings([self.terms[i] for i in order_terms], offsets,
-                        coords[perm], self.max_coord)
+                        coords, self.max_coord)
+
+
+def sort_postings(keys: np.ndarray, coords: np.ndarray, num_terms: int,
+                  device) -> Tuple[np.ndarray, np.ndarray]:
+    """The CSR of a (term rank, coordinate) stream in coordinate order,
+    sorted on `device`: (offsets int64[T + 1], coords uint64[N]).
+
+    Ranks below PACK_SENTINEL and coordinates below INF32 go over packed
+    (one uint32 a token, build_postings_packed); past the sentinel the
+    (rank, coordinate) pairs go over as int32 (build_postings); past
+    int32 coordinates a stable sort of the rank alone orders them, the
+    coordinates riding along. The CSR comes back in one copy."""
+    dev = torch.device(device)
+    n = keys.size
+    if n == 0:
+        return np.zeros(num_terms + 1, dtype=np.int64), coords
+    if int(coords[-1]) < INF32:
+        if num_terms <= PACK_SENTINEL:
+            packed = torch.from_numpy(pack_tokens(keys, coords).view(
+                np.int32)).to(dev)
+            _, sc, off = build_postings_packed(packed, num_terms)
+        else:
+            _, sc, off = build_postings(
+                torch.from_numpy(keys).to(dev),
+                torch.from_numpy(coords.astype(np.int32)).to(dev),
+                num_terms)
+        out = torch.cat([off, sc[:n]]).cpu().numpy()
+        return (out[:num_terms + 1].astype(np.int64),
+                out[num_terms + 1:].astype(np.uint64))
+    k = torch.from_numpy(keys).to(dev)
+    order = torch.sort(k, stable=True).indices
+    sc = torch.from_numpy(coords.view(np.int64)).to(dev)[order]
+    off = torch.zeros(num_terms + 1, dtype=torch.int64, device=dev)
+    off[1:] = torch.cumsum(torch.bincount(k, minlength=num_terms), 0)
+    out = torch.cat([off, sc]).cpu().numpy()
+    return out[:num_terms + 1], out[num_terms + 1:].view(np.uint64)
 
 
 def _index_header_page(stream: _Stream, text: str, coord: int) -> int:
@@ -341,8 +456,19 @@ def _index_header_page(stream: _Stream, text: str, coord: int) -> int:
     return coord
 
 
+def _device(device) -> torch.device:
+    """The build's device; a CUDA one raises without CUDA."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("index build on a CUDA device, but CUDA is not "
+                           "available; pass device=\"cpu\" to build on "
+                           "the CPU")
+    return dev
+
+
 def build_index(source: ListDataSource, vocs: Sequence = (),
-                stop_words: Optional[set] = None) -> HostIndex:
+                stop_words: Optional[set] = None, native: bool = True,
+                device="cuda") -> HostIndex:
     """Index every page of every document of `source`, in order, into one
     coordinate space: body pages by the tokenizer (tokens of 3-32
     characters at their UTF-16 offsets), header pages by their fields.
@@ -350,30 +476,84 @@ def build_index(source: ListDataSource, vocs: Sequence = (),
     (lang.vocab.Vocab, in the order that numbers their group keys) and
     `stop_words` key the words as docodo_tpu.Index(vocs=...) with
     add_stop_words does; a stop word keeps its coordinate and gets no
-    posting."""
-    return _build([source], WordCoder(vocs=vocs, stop_words=stop_words))
+    posting. `native=False` tokenizes body pages in pure Python; the CSR
+    is sorted on `device`."""
+    return _build([source], WordCoder(vocs=vocs, stop_words=stop_words),
+                  native, device)
 
 
-def _build(sources: Sequence, coder: WordCoder) -> HostIndex:
+def _build(sources: Sequence, coder: WordCoder, native: bool,
+           device) -> HostIndex:
     """build_index over several sources, one after the other in one
     coordinate space."""
-    stream = _Stream(coder)
+    dev = _device(device)
+    stream = _Stream(coder, native)
     bounds: List[int] = []
     page_doc: List[int] = []
     page_ids: List[str] = []
     doc_names: List[str] = []
     coord = 0
-    for source in sources:
-        coord = _build_source(source, stream, coord, bounds, page_doc,
-                              page_ids, doc_names)
+    try:
+        for source in sources:
+            coord = _build_source(source, stream, coord, bounds, page_doc,
+                                  page_ids, doc_names)
+    finally:
+        if stream.interner is not None:
+            stream.interner.close()
     pages = PageTable(np.array(bounds, dtype=np.uint64),
                       np.array(page_doc, dtype=np.int64), page_ids,
                       doc_names)
-    return HostIndex(stream.postings(), pages, coder)
+    with profiling.phase("build.sort"):
+        arr = stream.postings(dev)
+    return HostIndex(arr, pages, coder)
 
 
 def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
                   page_ids, doc_names) -> int:
+    """One source's pages into the stream. With the native interner, body
+    pages pend and go through one tokenizer call BODY_UNITS at a time
+    (a call a page would wait on the interpreter lock once a page while
+    other threads run, as a server's do during a rebuild), and their
+    tokens go to the stream FLUSH_TOKENS at a time; both flush before
+    every header page, so that the stream stays in coordinate order."""
+    body: List[str] = []        # body pages not tokenized yet, in order
+    body_units: List[int] = []  # their lengths in UTF-16 units
+    body_at = 0                 # the coordinate of the first of them
+    pend_ids: List[np.ndarray] = []
+    pend_coords: List[np.ndarray] = []
+    pend_n = 0
+
+    def tokenize_body():
+        # the pages joined by newlines, which no token crosses: a token's
+        # coordinate is its offset in the joined text less the newlines
+        # before it
+        nonlocal pend_n
+        if not body:
+            return
+        with profiling.phase("build.tokenize"):
+            ids, starts = pipeline.tokenize_intern_native(
+                "\n".join(body), stream.interner, C.MIN_WORD_LENGTH,
+                C.MAX_WORD_LENGTH)
+        seps = np.searchsorted(np.cumsum(np.array(body_units) + 1), starts,
+                               side="right")
+        pend_ids.append(ids)
+        pend_coords.append((starts - seps).astype(np.uint64)
+                           + np.uint64(body_at))
+        pend_n += ids.size
+        body.clear()
+        body_units.clear()
+
+    def flush():
+        nonlocal pend_n
+        tokenize_body()
+        if pend_ids:
+            with profiling.phase("build.wordcode+gather"):
+                stream.add_interned(np.concatenate(pend_ids),
+                                    np.concatenate(pend_coords))
+            pend_ids.clear()
+            pend_coords.clear()
+            pend_n = 0
+
     source.reset()
     while (doc := source.next_document()) is not None:
         doc_names.append(f"{source.name}{C.DOC_SEP}{doc.name}")
@@ -381,15 +561,29 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
             if len(page.text) == 0:
                 continue
             if page.id == "0":
+                flush()
                 coord = _index_header_page(stream, page.text, coord)
+            elif stream.interner is not None:
+                if not body:
+                    body_at = coord
+                body.append(page.text)
+                body_units.append(tokenizer.char_len(page.text))
+                coord += body_units[-1]
+                if coord - body_at >= BODY_UNITS:
+                    tokenize_body()
+                if pend_n >= FLUSH_TOKENS:
+                    flush()
             else:
-                low = tokenizer.lower_keep_length(page.text)
-                words, starts = tokenizer.tokenize(low, lowered=True)
-                keep = [k for k, w in enumerate(words)
-                        if C.MIN_WORD_LENGTH <= len(w) <= C.MAX_WORD_LENGTH]
-                stream.add_tokens([words[k] for k in keep],
-                                  starts[keep].astype(np.uint64)
-                                  + np.uint64(coord))
+                with profiling.phase("build.tokenize"):
+                    low = tokenizer.lower_keep_length(page.text)
+                    words, starts = tokenizer.tokenize(low, lowered=True)
+                with profiling.phase("build.wordcode+gather"):
+                    keep = [k for k, w in enumerate(words)
+                            if C.MIN_WORD_LENGTH <= len(w)
+                            <= C.MAX_WORD_LENGTH]
+                    stream.add_tokens([words[k] for k in keep],
+                                      starts[keep].astype(np.uint64)
+                                      + np.uint64(coord))
                 coord += tokenizer.char_len(low)
             bounds.append(coord)
             page_doc.append(len(doc_names) - 1)
@@ -397,6 +591,7 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
         close = getattr(doc, "close", None)
         if close:
             close()
+    flush()
     return coord
 
 
@@ -481,9 +676,13 @@ class Index:
     """The host engine over the port's build (docodo_tpu/index.py:83):
     what the batcher and the server read of docodo_tpu.Index. Always
     indexes full forms (the JAX package's b_keep_forms = True), in
-    memory, on one build thread."""
+    memory, on one build thread; `native` and `device` as build_index
+    takes them (a CUDA device raises here without CUDA)."""
 
-    def __init__(self, vocs: Sequence = (), stop_words=None):
+    def __init__(self, vocs: Sequence = (), stop_words=None,
+                 native: bool = True, device="cuda"):
+        self.native = native
+        self.device = _device(device)
         self.vocs = list(vocs)
         self.stop_words: set = set(stop_words) if stop_words else set()
         self.sources: List[TextCacheDataSource] = []
@@ -524,9 +723,10 @@ class Index:
             return
         self.status = "Index"
         try:
-            host = _build(self.sources, WordCoder(vocs=self.vocs,
-                                                  stop_words=set(
-                                                      self.stop_words)))
+            host = _build(self.sources,
+                          WordCoder(vocs=self.vocs,
+                                    stop_words=set(self.stop_words)),
+                          self.native, self.device)
             with self._search_lock:
                 for source in self.sources:
                     source.publish()

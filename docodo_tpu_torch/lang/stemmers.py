@@ -1,6 +1,8 @@
 """Snowball stemmers (English/Porter2, Russian, German, French): the
 pure-Python stemmers of docodo_tpu/lang/stemmers.py, copied for the port's
-own host build without the native-library fast paths.
+own host build, and the bulk English and Russian stemmers of its native
+library (stem_en_bulk, stem_ru_bulk: one C call for many words, each
+result equal to the per-word Python stemmer's).
 
 Pure-Python implementations of the published Snowball algorithms, matching
 the stemmer family the reference links via the Iveonik.Stemmers NuGet
@@ -16,7 +18,8 @@ stemmers in a lock, ref Index.cs:158-173).
 
 from __future__ import annotations
 
-__all__ = ["stem_en", "stem_ru", "stem_de", "stem_fr", "KNOWN_STEMMERS"]
+__all__ = ["stem_en", "stem_ru", "stem_de", "stem_fr", "stem_en_bulk",
+           "stem_ru_bulk", "KNOWN_STEMMERS", "BULK_STEMMERS"]
 
 
 # =========================================================================
@@ -337,6 +340,65 @@ def stem_ru(word: str) -> str:
         elif word.endswith("ь") and len(word) - 1 >= rv:
             word = word[:-1]
     return word
+
+
+# =========================================================================
+# bulk stemming through the native library
+# =========================================================================
+
+def _bulk(entry: str, words, encoding: str, grow: int, fallback):
+    """Stem `words` in one call of the native `entry`, on their bytes in
+    a one-byte `encoding` (so byte offsets are character offsets). A word
+    the encoding lacks, or that the C stemmer declines (length -1), takes
+    `fallback`. `grow` bounds how many bytes a stem may add to its word."""
+    import ctypes
+
+    import numpy as np
+
+    from docodo_tpu_torch.native import get_lib
+
+    words = list(words)
+    try:
+        blob = "".join(words).encode(encoding)
+        covered = list(range(len(words)))
+        lens = np.fromiter((len(w) for w in words), np.int32, len(words))
+    except UnicodeEncodeError:
+        raws = []
+        for w in words:
+            try:
+                raws.append(w.encode(encoding))
+            except UnicodeEncodeError:
+                raws.append(None)
+        covered = [i for i, r in enumerate(raws) if r is not None]
+        lens = np.fromiter((len(raws[i]) for i in covered), np.int32,
+                           len(covered))
+        blob = b"".join(raws[i] for i in covered)
+    out_blob = ctypes.create_string_buffer(len(blob) + grow * len(covered)
+                                           + 8)
+    out_lens = np.empty(max(len(covered), 1), dtype=np.int32)
+    total = getattr(get_lib(), entry)(
+        blob, lens.ctypes.data_as(ctypes.c_void_p), len(covered), out_blob,
+        out_lens.ctypes.data_as(ctypes.c_void_p))
+    stems = out_blob.raw[:total].decode(encoding)
+    out = [None] * len(words)
+    pos = 0
+    for i, n in zip(covered, out_lens[:len(covered)].tolist()):
+        if n >= 0:
+            out[i] = stems[pos: pos + n]
+            pos += n
+    return [fallback(w) if o is None else o for w, o in zip(words, out)]
+
+
+def stem_en_bulk(words):
+    """stem_en of many words in one native call; non-ASCII words and
+    words over 60 characters take the Python stemmer."""
+    return _bulk("docodo_stem_en_bulk", words, "ascii", 2, _stem_en_py)
+
+
+def stem_ru_bulk(words):
+    """stem_ru of many words in one native call on their cp1251 bytes;
+    words outside cp1251 take the Python stemmer."""
+    return _bulk("docodo_stem_ru_bulk", words, "cp1251", 0, stem_ru)
 
 
 # =========================================================================
@@ -731,6 +793,9 @@ KNOWN_STEMMERS = [
     ("de", stem_de, "a-zẞäüö"),
     ("fr", stem_fr, "a-zéâàêèëçîïôûùüÿ"),
 ]
+
+# per-word stemmer -> its bulk twin (the build stems new words in bulk)
+BULK_STEMMERS = {stem_en: stem_en_bulk, stem_ru: stem_ru_bulk}
 
 
 def get_stemmer(lang: str):

@@ -10,7 +10,8 @@ are the group number; GROUP_NOT_EXACT_WORD_MASK flags a stem that is no
 word of its own.
 
 A Vocab maps stem -> group id. Word coding stems the word first, then
-looks the stem up (ref Build.cs:195-198, Search.cs:226-233).
+looks the stem up (ref Build.cs:195-198, Search.cs:226-233); the build
+stems its new words in bulk first (prime_stems).
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ class Vocab:
         self.range = ("\0", "\0")  # first letters this vocabulary covers
         self.name = name
         self.stemmer = None
+        # stems of words primed in bulk (prime_stems), read before the
+        # per-word stemmer
+        self._stem_cache: Dict[str, str] = {}
         if source is None:
             return
         if isinstance(source, (str, os.PathLike)):
@@ -90,7 +94,23 @@ class Vocab:
         self.words[word] = group
 
     def stem(self, word: str) -> str:
-        return self.stemmer(word) if self.stemmer is not None else word
+        if self.stemmer is None:
+            return word
+        s = self._stem_cache.get(word)
+        return s if s is not None else self.stemmer(word)
+
+    def prime_stems(self, words) -> None:
+        """Stem the new words this vocabulary covers in one native call,
+        where its language has a bulk stemmer (stemmers.BULK_STEMMERS),
+        and keep the stems for stem() (docodo_tpu/lang/vocab.py:114)."""
+        bulk = stemmers.BULK_STEMMERS.get(self.stemmer)
+        if bulk is None:
+            return
+        lo, hi = self.range
+        todo = [w for w in words
+                if w and lo <= w[0] <= hi and w not in self._stem_cache]
+        if todo:
+            self._stem_cache.update(zip(todo, bulk(todo)))
 
     def search(self, word: str) -> int:
         """Group id of `word`, or 0 if absent (ref Dict.cs:97-103)."""

@@ -13,12 +13,15 @@
 * the stemmer table is consulted only when NO vocabularies are loaded:
   the first stemmer whose character range covers the whole word adds a
   '$stem' key when the stem differs from the word.
+
+The build primes the cache with each batch of new words (prime), which
+stems them in one native call.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 from docodo_tpu_torch.constants import (
     GROUP_NUMBER_MASK,
@@ -55,6 +58,43 @@ class WordCoder:
         if len(self._cache) < 1_000_000:
             self._cache[word] = out
         return out
+
+    def prime(self, words: Iterable[str]) -> None:
+        """Fill the cache for new words, their stems in one native call
+        (wordcodes.py:68): with vocabularies each one's bulk stemmer
+        (Vocab.prime_stems) and the rest per word; without, the English
+        and Russian stems in bulk. A word of ASCII letters can match only
+        the "en" range of the stemmer table (digit-led words are left to
+        codes(), "ru" needs Cyrillic, "de" and "fr" come after "en"), and
+        any other ASCII word none, so those skip the range regexes."""
+        todo = [w for w in words
+                if w and w not in self._cache
+                and not ("0" <= w[0] <= "9") and w not in self.stop_words]
+        if not todo:
+            return
+        if self.vocs:
+            for voc in self.vocs:
+                if voc is not None:
+                    voc.prime_stems(todo)
+            return
+        fns = []
+        for w in todo:
+            if w.isascii():
+                fn = stemmers.stem_en if w.isalpha() and w.islower() else None
+            else:
+                fn = next((f for f, neg_re in self._stemmers
+                           if not neg_re.search(w)), None)
+            fns.append(fn)
+        stems = {}
+        for fn in (stemmers.stem_en, stemmers.stem_ru):
+            group = [w for w, f in zip(todo, fns) if f is fn]
+            stems.update(zip(group, stemmers.BULK_STEMMERS[fn](group)))
+        if len(self._cache) + len(todo) > 1_000_000:
+            return
+        for w, fn in zip(todo, fns):
+            stemmed = stems[w] if w in stems else fn(w) if fn else w
+            self._cache[w] = ((w, WORD_STEM_CHAR + stemmed)
+                              if stemmed and stemmed != w else (w,))
 
     def _codes_uncached(self, word: str) -> Tuple[str, ...]:
         if not word:

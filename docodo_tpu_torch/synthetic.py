@@ -130,8 +130,10 @@ def vocabulary_documents(voc, n_docs: int = 6, pages: int = 5,
 
 
 def build_index(docs: List[PagedDocument], vocs: Sequence = (),
-                stop_words=None) -> host_index.HostIndex:
-    """Index `docs` with the port's host build (docodo_tpu_torch.index),
-    as the source "synth"."""
+                stop_words=None, native: bool = True,
+                device="cuda") -> host_index.HostIndex:
+    """Index `docs` with the port's build (docodo_tpu_torch.index), as the
+    source "synth"."""
     return host_index.build_index(ListDataSource("synth", docs), vocs=vocs,
-                                  stop_words=stop_words)
+                                  stop_words=stop_words, native=native,
+                                  device=device)

@@ -65,7 +65,7 @@ def build_pair(tmp_path, docs=()):
     without documents, neither has a source or a build."""
     ref = docodo_tpu.Index(path=str(tmp_path), in_memory=True)
     ref.max_degree_of_parallelism = 1
-    mine = Index()
+    mine = Index(device="cpu")
     if docs:
         ref.add_data_source(JaxListDataSource(
             "docs", [JaxPagedTextFile(*d) for d in docs]))
@@ -472,7 +472,7 @@ def test_a_build_landing_while_the_executor_stages(monkeypatch):
     build but before it records it: the executor records the generation
     it staged, stages again, and serves the new documents, never the old
     postings under the new generation."""
-    mine = Index()
+    mine = Index(device="cpu")
     mine.add_data_source(ListDataSource(
         "docs", [IndexPagedTextFile(*d) for d in DOCS]))
     ex = BatchExecutor(mine, device="cpu", max_wait_ms=1.0)  # no build yet

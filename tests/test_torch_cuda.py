@@ -1081,3 +1081,78 @@ def test_batcher_on_card_from_threads_with_a_restage(cuda_device, pipeline,
         + st["truncated_fallbacks"] == len(served)
     assert st["device_queries"] > len(served) // 2
     assert sum(waves) == total() > 0 and len(waves) == st["batches"]
+
+
+def _packed_stream(rng, n: int, num_terms: int):
+    """A seeded packed token stream with escape rows (gaps of 4095 and
+    k * 4095 + r) and PACK_PAD_ROW padding."""
+    from docodo_tpu_torch.ops import device_index as di
+
+    gaps = rng.integers(0, 40, n)
+    gaps[rng.choice(n, 6, replace=False)] = [4095, 8190, 3 * 4095 + 7,
+                                            4094, 4096, 40_000]
+    ids = rng.integers(0, num_terms, n).astype(np.int32)
+    packed = di.pack_tokens(ids, np.cumsum(gaps))
+    return np.concatenate([packed, np.full(53, di.PACK_PAD_ROW, np.uint32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,num_terms", [(5000, 300), (2_000_000, 50_000)])
+def test_build_postings_packed_on_card_equals_cpu(cuda_device, n,
+                                                  num_terms):
+    from docodo_tpu_torch.ops import device_index as di
+
+    rows = torch.from_numpy(_packed_stream(np.random.default_rng(n), n,
+                                           num_terms).view(np.int32))
+    want = di.build_postings_packed(rows, num_terms)
+    got = di.build_postings_packed(rows.to(cuda_device), num_terms)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype == torch.int32
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["packed", "past-the-sentinel",
+                                    "past-int32"])
+def test_sort_postings_on_card_equals_cpu(cuda_device, branch):
+    from docodo_tpu_torch import index as host
+
+    rng = np.random.default_rng(len(branch))
+    num_terms = 2**20 + 8 if branch == "past-the-sentinel" else 3000
+    keys = rng.integers(0, num_terms, 50_000).astype(np.int32)
+    coords = np.cumsum(rng.integers(0, 5000, 50_000)).astype(np.uint64)
+    if branch == "past-int32":
+        coords[25_000:] += np.uint64(2**31)
+    got = host.sort_postings(keys, coords, num_terms, cuda_device)
+    want = host.sort_postings(keys, coords, num_terms, "cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [True, False])
+def test_index_create_on_card_equals_cpu(cuda_device, native):
+    """Index.create with the CSR sorted on the card equals the same build
+    sorted on the CPU, array for array."""
+    from docodo_tpu_torch.index import Index, ListDataSource
+    from docodo_tpu_torch.synthetic import zipf_documents
+
+    docs = zipf_documents(2_000_000, seed=9, vocab=8000, doc_chars=30_000)
+    built = []
+    for device in (cuda_device, "cpu"):
+        ind = Index(native=native, device=device)
+        ind.add_data_source(ListDataSource("synth", docs))
+        ind.create()
+        built.append(ind.host)
+    got, want = built
+    assert got.arr.terms == want.arr.terms and len(got.arr.terms) > 5000
+    assert got.pages.page_ids == want.pages.page_ids
+    assert got.pages.doc_names == want.pages.doc_names
+    assert got.arr.max_coord == want.arr.max_coord
+    for a, b in ((got.arr.offsets, want.arr.offsets),
+                 (got.arr.coords, want.arr.coords),
+                 (got.pages.bounds, want.pages.bounds),
+                 (got.pages.page_doc, want.pages.page_doc)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

@@ -28,7 +28,7 @@ def f32_ulps(a, b) -> int:
 @pytest.fixture(scope="module")
 def indexes():
     ind = build_index(zipf_documents(300_000, seed=11, vocab=4000,
-                                     doc_chars=20_000))
+                                     doc_chars=20_000), device="cpu")
     return (ind, jdi.DeviceIndex.from_index(ind),
             tdi.DeviceIndex.from_index(ind, device="cpu"))
 

@@ -68,7 +68,7 @@ def _staged(ind):
 @pytest.mark.parametrize("seed,vocab", [(11, 4000), (3, 900)])
 def test_host_build_matches_index(tmp_path, seed, vocab):
     docs = zipf_documents(250_000, seed=seed, vocab=vocab, doc_chars=20_000)
-    mine = build_index(ListDataSource("synth", docs))
+    mine = build_index(ListDataSource("synth", docs), device="cpu")
     ref = _reference_build(docs, tmp_path)
     (got, gs), (want, ws) = _staged(mine), _staged(ref)
     assert sorted(gs) == sorted(ws)
@@ -98,7 +98,7 @@ def test_host_build_sorts_header_and_body_postings(tmp_path):
         Doc("B", [("0", "Name=Второй том\n"),
                   ("1", "Война и мир, роман Льва Толстого, том второй.")]),
     ]
-    mine = build_index(ListDataSource("synth", docs))
+    mine = build_index(ListDataSource("synth", docs), device="cpu")
     ref = _reference_build(docs, tmp_path)
     assert mine.arr.terms == ref.arr.terms
     np.testing.assert_array_equal(mine.arr.offsets, ref.arr.offsets)

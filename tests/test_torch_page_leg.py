@@ -75,7 +75,7 @@ def page_queries(dix):
 @pytest.fixture(scope="module")
 def corpus():
     ind = build_index(zipf_documents(300_000, seed=5, vocab=2500,
-                                     doc_chars=30_000))
+                                     doc_chars=30_000), device="cpu")
     jdx = jdi.DeviceIndex.from_index(ind)
     tdx = tdi.DeviceIndex.from_index(ind, device="cpu")
     return jdx, tdx, page_queries(tdx)

@@ -76,7 +76,7 @@ def indexes(tmp_path_factory):
     ref.add_data_source(JaxListDataSource(
         "docs", _docs(JaxPagedTextFile, zipf)))
     ref.create()
-    mine = Index()
+    mine = Index(device="cpu")
     mine.add_data_source(ListDataSource(
         "docs", _docs(IndexPagedTextFile, zipf)))
     mine.create()

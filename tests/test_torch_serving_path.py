@@ -45,7 +45,7 @@ def _by_count(dix, lo, hi, k):
 @pytest.fixture(scope="module")
 def serving():
     ind = build_index(zipf_documents(480_000, seed=7, vocab=5000,
-                                     doc_chars=40_000))
+                                     doc_chars=40_000), device="cpu")
     jdx = jdi.DeviceIndex.from_index(ind)
     tdx = tdi.DeviceIndex.from_index(ind, device="cpu")
     low, mid = _by_count(tdx, 32, 128, 6), _by_count(tdx, 300, 1024, 4)

@@ -89,7 +89,7 @@ def uncarried(tdx):
 @pytest.fixture(scope="module")
 def corpus():
     ind = build_index(zipf_documents(480_000, seed=7, vocab=5000,
-                                     doc_chars=40_000))
+                                     doc_chars=40_000), device="cpu")
     jdx = JaxDeviceIndex.from_index(ind)
     tdx = tdi.DeviceIndex.from_index(ind, device="cpu")
     queries = mixed_queries(tdx)
@@ -195,7 +195,15 @@ def test_port_imports_no_jax():
         from docodo_tpu_torch.mix import mix_queries, standard_mix, wide_mix
         from docodo_tpu_torch.oracle import fold_row, group_and
         from docodo_tpu_torch.synthetic import build_index, zipf_documents
-        ind = build_index(zipf_documents(60_000, seed=1, vocab=800))
+        ind = build_index(zipf_documents(60_000, seed=1, vocab=800),
+                          device="cpu")
+        from docodo_tpu_torch.native.pipeline import (
+            parallel_tokenize_intern)
+        from docodo_tpu_torch.utils import profiling
+        assert "build.sort" in profiling.format_report()
+        assert parallel_tokenize_intern(["alpha beta", "beta gamma"],
+                                        workers=2)[2] == ["alpha", "beta",
+                                                          "gamma"]
         dix = DeviceIndex.from_index(ind, device="cpu")
         words = dix.terms[10:12]
         out = dix.search_batch_full(
@@ -218,7 +226,8 @@ def test_port_imports_no_jax():
         from docodo_tpu_torch.lang.vocab import Vocab
         from docodo_tpu_torch.synthetic import vocabulary_documents
         voc = Vocab("Dict/ru.voc")
-        rus = build_index(vocabulary_documents(voc, n_docs=2), vocs=[voc])
+        rus = build_index(vocabulary_documents(voc, n_docs=2), vocs=[voc],
+                          device="cpu")
         assert word_group(rus, "князь")[0][0].startswith("#")
         terms, rs = standard_mix(np.diff(dix.offsets_np), dix.terms, 30)
         assert terms.shape == (30, 2)
@@ -237,7 +246,7 @@ def test_port_imports_no_jax():
         from docodo_tpu_torch.index import ListDataSource
         from docodo_tpu_torch.query.batcher import BatchExecutor
         from docodo_tpu_torch.server import DocodoServer, result_to_json
-        idx = Index()
+        idx = Index(device="cpu")
         idx.add_data_source(ListDataSource("docs", [IndexPagedTextFile(
             "a", "the pickwick club met at noon", "author=dickens")]))
         idx.create()

@@ -57,7 +57,7 @@ def built(tmp_path_factory, stop_file):
     docs = vocabulary_documents(voc, seed=2024, extra=UNKNOWN + ENGLISH
                                 + STOP_WORDS + ("1812", "42"))
     mine = build_index(ListDataSource("synth", docs), vocs=[voc],
-                       stop_words=load_stop_words(stop_file))
+                       stop_words=load_stop_words(stop_file), device="cpu")
     ref = docodo_tpu.Index(path=str(tmp_path_factory.mktemp("ref")),
                            in_memory=True, vocs=[JaxVocab(str(RU_VOC))])
     ref.load_stop_words(stop_file)

@@ -62,7 +62,7 @@ def wide_corpus():
     posting count (caps 256-4096: the chunked variant and fold routes),
     `a|b` alternations, and the JAX package's results for them."""
     ind = build_index(zipf_documents(240_000, seed=5, vocab=3000,
-                                     doc_chars=30_000))
+                                     doc_chars=30_000), device="cpu")
     tdx = tdi.DeviceIndex.from_index(ind, device="cpu")
     counts = np.diff(tdx.offsets_np)
     terms, rs, _ = wide_mix(counts, tdx.terms, 35, seed=5)
