@@ -3,8 +3,9 @@ kernels from the checkout, holds each against its plain PyTorch version,
 builds a seeded 64 MB Zipf corpus index with the port's build (the
 native tokenizer and interner, the CSR sorted on the card; held array for
 array against the pure-Python build on the CPU), builds a 1 GB corpus's
-CSR by the packed protocol (tokenize on threads, pack, pinned copy, sort
-on the card; build_mb_s), serves the standard 10k query mix and the wide
+CSR by the JAX package's packed protocol (tokenize on threads, pack,
+pinned copy, sort on the card; build_mb_s) and by the port's build_index
+over the same documents, serves the standard 10k query mix and the wide
 10k mix (3-4-word phrases, variant ORs, wildcard unions, field rows)
 plus 1,000 `a|b`
 alternations through the kernel route and the plain route of the
@@ -1018,18 +1019,24 @@ def phase_index(corpus_mb: float, seed: int):
 
 
 def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
-    """BASELINE.md's 1 GB build by the JAX package's build_mb_s protocol
-    (BUILD_r04.json, benchmarks/scale_build.py): the seeded Zipf corpus's
-    documents (body pages joined by newlines) tokenized and interned on
-    threads (parallel_tokenize_intern), packed with absolute starts (one
-    coordinate space over the documents in order), copied to the
-    card from pinned memory and sorted into one CSR there
-    (build_postings_packed). Requires offsets[-1] to be the token count,
-    every list ascending and 1,000 seeded terms' lists equal to a numpy
-    lexsort of the same stream. End to end is tokenize to the CSR on the
-    card; device-only the copy and the sort."""
+    """BASELINE.md's 1 GB build, twice over the same seeded Zipf
+    documents. First by the JAX package's build_mb_s protocol
+    (BUILD_r04.json, benchmarks/scale_build.py), which no entry point of
+    the port runs: the documents (body pages joined by newlines)
+    tokenized and interned on threads (parallel_tokenize_intern), packed
+    with absolute starts (one coordinate space over the documents in
+    order), copied to the card from pinned memory and sorted into one CSR
+    there (build_postings_packed). Requires offsets[-1] to be the token
+    count, every list ascending and 1,000 seeded terms' lists equal to a
+    numpy lexsort of the same stream. End to end is tokenize to the CSR
+    on the card; device-only the copy and the sort. Then by the port's
+    build, build_index (the native tokenizer on one thread, the CSR
+    sorted on the card), whose lists of the same 1,000 words must equal
+    the protocol's, moved to its coordinates (no newline between pages,
+    header pages between documents)."""
     import os
 
+    from docodo_tpu_torch.index import ListDataSource, build_index
     from docodo_tpu_torch.lang import tokenizer
     from docodo_tpu_torch.native import pipeline
     from docodo_tpu_torch.ops.device_index import (
@@ -1037,12 +1044,13 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
         pack_tokens,
     )
     from docodo_tpu_torch.synthetic import zipf_documents
+    from docodo_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
+    docs = zipf_documents(int(build_mb * 1e6), seed=seed)
     # a text a document, its body pages joined by newlines: calls of a
     # page each would hold the threads on the interpreter lock
-    texts = ["\n".join(p.text for p in d.pages[1:])
-             for d in zipf_documents(int(build_mb * 1e6), seed=seed)]
+    texts = ["\n".join(p.text for p in d.pages[1:]) for d in docs]
     mb = sum(map(len, texts)) / 1e6  # ASCII: a character is a byte
     t_corpus = time.perf_counter() - t0
     workers = min(os.cpu_count() or 1, 8)
@@ -1114,8 +1122,50 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
         f"copied, CSR {csr_bytes / 1e6:.1f} MB, peak "
         f"{peak / 1e9:.2f} GB; offsets[-1] = tokens, lists ascending, "
         f"1,000 seeded lists equal numpy lexsort; {card}")
-    del dev, pinned
+    del dev, pinned, texts, ids, starts, packed, mask
     torch.cuda.empty_cache()
+
+    # the port's entry point over the same documents
+    profiling.reset()
+    t7 = time.perf_counter()
+    built = build_index(ListDataSource("synth", docs))
+    t8 = time.perf_counter()
+    report = " ".join(profiling.format_report().split())
+    arr, pages = built.arr, built.pages
+    require(int(arr.offsets[-1]) == arr.coords.size,
+            f"build_index {mb:.0f} MB: offsets[-1] {int(arr.offsets[-1])} "
+            f"!= {arr.coords.size} postings")
+    steps = np.diff(arr.coords.view(np.int64))
+    firsts = np.zeros(steps.size, dtype=bool)
+    heads = arr.offsets[1:-1]
+    firsts[heads[(heads > 0) & (heads <= steps.size)] - 1] = True
+    require(bool((firsts | (steps > 0)).all()),
+            f"build_index {mb:.0f} MB: a list is not ascending")
+    del steps, firsts
+    # body page k starts at protocol coordinate sum_{i<k}(units_i + 1)
+    # less one for each document before it; in build_index at the end of
+    # the page before it
+    body = np.array([pid != "0" for pid in pages.page_ids])
+    units = np.array([tokenizer.char_len(p.text) for d in docs
+                      for p in d.pages[1:]], dtype=np.int64)
+    doc_of = pages.page_doc[body]
+    at = np.cumsum(units + 1) - (units + 1) - doc_of
+    shift = (np.concatenate([[0], pages.bounds[:-1].astype(np.int64)])[body]
+             - at)
+    moved = sub_starts + shift[np.searchsorted(at, sub_starts,
+                                               side="right") - 1]
+    require(all(np.array_equal(arr.get(terms[t]).astype(np.int64),
+                               moved[sub_ids == t]) for t in sample),
+            f"build_index {mb:.0f} MB: the 1,000 sampled words' lists "
+            f"differ from the protocol's")
+    say(f"build_index {mb:.1f} MB (the port's build: native tokenizer on "
+        f"one thread, CSR sorted on the card) over the same "
+        f"{len(docs)} documents: {t8 - t7:.2f} s = "
+        f"{mb / (t8 - t7):.1f} MB/s; {len(arr.terms)} terms, "
+        f"{arr.coords.size} postings; {report}; offsets[-1] = postings, "
+        f"lists ascending, the 1,000 sampled words' lists equal the "
+        f"protocol's; {card}")
+    del built, arr, docs
 
 
 def _queries(dix, n: int):

@@ -10,11 +10,10 @@ through the native tokenizer and interner (native/), whose interned ids
 fan out to term ids by one gather, the new words' stems taken in bulk;
 header pages, and every page with native=False, through the pure-Python
 tokenizer. The (term, coordinate) stream is sorted into the CSR on
-`device` (ops/device_index.build_postings_packed, or build_postings
-where the stream does not pack), the card by default. Every word is
-keyed by itself and, with vocabularies (Dict/*.voc), by the '#HEX' group
-of its stem, else by its '$stem' where a stemmer covers it; stop words
-get no key (lang/wordcodes.py).
+`device` (sort_postings: a stable sort of the terms' ranks), the card
+by default. Every word is keyed by itself and, with vocabularies
+(Dict/*.voc), by the '#HEX' group of its stem, else by its '$stem'
+where a stemmer covers it; stop words get no key (lang/wordcodes.py).
 
     from docodo_tpu_torch.index import IndexPage, ListDataSource, build_index
     from docodo_tpu_torch.lang.vocab import Vocab, load_stop_words
@@ -60,13 +59,7 @@ from docodo_tpu_torch.core.postings import PostingSeq
 from docodo_tpu_torch.lang import tokenizer
 from docodo_tpu_torch.lang.wordcodes import WordCoder
 from docodo_tpu_torch.native import pipeline
-from docodo_tpu_torch.ops.device_index import (
-    INF32,
-    PACK_SENTINEL,
-    build_postings,
-    build_postings_packed,
-    pack_tokens,
-)
+from docodo_tpu_torch.ops.device_index import INF32
 from docodo_tpu_torch.query import parser as qparser
 from docodo_tpu_torch.query.search import (
     ErrorSearchResult,
@@ -381,8 +374,7 @@ class _Stream:
     def postings(self, device: torch.device) -> Postings:
         """Term-sorted CSR (IndexBuilder._gather_sorted), sorted on
         `device`: each posting's key is its term's rank in string order,
-        and the stream is in coordinate order, so sorting by (rank,
-        coordinate) leaves every list ascending."""
+        and the stream is in coordinate order (sort_postings)."""
         if not self.tids:
             return Postings([], np.zeros(1, dtype=np.int64),
                             np.zeros(0, dtype=np.uint64), self.max_coord)
@@ -402,37 +394,23 @@ class _Stream:
 def sort_postings(keys: np.ndarray, coords: np.ndarray, num_terms: int,
                   device) -> Tuple[np.ndarray, np.ndarray]:
     """The CSR of a (term rank, coordinate) stream in coordinate order,
-    sorted on `device`: (offsets int64[T + 1], coords uint64[N]).
-
-    Ranks below PACK_SENTINEL and coordinates below INF32 go over packed
-    (one uint32 a token, build_postings_packed); past the sentinel the
-    (rank, coordinate) pairs go over as int32 (build_postings); past
-    int32 coordinates a stable sort of the rank alone orders them, the
-    coordinates riding along. The CSR comes back in one copy."""
+    sorted on `device`: (offsets int64[T + 1], coords uint64[N]). The
+    stream is in coordinate order, so a stable sort of the int32 ranks
+    alone leaves every list ascending; the coordinates ride along, as
+    int32 below INF32, else int64, and offsets come from the ranks'
+    counts."""
     dev = torch.device(device)
-    n = keys.size
-    if n == 0:
+    if keys.size == 0:
         return np.zeros(num_terms + 1, dtype=np.int64), coords
-    if int(coords[-1]) < INF32:
-        if num_terms <= PACK_SENTINEL:
-            packed = torch.from_numpy(pack_tokens(keys, coords).view(
-                np.int32)).to(dev)
-            _, sc, off = build_postings_packed(packed, num_terms)
-        else:
-            _, sc, off = build_postings(
-                torch.from_numpy(keys).to(dev),
-                torch.from_numpy(coords.astype(np.int32)).to(dev),
-                num_terms)
-        out = torch.cat([off, sc[:n]]).cpu().numpy()
-        return (out[:num_terms + 1].astype(np.int64),
-                out[num_terms + 1:].astype(np.uint64))
     k = torch.from_numpy(keys).to(dev)
-    order = torch.sort(k, stable=True).indices
-    sc = torch.from_numpy(coords.view(np.int64)).to(dev)[order]
+    narrow = int(coords[-1]) < INF32
+    c = coords.astype(np.int32) if narrow else coords.view(np.int64)
+    sc = torch.from_numpy(c).to(dev)[torch.sort(k, stable=True).indices]
     off = torch.zeros(num_terms + 1, dtype=torch.int64, device=dev)
     off[1:] = torch.cumsum(torch.bincount(k, minlength=num_terms), 0)
-    out = torch.cat([off, sc]).cpu().numpy()
-    return out[:num_terms + 1], out[num_terms + 1:].view(np.uint64)
+    sc = sc.cpu().numpy()
+    return (off.cpu().numpy(),
+            sc.astype(np.uint64) if narrow else sc.view(np.uint64))
 
 
 def _index_header_page(stream: _Stream, text: str, coord: int) -> int:

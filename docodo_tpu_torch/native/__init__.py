@@ -67,10 +67,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.docodo_tokenize_intern.argtypes = [
         c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p,
         c.c_int32, c.c_int32, c.c_void_p, c.c_void_p, c.c_int64]
-    lib.docodo_tokenize_intern_packed.restype = c.c_int64
-    lib.docodo_tokenize_intern_packed.argtypes = [
-        c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p,
-        c.c_int32, c.c_int32, c.c_void_p, c.c_int64]
     lib.docodo_stem_en_bulk.restype = c.c_int64
     lib.docodo_stem_en_bulk.argtypes = [
         c.c_char_p, c.c_void_p, c.c_int64, c.c_char_p, c.c_void_p]

@@ -7,8 +7,7 @@
 //   * tokenize+intern: one pass over UTF-16 code units — case-fold,
 //     letter/digit classification, token segmentation (\p{L}+|\p{N}+,
 //     length 3..32 like ref Index.cs:97,113) and term-id interning into
-//     an open-addressing hash map with a string arena; optionally
-//     emitting the packed token stream of ops/device_index.pack_tokens;
+//     an open-addressing hash map with a string arena;
 //   * the English (Porter2) and Russian (Snowball) stemmers, in bulk.
 //
 // Exposed as a C ABI for ctypes; fold/class tables are built in Python
@@ -171,54 +170,6 @@ int64_t docodo_tokenize_intern(
         out_ids[count] = in->intern(buf, len);
         out_starts[count] = (int32_t)start;
         count++;
-    }
-    return count;
-}
-
-// One-pass tokenize + intern + PACK: emits the device build's packed
-// token stream directly (one uint32 per token: 12-bit coord delta |
-// 20-bit term id; rows with term == sentinel advance the coordinate
-// cursor without emitting a posting — gaps >= 4095 become escape rows,
-// mirroring ops/device_index.pack_tokens). Saves the separate NumPy
-// packing pass (measured ~40% of the producer thread in the pipelined
-// build). Returns the packed row count, or -1 if the vocabulary grew
-// to the sentinel id (caller falls back to the unpacked path).
-int64_t docodo_tokenize_intern_packed(
-    void* interner, const uint16_t* units, int64_t n,
-    const uint16_t* fold, const uint8_t* cls,
-    int32_t min_len, int32_t max_len,
-    uint32_t* out, int64_t max_rows) {
-    Interner* in = (Interner*)interner;
-    const uint32_t SENT = (1u << 20) - 1;
-    const int64_t DMAX = (1 << 12) - 1;
-    int64_t count = 0;
-    uint16_t buf[64];
-    int64_t i = 0, prev = 0;
-    while (i < n && count < max_rows) {
-        uint8_t c = cls[units[i]];
-        if (c == 0) {
-            i++;
-            continue;
-        }
-        int64_t start = i;
-        int32_t len = 0;
-        while (i < n && cls[units[i]] == c) {
-            if (len < 64) buf[len] = fold[units[i]];
-            len++;
-            i++;
-        }
-        if (min_len && (len < min_len || len > max_len)) continue;
-        if (len > 64) continue;
-        int32_t id = in->intern(buf, len);
-        if ((uint32_t)id >= SENT) return -1;
-        int64_t d = start - prev;
-        while (d >= DMAX && count < max_rows) {
-            out[count++] = ((uint32_t)DMAX << 20) | SENT;
-            d -= DMAX;
-        }
-        if (count >= max_rows) break;
-        out[count++] = ((uint32_t)d << 20) | (uint32_t)id;
-        prev = start;
     }
     return count;
 }

@@ -1,17 +1,16 @@
 """Tokenize and intern through the native host library: the port's copy of
-docodo_tpu/native/pipeline.py (NativeInterner, tokenize_intern,
-tokenize_intern_packed, parallel_tokenize_intern), without its varint
-codec.
+docodo_tpu/native/pipeline.py (NativeInterner, tokenize_intern_native,
+parallel_tokenize_intern), without its varint codec, its packed
+tokenizer or its pure-Python interner (the pure-Python build is
+index.build_index(native=False)).
 
-`tokenize_intern` is the host front of the index build: one C++ pass
-over the raw text produces (term ids, starts) and grows an incremental
-term dictionary. The pure-Python interner (`make_interner(native=False)`)
-gives the same ids and starts through lang/tokenizer; the caller chooses
-it, and a missing library never does.
+`tokenize_intern_native` is the host front of the index build: one C++
+pass over the raw text produces (term ids, starts) and grows an
+incremental term dictionary.
 
-    it = make_interner()
-    ids, starts = tokenize_intern(text, it)      # int32 ids and UTF-16 starts
-    words = it.terms()                           # id -> term
+    it = NativeInterner()
+    ids, starts = tokenize_intern_native(text, it)  # int32 ids, UTF-16 starts
+    words = it.terms()                              # id -> term
 """
 
 from __future__ import annotations
@@ -100,31 +99,6 @@ class NativeInterner:
         self._free()
 
 
-class PyInterner:
-    """The pure-Python interner with the same surface (dict insertion
-    order is id order)."""
-
-    def __init__(self):
-        self._map: dict = {}
-
-    def __len__(self) -> int:
-        return len(self._map)
-
-    def terms_range(self, lo: int, hi: int) -> List[str]:
-        return list(self._map)[lo:hi]
-
-    def terms(self) -> List[str]:
-        return list(self._map)
-
-    def close(self) -> None:
-        pass
-
-
-def make_interner(native: bool = True):
-    """A native interner, or with native=False the pure-Python one."""
-    return NativeInterner() if native else PyInterner()
-
-
 def tokenize_intern_native(
     text: str, interner: NativeInterner,
     min_len: int = 3, max_len: int = 32,
@@ -145,55 +119,8 @@ def tokenize_intern_native(
     return out_ids[:cnt].copy(), out_starts[:cnt].copy()
 
 
-def tokenize_intern(
-    text: str, interner, min_len: int = 3, max_len: int = 32,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Tokenize+intern through the interner make_interner() gave."""
-    if isinstance(interner, NativeInterner):
-        return tokenize_intern_native(text, interner, min_len, max_len)
-    words, starts = tokenizer.tokenize(text)
-    ids = np.empty(len(words), dtype=np.int32)
-    keep = np.zeros(len(words), dtype=bool)
-    m = interner._map
-    for i, w in enumerate(words):
-        if min_len and not min_len <= len(w) <= max_len:
-            continue
-        ids[i] = m.setdefault(w, len(m))
-        keep[i] = True
-    return ids[keep], starts[keep].astype(np.int32)
-
-
-def tokenize_intern_packed(
-    text: str, interner, min_len: int = 3, max_len: int = 32,
-) -> Optional[np.ndarray]:
-    """Tokenize+intern emitting the packed token stream of
-    ops/device_index.pack_tokens (uint32 rows, deltas from coordinate 0),
-    straight from the C loop with a native interner. Returns None once
-    the vocabulary reaches the PACK_SENTINEL id: term ids no longer fit
-    a row, and the caller takes the unpacked stream (tokenize_intern,
-    which gives every token of `text` its id)."""
-    from docodo_tpu_torch.ops.device_index import PACK_SENTINEL, pack_tokens
-
-    if isinstance(interner, NativeInterner):
-        fold, cls = _tables()
-        units = np.frombuffer(text.encode("utf-16-le"), dtype="<u2")
-        n = units.size
-        # tokens: n // min_len; escape rows: the whole gap (<= n units)
-        # over 4095 units an escape
-        cap = (n if min_len < 2 else n // min_len + 1) + n // 4095 + 2
-        out = np.empty(cap, dtype=np.uint32)
-        cnt = interner._lib.docodo_tokenize_intern_packed(
-            interner._ptr, _addr(units), n, _addr(fold), _addr(cls),
-            min_len, max_len, _addr(out), cap)
-        return out[:cnt].copy() if cnt >= 0 else None
-    ids, starts = tokenize_intern(text, interner, min_len, max_len)
-    if ids.size and int(ids.max()) >= PACK_SENTINEL:
-        return None
-    return pack_tokens(ids, starts)
-
-
 def parallel_tokenize_intern(texts, workers: int = 0, min_len: int = 3,
-                             max_len: int = 32, native: bool = True):
+                             max_len: int = 32):
     """Tokenize+intern many texts on threads (the native call releases
     the interpreter lock, so the threads scale on cores). Each worker
     owns an interner; afterwards the term dictionaries are unified in
@@ -205,10 +132,14 @@ def parallel_tokenize_intern(texts, workers: int = 0, min_len: int = 3,
     texts = list(texts)
     if workers <= 0:
         workers = min(os.cpu_count() or 1, 8)
-    if not native or workers == 1 or len(texts) <= 1:
-        it = make_interner(native)
-        out = [tokenize_intern(t, it, min_len, max_len) for t in texts]
-        return [o[0] for o in out], [o[1] for o in out], it.terms()
+    if workers == 1 or len(texts) <= 1:
+        it = NativeInterner()
+        try:
+            out = [tokenize_intern_native(t, it, min_len, max_len)
+                   for t in texts]
+            return [o[0] for o in out], [o[1] for o in out], it.terms()
+        finally:
+            it.close()
 
     shards = [list(range(w, len(texts), workers)) for w in range(workers)]
 

@@ -247,47 +247,6 @@ def pack_tokens(ids: np.ndarray, starts: np.ndarray) -> np.ndarray:
     return out
 
 
-def split_packed(packed: np.ndarray, max_rows: int) -> List[np.ndarray]:
-    """Split a packed stream into parts of <= max_rows rows. Each later
-    part starts with escape rows that carry the cursor across what the
-    parts before it covered, so every part keeps absolute coordinates."""
-    out = []
-    while packed.size > max_rows:
-        part = packed[:max_rows]
-        out.append(part)
-        base = int((part >> np.uint32(PACK_TERM_BITS))
-                   .astype(np.int64).sum())
-        n_esc, rem = divmod(base, PACK_DELTA_MAX)
-        if n_esc + 1 >= max_rows:
-            raise ValueError(f"max_rows {max_rows} is too small for the "
-                             f"escape prefix of {n_esc + 1} rows")
-        prefix = np.full(n_esc + (1 if rem else 0), PACK_ESCAPE_ROW,
-                         dtype=np.uint32)
-        if rem:
-            prefix[-1] = np.uint32((rem << PACK_TERM_BITS) | PACK_SENTINEL)
-        packed = np.concatenate([prefix, packed[max_rows:]])
-    out.append(packed)
-    return out
-
-
-def pack_tokens_split(ids: np.ndarray, starts: np.ndarray,
-                      max_rows: int) -> List[np.ndarray]:
-    """pack_tokens in parts of <= max_rows rows, each packing absolute
-    starts (its first delta escapes across the text before it)."""
-    out = []
-    while ids.size:
-        deltas = np.diff(starts.astype(np.int64), prepend=np.int64(0))
-        token_pos = (np.arange(ids.size, dtype=np.int64)
-                     + np.cumsum(deltas // PACK_DELTA_MAX))
-        if token_pos[-1] < max_rows:
-            out.append(pack_tokens(ids, starts))
-            break
-        k = int(np.searchsorted(token_pos, max_rows, side="left"))
-        out.append(pack_tokens(ids[:k], starts[:k]))
-        ids, starts = ids[k:], starts[k:]
-    return out
-
-
 def build_postings_packed(packed: torch.Tensor, num_terms: int):
     """build_postings over a packed stream (int32 tensor of the uint32
     rows' bits): term = mask, delta = shift and mask, coordinates = one
@@ -990,17 +949,6 @@ def multi_bucket_query_step(term_offsets, coords, bounds, page_doc,
 
 # ---------------------------------------------------------------------------
 # host-side wrapper
-def batched_query_step_variants(term_offsets, coords, bounds, page_doc,
-                                terms, rs, cap: int, topk: int, small=None):
-    """The variant twin of batched_query_step (device_index.py:646):
-    terms [B, W, V] (-1 padded both ways), rs [B, W]; each row's AND
-    fold of per-word variant ORs, then its top-k ranked pages (pages
-    int32, ranks f32, counts int32, each [B, topk])."""
-    vals, keep, _ = eval_and_query_variants(coords, term_offsets, terms, rs,
-                                            cap, small)
-    return locate_topk_masked(vals, keep, bounds, topk)
-
-
 # ---------------------------------------------------------------------------
 
 _STATE_ARRAYS = ("term_offsets", "coords", "bounds", "page_doc",

@@ -1,10 +1,9 @@
-"""Phase timing and device profiling: the port's copy of
-docodo_tpu/utils/profiling.py.
+"""Phase timing: the port's copy of docodo_tpu/utils/profiling.py,
+without its device traces (`device_trace`, `annotate`), which nothing
+calls.
 
 Every build phase reports into a process-wide registry (`phase`,
-`record`, `report`, `format_report`, `reset`); `device_trace` wraps a
-region in a torch.profiler trace written under a directory the caller
-names, and `annotate` names a sub-region of such a trace.
+`record`, `report`, `format_report`, `reset`).
 
     with profiling.phase("build.sort"):
         ...
@@ -14,13 +13,10 @@ names, and `annotate` names a sub-region of such a trace.
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional, Tuple
-
-import torch
+from typing import Dict, Iterator, List, Tuple
 
 _lock = threading.Lock()
 _totals: Dict[str, float] = defaultdict(float)
@@ -62,28 +58,3 @@ def format_report() -> str:
         f"{name:30s} {total*1e3:10.1f} ms  x{calls}"
         for name, total, calls in report()
     )
-
-
-@contextlib.contextmanager
-def device_trace(label: str = "docodo",
-                 out_dir: Optional[str] = None) -> Iterator[None]:
-    """Trace the region with torch.profiler (host and, where there is a
-    card, CUDA activity) into `out_dir`/`label`.json, a Chrome trace;
-    with no `out_dir` the region runs untraced."""
-    if not out_dir:
-        yield
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"{label}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named sub-region inside a device trace."""
-    with torch.profiler.record_function(name):
-        yield

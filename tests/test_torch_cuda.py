@@ -1112,16 +1112,16 @@ def test_build_postings_packed_on_card_equals_cpu(cuda_device, n,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("branch", ["packed", "past-the-sentinel",
-                                    "past-int32"])
-def test_sort_postings_on_card_equals_cpu(cuda_device, branch):
+@pytest.mark.parametrize("case", ["int32-coords", "many-terms",
+                                  "int64-coords"])
+def test_sort_postings_on_card_equals_cpu(cuda_device, case):
     from docodo_tpu_torch import index as host
 
-    rng = np.random.default_rng(len(branch))
-    num_terms = 2**20 + 8 if branch == "past-the-sentinel" else 3000
+    rng = np.random.default_rng(len(case))
+    num_terms = 2**20 + 8 if case == "many-terms" else 3000
     keys = rng.integers(0, num_terms, 50_000).astype(np.int32)
     coords = np.cumsum(rng.integers(0, 5000, 50_000)).astype(np.uint64)
-    if branch == "past-int32":
+    if case == "int64-coords":
         coords[25_000:] += np.uint64(2**31)
     got = host.sort_postings(keys, coords, num_terms, cuda_device)
     want = host.sort_postings(keys, coords, num_terms, "cpu")

@@ -1,5 +1,5 @@
 """The port's native host library (docodo_tpu_torch/native) against the JAX
-package's: tokenize+intern (plain, packed, on threads) and the interner,
+package's: tokenize+intern (one interner, past 2^20 terms, on threads),
 the bulk stemmers, WordCoder.prime and Vocab.prime_stems, the tables
 filled from threads at once, and the g++ build (several processes at
 once; a failed compile raises). Every input is seeded; every comparison
@@ -23,7 +23,6 @@ from docodo_tpu_torch.lang import stemmers
 from docodo_tpu_torch.lang.vocab import Vocab
 from docodo_tpu_torch.lang.wordcodes import WordCoder
 from docodo_tpu_torch.native import pipeline
-from docodo_tpu_torch.ops.device_index import PACK_SENTINEL
 
 ROOT = Path(__file__).resolve().parent.parent
 RU_VOC = ROOT / "Dict" / "ru.voc"
@@ -60,42 +59,21 @@ def _long_gap_text():
 
 
 def test_tokenize_intern_matches_jax():
-    mine, theirs = pipeline.make_interner(), jpipe.NativeInterner()
-    py_mine, py_theirs = pipeline.make_interner(native=False), \
-        jpipe._PyInterner()
-    assert isinstance(mine, pipeline.NativeInterner)
-    for text in _texts(1, 12) + [_long_gap_text()]:
-        got = pipeline.tokenize_intern(text, mine)
+    mine, theirs = pipeline.NativeInterner(), jpipe.NativeInterner()
+    py_theirs = jpipe._PyInterner()
+    for text in _texts(1, 12) + [_long_gap_text(), ""]:
+        got = pipeline.tokenize_intern_native(text, mine)
         want = jpipe.tokenize_intern(text, theirs)
-        for g, w in zip(got, want):
+        pwant = jpipe.tokenize_intern(text, py_theirs)
+        for g, w, p in zip(got, want, pwant):
             assert g.dtype == w.dtype == np.int32
             np.testing.assert_array_equal(g, w)
-        pgot = pipeline.tokenize_intern(text, py_mine)
-        pwant = jpipe.tokenize_intern(text, py_theirs)
-        for g, w, n in zip(pgot, pwant, got):
-            np.testing.assert_array_equal(g, w)
-            np.testing.assert_array_equal(g, n)  # Python == native
-    assert mine.terms() == theirs.terms() == py_mine.terms()
+            np.testing.assert_array_equal(g, p)  # native == pure Python
+    assert mine.terms() == theirs.terms() == py_theirs.terms()
     assert len(mine) == len(theirs) > 20
     assert mine.terms_range(3, 9) == theirs.terms_range(3, 9)
     assert "a" * 32 in mine.terms() and "b" * 33 not in mine.terms()
     mine.close()
-
-
-def test_tokenize_intern_packed_matches_jax():
-    mine, theirs = pipeline.make_interner(), jpipe.NativeInterner()
-    py_mine = pipeline.make_interner(native=False)
-    for text in _texts(2, 6) + [_long_gap_text(), ""]:
-        got = pipeline.tokenize_intern_packed(text, mine)
-        want = jpipe.tokenize_intern_packed(text, theirs)
-        assert got.dtype == np.uint32
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(
-            pipeline.tokenize_intern_packed(text, py_mine), got)
-    assert mine.terms() == theirs.terms() == py_mine.terms()
-    rows = pipeline.tokenize_intern_packed(_long_gap_text(),
-                                           pipeline.make_interner())
-    assert int(((rows & PACK_SENTINEL) == PACK_SENTINEL).sum()) == 6
 
 
 def _distinct_words(lo: int, hi: int) -> str:
@@ -108,24 +86,24 @@ def _distinct_words(lo: int, hi: int) -> str:
     return rows.tobytes().decode("ascii")
 
 
-@pytest.mark.parametrize("native_", [True, False], ids=["native", "python"])
-def test_tokenize_intern_packed_past_the_sentinel(native_):
-    """Once the vocabulary reaches the PACK_SENTINEL id the packed stream
-    is refused (None) and the unpacked one gives every token its id."""
-    it = pipeline.make_interner(native_)
-    first = pipeline.tokenize_intern_packed(_distinct_words(0, PACK_SENTINEL
-                                                            - 2), it)
-    assert first is not None and first.size == PACK_SENTINEL - 2
-    tail = _distinct_words(PACK_SENTINEL - 3, PACK_SENTINEL + 40)
-    assert pipeline.tokenize_intern_packed(tail, it) is None
-    ids, starts = pipeline.tokenize_intern(tail, it)
-    np.testing.assert_array_equal(
-        ids, np.arange(PACK_SENTINEL - 3, PACK_SENTINEL + 40))
-    np.testing.assert_array_equal(starts, np.arange(ids.size) * 6)
-    assert len(it) == PACK_SENTINEL + 40
+@pytest.mark.parametrize("calls", [1, 2])
+def test_tokenize_intern_past_a_million_terms(calls):
+    """The interner numbers terms densely past 2^20, in one call or
+    across calls, and exports them in id order."""
+    n = (1 << 20) + 40
+    cuts = np.linspace(0, n, calls + 1).astype(int)
+    it = pipeline.NativeInterner()
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        ids, starts = pipeline.tokenize_intern_native(
+            _distinct_words(lo, hi), it)
+        np.testing.assert_array_equal(ids, np.arange(lo, hi))
+        np.testing.assert_array_equal(starts, np.arange(ids.size) * 6)
+    assert len(it) == n
+    assert it.terms_range(n - 2, n) == _distinct_words(n - 2, n).split()
+    it.close()
 
 
-@pytest.mark.parametrize("workers", [1, 3, 8])
+@pytest.mark.parametrize("workers", [1, 3, 8, 32])
 def test_parallel_tokenize_intern_matches_jax(workers):
     texts = _texts(3, 23)
     got = pipeline.parallel_tokenize_intern(texts, workers=workers)
@@ -134,11 +112,14 @@ def test_parallel_tokenize_intern_matches_jax(workers):
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
-    ids, starts, terms = pipeline.parallel_tokenize_intern(
-        texts, workers=workers, native=False)
-    for t in range(len(texts)):
-        assert [terms[k] for k in ids[t]] == [got[2][k] for k in got[0][t]]
-        np.testing.assert_array_equal(starts[t], got[1][t])
+    # one interner over the texts in order: the same up to numbering
+    it = pipeline.NativeInterner()
+    for t, text in enumerate(texts):
+        ids, starts = pipeline.tokenize_intern_native(text, it)
+        terms = it.terms()
+        assert [terms[k] for k in ids] == [got[2][k] for k in got[0][t]]
+        np.testing.assert_array_equal(starts, got[1][t])
+    it.close()
 
 
 def _random_words(rng, alphabet: str, n: int):
@@ -223,7 +204,8 @@ def test_tables_filled_from_threads_at_once(monkeypatch):
     def run(k):
         start.wait(timeout=60)
         fold, cls = pipeline._tables()
-        ids, starts = pipeline.tokenize_intern(text, pipeline.make_interner())
+        ids, starts = pipeline.tokenize_intern_native(
+            text, pipeline.NativeInterner())
         out[k] = (fold, cls, ids, starts)
 
     old = sys.getswitchinterval()
@@ -255,8 +237,8 @@ def test_library_builds_from_processes_at_once(tmp_path):
         from docodo_tpu_torch import native
         native.BUILD_DIR = Path({str(tmp_path)!r})
         from docodo_tpu_torch.native import pipeline
-        ids, starts = pipeline.tokenize_intern(
-            "alpha beta alpha", pipeline.make_interner())
+        ids, starts = pipeline.tokenize_intern_native(
+            "alpha beta alpha", pipeline.NativeInterner())
         assert ids.tolist() == [0, 1, 0] and starts.tolist() == [0, 6, 11]
     """)
     procs = [subprocess.Popen([sys.executable, "-c", code],
