@@ -25,9 +25,18 @@ as a user reaches it: request strings (benchmarks/serve_qps.py's recipe
 and wide ones) through BatchExecutor.search from 64 client threads in
 four configurations, pipeline and materialize on and off, with a
 rebuild mid-stream, every request held against the host engine
-(Index.search), then through DocodoServer on the loopback.
+(Index.search), then through DocodoServer on the loopback. Then the
+document-sharded path (parallel/): BatchExecutor and DocodoServer with
+mesh=make_mesh(4) on the same requests; two processes of two shards each
+over one torch.distributed process group (NCCL with a card each where
+the host has two or more, else gloo on one card), held against one
+process's ShardedDeviceIndex; dryrun_multichip(4); and a 256 MB index
+as four shards serving both mixes beside one card's route, every
+compared row equal to one card's and sampled rows to the exact host
+evaluation.
 
     python3 chip_smoke.py [--corpus-mb 64] [--build-mb 1000] [--seed 0]
+                          [--mesh-mb 256]
 
 Prints one line per phase, a JSON line with every kernel's launches,
 error, times and bound, the card's name and power limit, and as its last
@@ -124,13 +133,16 @@ SERVE_KERNELS = TOPK_MODE_KERNELS + ("merge_and_locate",)
 SERVE_REQUESTS = 10_000  # benchmarks/serve_qps.py's --n default
 WIDE_REQUESTS = 2_000
 BATCHER_CLIENTS = 64     # serve_qps.py's --conc default
-# per configuration, the first of each stream, not all 12,000: at 64 MB
-# a third of the recipe's requests overflow even the escalated budget
-# and the host engine answers them, each finding 1,000-10,000 pages whose
-# snippets it makes. A request costs ~45 ms of the phase and a distinct
-# one ~75 ms more to check (PERF.md section 6, PR 12), so 12,000 would
-# take ~9 minutes a configuration; 1,500 keep the script near 560 s
-BATCHER_SERVED = (1_275, 225)
+# the first of each stream, not all 12,000: at 64 MB a third of the
+# recipe's requests overflow even the escalated budget and the host
+# engine answers them, each finding 1,000-10,000 pages whose snippets it
+# makes. A request costs ~45-80 ms of the phase and a distinct one ~90 ms
+# more to check (PERF.md sections 5 and 6), so 12,000 would take
+# ~9 minutes a configuration. The first configuration (with the restage)
+# serves 1,000, the other three the first BATCHER_LATER of them, which
+# keeps the script, with the sharded phases, near 700 s
+BATCHER_SERVED = (850, 150)
+BATCHER_LATER = 300
 BATCHER_TAIL = 100       # served after the restage has landed
 BATCHER_PROFILED = 256
 BATCHER_HTTP = 128
@@ -143,6 +155,18 @@ BATCHER_CONFIGS = ((True, True), (False, True), (True, False),
 # fused kernels
 BATCHER_KERNELS = ("merge_and_locate_topk", "merge_tagged", "and_keep",
                    "locate_runs", "variants_keep")
+# the sharded cell (phase_mesh): a corpus of four serving shards of
+# ~64 MB (PERF.md section 4), served by ShardedDeviceIndex beside one
+# card's DeviceIndex of the same index
+MESH_MB = 256
+MESH_SHARDS = 4
+MESH_SAMPLED = 512   # rows a mix materialized and held against the host
+MESH_HTTP = 16
+# phase_distributed: two processes of two shards each over the 64 MB
+# index; standard and wide rows of its buckets, page-level rows
+DIST_HOSTS = 2
+DIST_QUERIES = (1_000, 200)
+DIST_PAGE_ROWS = 512
 # the kernels that give a row many blocks (tiles of _cuda.tile_lanes())
 TILED = ("and_keep", "variants_keep", "locate_runs")
 PAGE_CAPS = {"and_locate_topk": (64, 128, 256, 512),
@@ -1962,7 +1986,8 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
     on the loopback. Launch counts are zeroed just before the first
     configuration and read after the last; every kernel in `required`
     (and at least one) must launch, and no bucket takes the plain route
-    but W >= 3 with variants. Returns the launches."""
+    but W >= 3 with variants. Returns the launches, the request stream
+    and the host engine's results by request."""
     import concurrent.futures as cf
     import random
     import urllib.parse
@@ -2021,12 +2046,13 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
     rows = []
     try:
         for n, (pipeline, materialize) in enumerate(BATCHER_CONFIGS):
+            reqs = stream if n == 0 else stream[:BATCHER_LATER]
             ex = BatchExecutor(index, device_index=dix, pipeline=pipeline,
                                materialize=materialize)
             gen = index.generation
             try:
                 got, lat, secs, span = _serve(
-                    ex, stream, BATCHER_CLIENTS,
+                    ex, reqs, BATCHER_CLIENTS,
                     restage=index.create if n == 0 else None)
                 if n == 0:  # served after the restage, equal too
                     tail, _, _, _ = _serve(ex, stream[:BATCHER_TAIL],
@@ -2040,11 +2066,11 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
                 st = dict(ex.stats)
             finally:
                 ex.close()
-            worst = max(check(stream, got, not materialize,
+            worst = max(check(reqs, got, not materialize,
                               f"pipeline={pipeline} "
                               f"materialize={materialize}"),
                         worst if n == 0 else 0)
-            served = len(stream) + (BATCHER_TAIL if n == 0 else 0)
+            served = len(reqs) + (BATCHER_TAIL if n == 0 else 0)
             require(st["device_timeouts"] == 0,
                     f"{st['device_timeouts']} requests timed out: {st}")
             require(st["device_queries"] + st["host_queries"]
@@ -2054,7 +2080,7 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
                     + st["fallback_shape"] + st["fallback_no_index"]
                     and st["fallback_no_index"] == 0,
                     f"host fallbacks of another reason: {st}")
-            n_tilde = sum("~" in r for r in stream) + (
+            n_tilde = sum("~" in r for r in reqs) + (
                 sum("~" in r for r in stream[:BATCHER_TAIL]) if n == 0
                 else 0)
             require(st["fallback_unsupported"] == n_tilde,
@@ -2067,8 +2093,8 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
                 "fallback_unsupported", "fallback_shape",
                 "fallback_no_index", "truncated_fallbacks")}
             say(f"batcher, pipeline={pipeline} materialize={materialize}: "
-                f"{len(stream)} requests from {BATCHER_CLIENTS} clients in "
-                f"{secs:.2f} s, {len(stream) / secs:.1f} requests/s, "
+                f"{len(reqs)} requests from {BATCHER_CLIENTS} clients in "
+                f"{secs:.2f} s, {len(reqs) / secs:.1f} requests/s, "
                 f"latency p50 {p50:.1f} / p95 {p95:.1f} / p99 {p99:.1f} ms, "
                 f"on {card}; device_s {st['device_s']:.2f}, material_s "
                 f"{st['material_s']:.2f}, {st['batches']} batches, "
@@ -2082,7 +2108,7 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
                    f"{span[0]:.2f} to {span[1]:.2f} s, then "
                    f"{BATCHER_TAIL} more requests equal" if n == 0
                    else ""))
-            rows.append(len(stream) / secs)
+            rows.append(len(reqs) / secs)
         launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
     finally:
         tdi.query_step_full = inner
@@ -2163,7 +2189,396 @@ def phase_batcher(index, dix, card: str, required=BATCHER_KERNELS):
         f"{time.perf_counter() - t_phase:.1f} s, of which the requests' "
         f"making {t_reqs:.1f} s and their checks against Index.search "
         f"{checking[0]:.1f} s")
+    return launches, stream, hosts
+
+
+def _launches() -> dict:
+    from docodo_tpu_torch.ops import _cuda
+
+    return {name: k.launches for name, k in _cuda.KERNELS.items()}
+
+
+def _zero_launches() -> None:
+    from docodo_tpu_torch.ops import _cuda
+
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+
+
+def phase_mesh_batcher(index, stream, hosts, card: str, required):
+    """The sharded path as a user reaches it: BatchExecutor(index,
+    mesh=make_mesh(MESH_SHARDS)) serves the batcher stream's first
+    requests from BATCHER_CLIENTS threads, every request held whole
+    against Index.search (`hosts`: the batcher phase's results); the
+    stats add up; then DocodoServer(index, mesh=...) answers MESH_HTTP
+    requests over the loopback. Launch counts are zeroed just before and
+    read just after; every kernel in `required` must launch and no
+    bucket take the plain route but W >= 3 with variants. Returns the
+    launches."""
+    import concurrent.futures as cf
+    import urllib.parse
+    import urllib.request
+
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.parallel.sharding import make_mesh
+    from docodo_tpu_torch.query.batcher import BatchExecutor
+    from docodo_tpu_torch.query.search import result_fields
+    from docodo_tpu_torch.server import DocodoServer, result_to_json
+
+    def host(req):
+        if req not in hosts:
+            hosts[req] = index.search(req)
+        return hosts[req]
+
+    t0 = time.perf_counter()
+    ex = BatchExecutor(index, mesh=make_mesh(MESH_SHARDS))
+    t_stage = time.perf_counter() - t0
+    plain = []
+    inner = tdi.query_step_full
+
+    def plain_bucket(*a, **k):
+        plain.append((int(a[5].shape[1]), tdi._variants(a[5])))
+        return inner(*a, **k)
+
+    tdi.query_step_full = plain_bucket
+    _zero_launches()
+    try:
+        got, lat, secs, _ = _serve(ex, stream, BATCHER_CLIENTS)
+        st = dict(ex.stats)
+        ex.close()
+        srv = DocodoServer(index, port=0, host="127.0.0.1",
+                           mesh=make_mesh(MESH_SHARDS))
+        srv.start(background=True)
+        try:
+            base = f"http://127.0.0.1:{srv.port}/search?req="
+
+            def get(req):
+                with urllib.request.urlopen(
+                        base + urllib.parse.quote(req), timeout=600) as r:
+                    return json.loads(r.read().decode("utf-8"))
+
+            with cf.ThreadPoolExecutor(MESH_HTTP) as pool:
+                bodies = list(pool.map(get, stream[:MESH_HTTP]))
+        finally:
+            srv.stop()
+    finally:
+        tdi.query_step_full = inner
+    launches = _launches()
+    for req, res in zip(stream, got):
+        require(result_fields(res) == result_fields(host(req)),
+                f"mesh batcher: {req!r} differs from Index.search")
+    for req, body in zip(stream, bodies):
+        require(body == json.loads(json.dumps(result_to_json(host(req)),
+                                              ensure_ascii=False)),
+                f"mesh server: /search {req!r} differs from Index.search")
+    require(st["device_timeouts"] == 0 and st["device_queries"] > 0
+            and st["device_queries"] + st["host_queries"]
+            + st["truncated_fallbacks"] == len(stream),
+            f"mesh batcher stats: {st}")
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    say(f"mesh batcher: BatchExecutor(mesh=make_mesh({MESH_SHARDS})) "
+        f"staged in {t_stage:.2f} s, {len(stream)} requests from "
+        f"{BATCHER_CLIENTS} clients in {secs:.2f} s "
+        f"({len(stream) / secs:.1f} requests/s, p50 {p50:.1f} / p99 "
+        f"{p99:.1f} ms) on {card}; device_queries {st['device_queries']}, "
+        f"boundary_reserves {st['boundary_reserves']}, truncated_fallbacks "
+        f"{st['truncated_fallbacks']}, host_queries {st['host_queries']}, "
+        f"device_timeouts {st['device_timeouts']}, {st['batches']} batches; "
+        f"every request equal to Index.search; DocodoServer(mesh=) "
+        f"{MESH_HTTP} bodies equal to result_to_json(Index.search); "
+        f"launches {({n: c for n, c in launches.items() if c})}; plain "
+        f"buckets by (W, V) {sorted(set(plain))}")
+    require(any(launches.values()), "the mesh batcher launched no kernel")
+    for name in required:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched by the mesh batcher")
+    require(all(w >= 3 and v > 1 for w, v in plain),
+            f"mesh batcher buckets {sorted(set(plain))} took the plain route")
     return launches
+
+
+def _global_hits(res, page_index, page_base) -> np.ndarray:
+    """A sharded result's hits in global coordinates: each found doc's
+    pages (doc name, page id) -> global page row, + position."""
+    parts = [page_base[page_index[(d.name, p.id)]] + np.asarray(p.pos,
+                                                               np.int64)
+             for d in res.found_docs for p in d.pages]
+    return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+
+def phase_mesh(mb: float, seed: int, card: str, rng):
+    """The sharded cell: a seeded Zipf corpus of `mb` MB indexed by
+    Index.create() on the card, staged as
+    ShardedDeviceIndex.from_index(index, make_mesh(MESH_SHARDS)) and as
+    one card's DeviceIndex; the standard and the wide mix (drawn on this
+    index as the main paths draw them) through
+    search_batch(materialize="defer") with launch counts zeroed just
+    before and read just after, and through the one-card kernel route
+    (search_batch_full). Every row that neither truncates nor reserves
+    (nor truncates on one card): its hits moved back to global
+    coordinates equal the one-card row's hits, and its whole result the
+    one-card hits located on the index's page table. MESH_SAMPLED served
+    rows a mix, materialized, equal the exact host evaluation of the
+    same row (_host_reserve's fold, materialized the same way). Every
+    kernel of the mix's main path must launch on the mesh path, no
+    bucket take the plain route. Returns the launches."""
+    from docodo_tpu_torch.index import Index, ListDataSource
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+    from docodo_tpu_torch.parallel.serving import ShardedDeviceIndex
+    from docodo_tpu_torch.parallel.sharding import make_mesh
+    from docodo_tpu_torch.query.search import (prepare_search_result,
+                                               result_fields)
+    from docodo_tpu_torch.synthetic import zipf_documents
+    from docodo_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    docs = zipf_documents(int(mb * 1e6), seed=seed)
+    t1 = time.perf_counter()
+    ind = Index()
+    ind.add_data_source(ListDataSource("synth", docs))
+    ind.create()
+    t2 = time.perf_counter()
+    dix = DeviceIndex.from_index(ind)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    profiling.reset()
+    mesh = make_mesh(MESH_SHARDS)
+    sdi = ShardedDeviceIndex.from_index(ind, mesh)
+    for dev in set(mesh):
+        torch.cuda.synchronize(dev)
+    t4 = time.perf_counter()
+    split = {name: secs for name, secs, _ in profiling.report()}
+    say(f"mesh index: {mb:g} MB seed {seed}: {len(docs)} docs, "
+        f"{dix.bounds.numel()} pages, {dix.coords.numel()} postings; corpus "
+        f"{t1 - t0:.1f} s, Index.create() {t2 - t1:.2f} s, one card's "
+        f"DeviceIndex {t3 - t2:.2f} s ({dix.device_bytes() / 1e6:.1f} MB); "
+        f"ShardedDeviceIndex over {[str(d) for d in mesh]} "
+        f"{t4 - t3:.2f} s: host re-shard {split['mesh.reshard']:.2f} s, "
+        f"copies and sorts {split['mesh.build']:.2f} s, page_of and small "
+        f"tables {split['mesh.tables']:.2f} s; MB a shard "
+        f"{[round(b / 1e6, 1) for b in sdi.device_bytes()]}, docs a shard "
+        f"{[len(a) for a in sdi.corpus.doc_assign]}, "
+        f"{sdi.boundaries.size} boundaries")
+    pt = ind.pages
+    page_index = {(pt.doc_names[d], pid): p for p, (d, pid) in
+                  enumerate(zip(pt.page_doc.tolist(), pt.page_ids))}
+    page_base = np.concatenate([[0], pt.bounds[:-1]]).astype(np.int64)
+    routes = {"slot": "_kernel_bucket_full",
+              "chunked": "_chunked_bucket_full", "plain": "query_step_full"}
+    saved = {name: getattr(tdi, fn) for name, fn in routes.items()}
+    total = dict.fromkeys(_launches(), 0)
+    for label, queries, required in (
+            ("standard mix", _queries(dix, N_QUERIES), STANDARD_KERNELS),
+            ("wide mix + alternations",
+             _wide_queries(dix, N_QUERIES, N_ALTERNATIONS), WIDE_KERNELS)):
+        sdi.search_batch(queries[:512], topk=TOPK, hit_cap=HIT_CAP,
+                         materialize="defer")  # warm
+        dix.search_batch_full(queries[:512], topk=TOPK, hit_cap=HIT_CAP)
+        torch.cuda.synchronize()
+        served = dict.fromkeys(routes, 0)
+
+        def counted(name):
+            def call(*a, **k):
+                out = saved[name](*a, **k)
+                served[name] += out is not None
+                return out
+            return call
+
+        for name, fn in routes.items():
+            setattr(tdi, fn, counted(name))
+        _zero_launches()
+        profiling.reset()
+        try:
+            t0 = time.perf_counter()
+            res = sdi.search_batch(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                   materialize="defer")
+            mesh_s = time.perf_counter() - t0
+        finally:
+            for name, fn in routes.items():
+                setattr(tdi, fn, saved[name])
+        launches = _launches()
+        spans = "; ".join(f"{name[5:]} {secs * 1e3:.1f}" for name, secs, _
+                          in profiling.report())
+        t0 = time.perf_counter()
+        out = dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                    use_kernels=True)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        count = dict(truncated=0, reserved=0, one_card_truncated=0,
+                     compared=0)
+        for qi, r in enumerate(res):
+            if r is None:
+                count["truncated"] += 1
+                continue
+            if r.boundary_reserved:
+                count["reserved"] += 1
+                continue
+            nh = int(out["n_hits"][qi])
+            if out["n_pages"][qi] > TOPK or nh > HIT_CAP:
+                count["one_card_truncated"] += 1
+                continue
+            hits = out["hits"][qi][:nh].astype(np.int64)
+            require(np.array_equal(_global_hits(r, page_index, page_base),
+                                   hits),
+                    f"mesh, {label}: row {qi}'s hits differ from one card's")
+            require(result_fields(r) == result_fields(prepare_search_result(
+                hits.astype(np.uint64), pt, [])),
+                f"mesh, {label}: row {qi}'s docs differ from one card's")
+            count["compared"] += 1
+        t_check = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok = [qi for qi, r in enumerate(res) if r is not None]
+        sample = sorted(rng.choice(ok, size=min(MESH_SAMPLED, len(ok)),
+                                   replace=False).tolist())
+        full = sdi.search_batch([queries[i] for i in sample], topk=TOPK,
+                                hit_cap=HIT_CAP)
+        for qi, r in zip(sample, full):
+            want = sdi._host_reserve(queries[qi], None)
+            ind._materialize_docs(want)
+            want.found_docs.sort(key=lambda d: d.rank)
+            require(r is not None and result_fields(r) == result_fields(want),
+                    f"mesh, {label}: sampled row {qi} differs from the host")
+        t_host = time.perf_counter() - t0
+        say(f"mesh, {label}: {len(queries)} queries on {MESH_SHARDS} shards "
+            f"{mesh_s * 1e3:.1f} ms (search_batch, materialize=\"defer\"; "
+            f"ms {spans}), "
+            f"one card's kernel route {one_s * 1e3:.1f} ms, on {card}; rows "
+            f"{count}; every compared row's hits (global coordinates) and "
+            f"docs equal to one card's ({t_check:.1f} s); {len(sample)} "
+            f"sampled rows materialized equal to the exact host fold "
+            f"({t_host:.1f} s); buckets per route {served}; launches "
+            f"{({n: c for n, c in launches.items() if c})}")
+        for name in required:
+            require(launches[name] > 0,
+                    f"kernel {name} was not launched on the {label} mesh path")
+        require(served["plain"] == 0,
+                f"{served['plain']} {label} mesh buckets took the plain route")
+        require(count["compared"] > 0, f"mesh, {label}: no row compared")
+        total = {n: total[n] + c for n, c in launches.items()}
+    return total
+
+
+def _distributed_leg(rank, world, nccl, doc_pages, assign, nloc, ploc,
+                     num_terms, buckets, page_terms, page_rs, doc_tids,
+                     doc_coords):
+    """One process of phase_distributed: its own shards staged
+    (stage_for_process: its documents only), built and queried over the
+    process group on its card; numpy results."""
+    from docodo_tpu_torch.parallel import distributed as dd
+
+    dev = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(dev)
+    d = len(assign) // world
+    mesh = dd.make_global_mesh(devices=[dev] * d)
+    rows = dd.stage_for_process(doc_tids, doc_coords, doc_pages, assign,
+                                world, d, rank, nloc=nloc, ploc=ploc)
+    _, sc, off = dd.distributed_build(mesh, rows.term_ids, rows.coords,
+                                      num_terms)
+    header = np.zeros(rows.bounds.shape, dtype=bool)
+    _zero_launches()
+    t0 = time.perf_counter()
+    outs = [dd.distributed_query_full(mesh, off, sc, rows.bounds,
+                                      rows.page_doc, header, terms, rs,
+                                      cap=cap, topk=TOPK, hit_cap=HIT_CAP,
+                                      with_docs=False)
+            for cap, terms, rs in buckets]
+    full = [[None if x is None else x.cpu().numpy() for x in o]
+            for o in outs]
+    secs = time.perf_counter() - t0
+    page = [x.cpu().numpy() for x in dd.distributed_query(
+        mesh, off, sc, rows.bounds, rows.page_doc, rows.page_base,
+        page_terms, page_rs, cap=1024, topk=PAGE_TOPK)]
+    return full, page, secs, sum(_launches().values())
+
+
+def phase_distributed(index, dix, card: str) -> None:
+    """Two processes (torch.multiprocessing spawn) of two shards each,
+    one plan of four over the 64 MB index: each stages only its own
+    documents (stage_for_process), builds and serves a batch's buckets
+    (distributed_query_full) and a page-level batch (distributed_query)
+    over one process group: NCCL with one card a process where the host
+    has two or more, else gloo with both on cuda:0 (the counts gathered
+    through host tensors). Each process's stream fields, the gathered
+    counts and the page-level top k must equal the one-process
+    ShardedDeviceIndex over the same plan. A failure or a timeout in
+    either process fails the phase. Then dryrun_multichip(4) on the
+    card."""
+    from docodo_tpu_torch.parallel import distributed as dd
+    from docodo_tpu_torch.parallel import sharding as sh
+    from docodo_tpu_torch.parallel.serving import (ShardedDeviceIndex,
+                                                   doc_streams)
+
+    cards = torch.cuda.device_count()
+    nccl = cards >= DIST_HOSTS
+    backend = "nccl" if nccl else "gloo"
+    shards = 2 * DIST_HOSTS
+    sdi = ShardedDeviceIndex.from_index(index, sh.make_mesh(shards))
+    doc_tids, doc_coords, doc_pages, _ = doc_streams(index.arr, index.pages)
+    assign = sdi.corpus.doc_assign
+    nloc = max(sum(doc_tids[i].size for i in a) for a in assign)
+    ploc = max(sum(len(doc_pages[i]) for i in a) for a in assign)
+    queries = (_queries(dix, DIST_QUERIES[0])
+               + _wide_queries(dix, DIST_QUERIES[1], 0))
+    buckets = [(cap, terms, rs)
+               for _, cap, terms, rs in sdi.bucket_arrays(queries)]
+    page_terms, page_rs, _ = dix.compile_queries(
+        _queries(dix, DIST_PAGE_ROWS), pad_w=2)
+    d = shards // DIST_HOSTS
+    own = [{i for s in range(p * d, (p + 1) * d) for i in assign[s]}
+           for p in range(DIST_HOSTS)]
+    rank_args = [([t if i in own[p] else None
+                   for i, t in enumerate(doc_tids)],
+                  [c if i in own[p] else None
+                   for i, c in enumerate(doc_coords)])
+                 for p in range(DIST_HOSTS)]
+    t0 = time.perf_counter()
+    outs = dd.spawn(_distributed_leg, DIST_HOSTS, backend, timeout=300,
+                    args=(nccl, doc_pages, assign, nloc, ploc,
+                          len(sdi.terms), buckets, page_terms, page_rs),
+                    rank_args=rank_args)
+    secs = time.perf_counter() - t0
+    mismatches = 0
+    for k, (cap, terms, rs) in enumerate(buckets):
+        want = sh.sharded_query_full(
+            sdi.devices, sdi._off, sdi._sc, sdi._bounds, sdi._page_doc,
+            sdi._is_header, terms, rs, cap=cap, topk=TOPK, hit_cap=HIT_CAP,
+            with_docs=False, small=sdi._small, page_of=sdi._page_of)
+        for f, w in enumerate(want):
+            if w is None:
+                continue
+            w = w.cpu().numpy()
+            if f in (3, 7):  # n_pages, n_hits: every process, all shards
+                got = [outs[p][0][k][f] for p in range(DIST_HOSTS)]
+            else:  # each process its own shards
+                got = [np.concatenate([outs[p][0][k][f]
+                                       for p in range(DIST_HOSTS)])]
+            for g in got:
+                if w.dtype == np.float32:
+                    mismatches += ulps(torch.from_numpy(g),
+                                       torch.from_numpy(w)) > 1
+                else:
+                    mismatches += not np.array_equal(g, w)
+    want = sh.sharded_query(sdi.devices, sdi._off, sdi._sc, sdi._bounds,
+                            sdi._page_doc, sdi.corpus.page_base, page_terms,
+                            page_rs, cap=1024, topk=PAGE_TOPK)
+    for p in range(DIST_HOSTS):
+        for g, w in zip(outs[p][1], want):
+            mismatches += not np.array_equal(g, w.cpu().numpy())
+    say(f"distributed: {DIST_HOSTS} processes (spawn) of {d} shards, "
+        f"backend {backend}, {cards} card(s){' (both processes on cuda:0)' if not nccl else ''}, "
+        f"on {card}; {len(queries)} rows in {len(buckets)} buckets + "
+        f"{DIST_PAGE_ROWS} page-level rows; the processes' query seconds "
+        f"{[round(o[2], 2) for o in outs]}, launches "
+        f"{[o[3] for o in outs]}; the phase {secs:.1f} s; mismatches "
+        f"against the one-process ShardedDeviceIndex {mismatches}")
+    require(mismatches == 0, "the processes' results differ from one "
+            "process's")
+    require(all(o[3] > 0 for o in outs), "a process launched no kernel")
+    t0 = time.perf_counter()
+    sh.dryrun_multichip(MESH_SHARDS)
+    say(f"dryrun_multichip({MESH_SHARDS}) on the card: ok "
+        f"({time.perf_counter() - t0:.2f} s)")
 
 
 def main() -> None:
@@ -2171,6 +2586,7 @@ def main() -> None:
     ap.add_argument("--corpus-mb", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--build-mb", type=float, default=1000.0)
+    ap.add_argument("--mesh-mb", type=float, default=float(MESH_MB))
     args = ap.parse_args()
 
     marks = [("start", time.perf_counter())]
@@ -2229,10 +2645,18 @@ def main() -> None:
     phase_vocabulary(args.seed, rng)
     lap("oracle and vocabulary")
     # BATCHER_KERNELS are the ones the requests reach at the default size
-    blaunches = phase_batcher(
+    blaunches, stream, hosts = phase_batcher(
         index, dix, f"{card} ({smi})",
         BATCHER_KERNELS if args.corpus_mb == 64 else ())
     lap("batcher")
+    mblaunches = phase_mesh_batcher(
+        index, stream[:BATCHER_LATER], hosts, f"{card} ({smi})",
+        BATCHER_KERNELS if args.corpus_mb == 64 else ())
+    lap("mesh batcher")
+    phase_distributed(index, dix, f"{card} ({smi})")
+    lap("distributed")
+    mlaunches = phase_mesh(args.mesh_mb, args.seed, f"{card} ({smi})", rng)
+    lap("mesh")
     say("phases (s): " + ", ".join(
         f"{name} {t - prev:.1f}"
         for (name, t), (_, prev) in zip(marks[1:], marks))
@@ -2240,7 +2664,8 @@ def main() -> None:
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=(launches[name] + wlaunches[name] + planches[name]
-                       + slaunches[name] + blaunches[name]),
+                       + slaunches[name] + blaunches[name]
+                       + mblaunches[name] + mlaunches[name]),
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
         for name, (src, replaces, _) in KERNELS.items()]}))

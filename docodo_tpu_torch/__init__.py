@@ -23,6 +23,12 @@ full-result and page-level query paths are CUDA kernels for Hopper
                        (search_batch_full, search_batch)
   ops/query_kernels.py the kernel wrappers and their plain versions
   ops/_cuda.py         nvcc build at first use + ctypes binding
+  query/, server.py    the host query engine, the micro-batching
+                       BatchExecutor and the HTTP server
+  parallel/            document-sharded build and serving over several
+                       devices (sharding.py, serving.py
+                       ShardedDeviceIndex) and processes
+                       (distributed.py, torch.distributed)
 """
 
 __version__ = "0.2.0"
@@ -34,4 +40,8 @@ def __getattr__(name):
         from docodo_tpu_torch.ops.device_index import DeviceIndex
 
         return DeviceIndex
+    if name == "ShardedDeviceIndex":
+        from docodo_tpu_torch.parallel.serving import ShardedDeviceIndex
+
+        return ShardedDeviceIndex
     raise AttributeError(name)

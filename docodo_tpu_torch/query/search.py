@@ -1,5 +1,5 @@
 """Search result types, materialization, ranking and snippets: a copy of
-docodo_tpu/query/search.py without the mesh-serving result flags.
+docodo_tpu/query/search.py.
 
 Behavioral match of the reference result pipeline (ref
 Docodo.NET/Search.cs:20-123, 365-428, 552-601, 619-751), with the
@@ -100,6 +100,12 @@ class SearchResult:
         self.success = True
         self.error = ""
         self.words: List[WordInfo] = []
+        # sharded serving (parallel/serving.py): the query's proximity
+        # window could cross a shard boundary, and was served from the
+        # shards anyway (boundary="flag"), or evaluated exactly on the
+        # host instead (the default "reserve")
+        self.boundary_risk = False
+        self.boundary_reserved = False
 
     def __eq__(self, other):
         if isinstance(other, SearchResult):

@@ -1,5 +1,5 @@
 """REST search server: a copy of docodo_tpu/server.py bound to the
-port's host Index and BatchExecutor, without mesh serving.
+port's host Index and BatchExecutor.
 
 Same surface as the reference's hand-rolled TCP server (ref /server.cs:
 14-121): `GET /search?req=<query>` returns JSON
@@ -11,7 +11,9 @@ banner. Concurrency is capped at 4 x CPU worker threads
 The server batches on the card by default and raises without CUDA. A
 CPU index is served with device="cpu": through the executor, or, with
 device_batching=False, by the host engine alone; the host engine alone
-is never taken unless the CPU is asked for.
+is never taken unless the CPU is asked for. With `mesh`
+(parallel/sharding.make_mesh) the executor serves a document-sharded
+index over the mesh's devices.
 
     srv = DocodoServer(index, port=0, host="127.0.0.1")  # the card
     srv.start()
@@ -59,7 +61,7 @@ class DocodoServer:
                  device_batching: bool = True,
                  max_threads: Optional[int] = None,
                  materialize: bool = True, pipeline: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.index = index
         if not device_batching and torch.device(device).type != "cpu":
             raise ValueError("device_batching=False serves from the CPU's "
@@ -85,7 +87,7 @@ class DocodoServer:
             # without a CUDA card a "cuda" executor raises
             self.batcher = BatchExecutor(
                 index, materialize=materialize, pipeline=pipeline,
-                device=device,
+                device=device, mesh=mesh,
             )
         outer = self
 

@@ -1156,3 +1156,125 @@ def test_index_create_on_card_equals_cpu(cuda_device, native):
                  (got.pages.page_doc, want.pages.page_doc)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def _sharded_pair(ind, mesh):
+    """(ShardedDeviceIndex on `mesh`, the same on four CPU shards)."""
+    from docodo_tpu_torch.parallel import sharding as sh
+    from docodo_tpu_torch.parallel.serving import ShardedDeviceIndex
+
+    return (ShardedDeviceIndex.from_index(ind, mesh),
+            ShardedDeviceIndex.from_index(ind, sh.make_mesh(
+                len(mesh), devices=["cpu"] * len(mesh))))
+
+
+def _check_sharded_on_card(ind, reqs, sdi, cpu, monkeypatch):
+    """Every bucket of the requests' rows through sharded_query_full on
+    the card (the kernels) against the CPU shards' plain route, field for
+    field (ranks within 1 ulp), no bucket on the plain route but W >= 3
+    with variants; then search_batch's results equal to the CPU shards'
+    and, where served, to the host engine's."""
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.parallel import sharding as sh
+    from docodo_tpu_torch.query.batcher import compile_request
+    from docodo_tpu_torch.query.search import result_fields
+
+    rows = [c for c in (compile_request(ind, r) for r in reqs) if c]
+    plain = []
+    inner = tdi.query_step_full
+    monkeypatch.setattr(tdi, "query_step_full", lambda *a, **k: (
+        a[5].is_cuda and plain.append((a[5].shape[1], tdi._variants(a[5])))
+        or inner(*a, **k)))
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    for _, cap, terms, rs in sdi.bucket_arrays(rows):
+        kw = dict(cap=cap, topk=64, hit_cap=1024)
+        got = sh.sharded_query_full(
+            sdi.devices, sdi._off, sdi._sc, sdi._bounds, sdi._page_doc,
+            sdi._is_header, terms, rs, small=sdi._small,
+            page_of=sdi._page_of, **kw)
+        want = sh.sharded_query_full(
+            cpu.devices, cpu._off, cpu._sc, cpu._bounds, cpu._page_doc,
+            cpu._is_header, terms, rs, use_kernels=False, **kw)
+        for f, (g, x) in enumerate(zip(got, want)):
+            g, x = g.cpu(), x.cpu()
+            if x.dtype == torch.float32:
+                assert _ulps(g, x) <= 1, (cap, terms.shape, f)
+            else:
+                assert torch.equal(g, x), (cap, terms.shape, f)
+    assert all(w >= 3 and v > 1 for w, v in plain) and sum(
+        k.launches for k in _cuda.KERNELS.values()) > 0
+    monkeypatch.setattr(tdi, "query_step_full", inner)
+    got = sdi.search_batch(rows, materialize="defer")
+    want = cpu.search_batch(rows, materialize="defer")
+    served = 0
+    for row, g, x in zip(rows, got, want):
+        assert (g is None) == (x is None)
+        if g is not None:
+            a, b = result_fields(g), result_fields(x)
+            assert a == b
+            served += 1
+    assert served > len(rows) // 3
+
+
+def _ulps(a, b) -> int:
+    x = a.contiguous().view(torch.int32).long()
+    y = b.contiguous().view(torch.int32).long()
+    return int((x - y).abs().max()) if x.numel() else 0
+
+
+@pytest.mark.cuda
+def test_sharded_full_path_on_card_equals_cpu(cuda_device, monkeypatch):
+    """Four shards on one card: the kernels on every shard equal the CPU
+    shards' plain route, and search_batch equals them."""
+    from docodo_tpu_torch.parallel import sharding as sh
+
+    ind, reqs = _serving_index()
+    sdi, cpu = _sharded_pair(ind, sh.make_mesh(4, devices=["cuda:0"] * 4))
+    assert {t.device for t in sdi._sc} == {torch.device("cuda", 0)}
+    _check_sharded_on_card(ind, reqs, sdi, cpu, monkeypatch)
+
+
+@pytest.mark.cuda
+def test_sharded_full_path_on_two_cards(cuda_device, monkeypatch):
+    """make_mesh(4) round robin over the host's cards (two or more):
+    shards launch on cards other than cuda:0, with the same results."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA cards")
+    from docodo_tpu_torch.parallel import sharding as sh
+
+    ind, reqs = _serving_index()
+    mesh = sh.make_mesh(4)
+    assert [d.index for d in mesh] == [i % cards for i in range(4)]
+    sdi, cpu = _sharded_pair(ind, mesh)
+    assert [t.device.index for t in sdi._sc] == [d.index for d in mesh]
+    _check_sharded_on_card(ind, reqs, sdi, cpu, monkeypatch)
+
+
+@pytest.mark.cuda
+def test_batcher_mesh_on_card_from_threads(cuda_device):
+    """BatchExecutor(mesh=make_mesh(4)) from 16 client threads: every
+    request equal to the host engine, the stats adding up."""
+    import concurrent.futures as cf
+
+    from docodo_tpu_torch.parallel import sharding as sh
+    from docodo_tpu_torch.query.batcher import BatchExecutor
+    from docodo_tpu_torch.query.search import result_fields
+
+    ind, reqs = _serving_index()
+    want = {r: result_fields(ind.search(r)) for r in set(reqs)}
+    ex = BatchExecutor(ind, mesh=sh.make_mesh(4), max_wait_ms=2.0)
+    try:
+        assert ex.pipeline is False and ex.sdi.devices[0].type == "cuda"
+        with cf.ThreadPoolExecutor(16) as pool:
+            served = list(pool.map(lambda r: (r, ex.search(r)), reqs))
+    finally:
+        ex.close()
+    for req, res in served:
+        assert result_fields(res) == want[req], req
+    st = ex.stats
+    assert st["device_queries"] + st["host_queries"] \
+        + st["truncated_fallbacks"] == len(served)
+    assert st["device_queries"] > 0 and st["device_timeouts"] == 0

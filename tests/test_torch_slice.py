@@ -184,8 +184,9 @@ def test_port_imports_no_jax():
     """The port's host build (with a vocabulary too), both searches
     (standard and wide rows, the page level, the per-bucket serving
     shape with its deferred finish), chip_smoke's CPU-runnable helpers
-    (the mixes, the oracles), the host engine `Index`, the batcher and
-    the HTTP server run without loading jax, the JAX package or the
+    (the mixes, the oracles), the host engine `Index`, the batcher, the
+    HTTP server and the sharded layout (parallel/: a ShardedDeviceIndex
+    on two CPU shards) run without loading jax, the JAX package or the
     benchmarks."""
     code = textwrap.dedent("""
         import sys
@@ -265,6 +266,14 @@ def test_port_imports_no_jax():
         srv.stop()
         assert body == json.loads(json.dumps(result_to_json(
             idx.search("club")))) and body["found"] == 1
+        from docodo_tpu_torch import ShardedDeviceIndex
+        from docodo_tpu_torch.parallel import distributed, serving, sharding
+        sdi = ShardedDeviceIndex.from_index(
+            idx, sharding.make_mesh(2, devices=["cpu", "cpu"]))
+        from docodo_tpu_torch.query.batcher import compile_request
+        [res] = sdi.search_batch([compile_request(idx, "pickwick club")])
+        assert res.found_docs[0].name == idx.search("club").found_docs[0].name
+        assert distributed.make_global_mesh(["cpu"] * 2, 2).num_local == 1
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
         assert not loaded, loaded
