@@ -5,7 +5,13 @@ native tokenizer and interner, the CSR sorted on the card; held array for
 array against the pure-Python build on the CPU), builds a 1 GB corpus's
 CSR by the JAX package's packed protocol (tokenize on threads, pack,
 pinned copy, sort on the card; build_mb_s) and by the port's build_index
-over the same documents, serves the standard 10k query mix and the wide
+over the same documents, writes that build to disk and reads it back,
+runs the console app (python -m docodo_tpu_torch.cli) in processes of
+its own to build the 64 MB corpus from .txt files into an index folder
+and to serve that folder over HTTP with -batch, every answer held
+against Index.search of the folder loaded in this process, whose device
+index serves both mixes below through the kernels as the in-memory
+build's does, serves the standard 10k query mix and the wide
 10k mix (3-4-word phrases, variant ORs, wildcard unions, field rows)
 plus 1,000 `a|b`
 alternations through the kernel route and the plain route of the
@@ -1057,7 +1063,8 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
     build, build_index (the native tokenizer on one thread, the CSR
     sorted on the card), whose lists of the same 1,000 words must equal
     the protocol's, moved to its coordinates (no newline between pages,
-    header pages between documents)."""
+    header pages between documents). Returns build_index's index, which
+    phase_disk writes to disk."""
     import os
 
     from docodo_tpu_torch.index import ListDataSource, build_index
@@ -1189,7 +1196,302 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
         f"{arr.coords.size} postings; {report}; offsets[-1] = postings, "
         f"lists ascending, the 1,000 sampled words' lists equal the "
         f"protocol's; {card}")
-    del built, arr, docs
+    return built
+
+
+def _serve_cli(argv, reqs, host, clients: int = 16):
+    """`python -m docodo_tpu_torch.cli <argv> server -p:0 -batch` in a
+    process of its own (the port it prints), `reqs` sent over HTTP from
+    `clients` threads, every JSON body held against
+    result_to_json(host.search(req)); then its input is closed, which
+    ends it, and its exit code must be 0. Returns (its /status, the
+    requests' seconds, its start's seconds)."""
+    import concurrent.futures as cf
+    import os
+    import re
+    import sys
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    from docodo_tpu_torch.server import result_to_json
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "docodo_tpu_torch.cli", *argv, "server",
+         "-p:0", "-batch"], cwd=str(Path(__file__).resolve().parent),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    lines = []
+    listening = threading.Event()
+    port = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            m = re.search(r"listening on port (\d+)", line)
+            if m:
+                port.append(int(m.group(1)))
+                listening.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        require(listening.wait(600) and proc.poll() is None,
+                "cli server did not start: " + "".join(lines[-20:]))
+        t_start = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port[0]}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=600) as r:
+                return json.loads(r.read().decode("utf-8"))
+
+        t1 = time.perf_counter()
+        with cf.ThreadPoolExecutor(clients) as pool:
+            bodies = list(pool.map(
+                lambda r: get("/search?req=" + urllib.parse.quote(r)), reqs))
+        secs = time.perf_counter() - t1
+        status = get("/status")
+        for req, body in zip(reqs, bodies):
+            want = json.loads(json.dumps(result_to_json(host.search(req)),
+                                         ensure_ascii=False))
+            require(body == want, f"cli server: /search {req!r} differs "
+                    "from result_to_json(Index.search) of the loaded index")
+        proc.stdin.close()
+        rc = proc.wait(timeout=300)
+        reader.join(timeout=60)
+        require(rc == 0, f"cli server exited {rc}: " + "".join(lines[-20:]))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return status, secs, t_start
+
+
+def phase_disk(corpus_mb: float, seed: int, card: str, built) -> dict:
+    """The index on disk and the console app (docodo_tpu_torch.cli). The
+    seeded corpus as .txt files (the first 8 in a subfolder whose .dscr
+    gives them an author and a year, one with a .dscr of its own), then:
+    the CLI builds its index into a folder (`-i: -source:files,... -mem`,
+    keys I and E, in a process of its own); Index(folder) loads it, and
+    it must equal, array for array, an Index() built in memory on the
+    card from the same folder; both are staged, and the standard mix and
+    the wide mix + alternations through search_batch_full on the loaded
+    one (counts zeroed just before, read just after) must launch every
+    kernel of STANDARD_KERNELS and WIDE_KERNELS, take no plain bucket,
+    and equal the in-memory build's field for field; then the CLI serves
+    the folder (`server -batch`, in a process of its own) and 128
+    requests over HTTP must equal the loaded index's Index.search,
+    snippets from its page cache included, with requests served on the
+    card. Last, `built` (phase_build_scale's 1 GB build) is written with
+    write_postings_arrays and PageTable.save and read back with
+    read_index and PageTable.load, equal. The files are removed at the
+    end. Returns the launches of the mixes on the loaded index."""
+    import glob
+    import random
+    import shutil
+    import sys
+    import tempfile
+
+    from docodo_tpu_torch.core import storage
+    from docodo_tpu_torch.core.pagetable import PageTable
+    from docodo_tpu_torch.index import Index
+    from docodo_tpu_torch.lang.vocab import Vocab, load_stop_words
+    from docodo_tpu_torch.mix import serve_requests, wide_requests
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+    from docodo_tpu_torch.sources import IndexTextFilesDataSource
+    from docodo_tpu_torch.synthetic import zipf_documents
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase_disk_", dir=root / "build"))
+    mb = lambda *paths: sum(p.stat().st_size for p in paths) / 1e6
+    try:
+        # (a) the corpus as files
+        docs = zipf_documents(int(corpus_mb * 1e6), seed=seed)
+        corpus = tmp / "corpus"
+        (corpus / "sub").mkdir(parents=True)
+        (corpus / "sub" / ".dscr").write_text("author=dickens\nyear=1836\n")
+        for i, d in enumerate(docs):
+            folder = corpus / "sub" if i < 8 else corpus
+            (folder / f"{d.name}.txt").write_text(
+                " ".join(p.text for p in d.pages[1:]))
+        (corpus / f"{docs[8].name}.txt.dscr").write_text("category=fiction\n")
+        source_mb = sum(f.stat().st_size for f in corpus.rglob("*.txt")) / 1e6
+        idx = tmp / "idx"
+        argv = [f"-i:{idx}", f"-source:files,{corpus}/", "-mem"]
+
+        # (b) the console app builds the index
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "docodo_tpu_torch.cli", *argv],
+            input="I\nE\n", capture_output=True, text=True, timeout=900,
+            cwd=str(root))
+        t_cli = time.perf_counter() - t0
+        require(proc.returncode == 0 and "Indexing completed." in proc.stdout
+                and "Error" not in proc.stdout,
+                f"cli build exited {proc.returncode}: {proc.stdout[-2000:]} "
+                f"{proc.stderr[-2000:]}")
+        files = {n: idx / n for n in (storage.INDEX_FILE, storage.PAGES_FILE,
+                                      "files.cache.zip")}
+        say(f"disk: {len(docs)} documents as .txt files ({source_mb:.1f} MB)"
+            f"; `python -m docodo_tpu_torch.cli {' '.join(argv)}` with keys "
+            f"I, E: {t_cli:.2f} s in all (its process's start and the "
+            f"build), .index {mb(files['.index']):.2f} MB, .index.list "
+            f"{mb(files['.index.list']):.2f} MB, files.cache.zip "
+            f"{mb(files['files.cache.zip']):.2f} MB; on {card}")
+
+        # (c) loaded, against the in-memory build of the same folder; the
+        # vocabularies and stop words the console app loads from Dict/
+        vocs = [Vocab(f) for f in sorted(glob.glob(str(root / "Dict"
+                                                       / "*.voc")))]
+        stops = root / "Dict" / "stop.txt"
+        stop_words = load_stop_words(str(stops)) if stops.exists() else None
+        t0 = time.perf_counter()
+        loaded = Index(str(idx), vocs=vocs, stop_words=stop_words)
+        t_load = time.perf_counter() - t0
+        require(loaded.can_search, "Index(path) did not load the cli's index")
+        loaded.add_data_source(IndexTextFilesDataSource("files", f"{corpus}/"))
+        t0 = time.perf_counter()
+        mem = Index(vocs=vocs, stop_words=stop_words)
+        mem.add_data_source(IndexTextFilesDataSource("files", f"{corpus}/"))
+        mem.create()
+        t_mem = time.perf_counter() - t0
+        got, want = loaded.host, mem.host
+        require(got.arr.terms == want.arr.terms
+                and got.pages.page_ids == want.pages.page_ids
+                and got.pages.doc_names == want.pages.doc_names
+                and got.arr.max_coord == want.arr.max_coord
+                and all(a.dtype == b.dtype and np.array_equal(a, b)
+                        for a, b in ((got.arr.offsets, want.arr.offsets),
+                                     (got.arr.coords, want.arr.coords),
+                                     (got.pages.bounds, want.pages.bounds),
+                                     (got.pages.page_doc,
+                                      want.pages.page_doc))),
+                "the loaded index differs from the in-memory build")
+        say(f"disk: Index(path) loaded in {t_load:.2f} s "
+            f"({mb(files['.index']) / t_load:.1f} MB/s of .index; "
+            f"{len(got.arr.terms)} terms, {got.arr.coords.size} postings, "
+            f"{len(got.pages)} pages); equal array for array (terms, "
+            f"offsets, coords, max_coord, bounds, page_doc, page_ids, "
+            f"doc_names) to Index() built in memory on the card from the "
+            f"same folder in {t_mem:.2f} s; on {card}")
+        dl, dm = DeviceIndex.from_index(loaded), DeviceIndex.from_index(mem)
+        mixes = (("standard mix", _queries(dm, N_QUERIES)),
+                 ("wide mix + alternations",
+                  _wide_queries(dm, N_QUERIES, N_ALTERNATIONS)))
+        for _, q in mixes:  # warm
+            dl.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
+                                 use_kernels=True)
+        torch.cuda.synchronize()
+        plain = []
+        inner = tdi.query_step_full
+
+        def plain_bucket(*a, **k):
+            plain.append(1)
+            return inner(*a, **k)
+
+        tdi.query_step_full = plain_bucket
+        for k in _cuda.KERNELS.values():
+            k.launches = 0
+        try:
+            outs = [dl.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
+                                         use_kernels=True) for _, q in mixes]
+            torch.cuda.synchronize()
+        finally:
+            tdi.query_step_full = inner
+        launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+        for name in STANDARD_KERNELS + WIDE_KERNELS:
+            require(launches[name] > 0, f"kernel {name} was not launched "
+                    "on the loaded index")
+        require(not plain, f"{len(plain)} buckets of the loaded index took "
+                "query_step_full")
+        for (label, q), out in zip(mixes, outs):
+            ref = dm.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
+                                       use_kernels=True)
+            for f, v in out.items():
+                require(np.array_equal(v, ref[f]), f"disk, {label}: {f} "
+                        "differs from the in-memory build's")
+        say(f"disk: both mixes ({sum(len(q) for _, q in mixes)} rows) on "
+            f"the loaded index's DeviceIndex through the kernel route, "
+            f"every field equal to the in-memory build's; launches "
+            f"{({n: c for n, c in launches.items() if c})}; no plain "
+            f"bucket")
+        del dl, dm, outs, mixes
+        torch.cuda.empty_cache()
+
+        # (d) the console app serves the folder
+        words = {}
+        for d in docs[:8]:
+            body = d.pages[1].text.split()
+            words[d.name] = body[len(body) // 2: len(body) // 2 + 2]
+        std = serve_requests(loaded, 400)
+        wide = wide_requests(loaded, 200)
+        reqs = std[:80] + wide[:16]
+        for name, (w1, w2) in words.items():
+            reqs += [f'"{w1} {w2}"', f"{w1} {{author=dickens}}"]
+        reqs += ["{year=1836}", "{category=fiction}", "{name=sub}",
+                 f"{words[docs[0].name][0]} {{source=files}}",
+                 f'"{words[docs[1].name][0]} {words[docs[1].name][1]}" '
+                 f"{{year=1836}}"]
+        reqs += std[80: 80 + BATCHER_HTTP - len(reqs)]
+        random.Random(seed).shuffle(reqs)
+        require(len(reqs) == BATCHER_HTTP, f"{len(reqs)} requests")
+        status, secs, t_start = _serve_cli(argv, reqs, loaded)
+        st = status["batcher"]
+        require(status["canSearch"] and st["device_queries"] > 0
+                and st["device_timeouts"] == 0,
+                f"cli server /status: {status}")
+        say(f"disk: `python -m docodo_tpu_torch.cli {' '.join(argv)} server "
+            f"-p:0 -batch` up in {t_start:.2f} s; {len(reqs)} /search "
+            f"requests (the batcher's recipe, wide ones, quoted phrases and "
+            f"field requests) from 16 clients in {secs:.2f} s, every body "
+            f"equal to result_to_json(Index.search) of the loaded index, "
+            f"snippets from files.cache.zip included; /status batcher "
+            f"{st}; the process exited 0 when its input closed")
+        loaded.dispose()
+        mem.dispose()
+
+        # (e) phase_build_scale's build written and read back
+        big = tmp / "big"
+        big.mkdir()
+        arr, pages = built.arr, built.pages
+        t0 = time.perf_counter()
+        with open(big / storage.INDEX_FILE, "wb") as f:
+            storage.write_postings_arrays(f, arr.max_coord, arr.terms,
+                                          arr.offsets, arr.coords)
+        t1 = time.perf_counter()
+        with open(big / storage.PAGES_FILE, "wb") as f:
+            pages.save(f)
+        t2 = time.perf_counter()
+        back = storage.read_index(str(big / storage.INDEX_FILE))
+        t3 = time.perf_counter()
+        with open(big / storage.PAGES_FILE, "rb") as f:
+            back_pages = PageTable.load(f)
+        t4 = time.perf_counter()
+        require(back.terms == arr.terms and back.max_coord == arr.max_coord
+                and np.array_equal(back.offsets, arr.offsets)
+                and np.array_equal(back.coords, arr.coords)
+                and back_pages.page_ids == pages.page_ids
+                and back_pages.doc_names == pages.doc_names
+                and np.array_equal(back_pages.bounds, pages.bounds)
+                and np.array_equal(back_pages.page_doc, pages.page_doc),
+                "the build at scale read back differs from the build")
+        imb = mb(big / storage.INDEX_FILE)
+        lmb = mb(big / storage.PAGES_FILE)
+        say(f"disk, the build at scale ({arr.coords.size} postings, "
+            f"{len(arr.terms)} terms, {len(pages)} pages): .index "
+            f"{imb:.1f} MB written in {t1 - t0:.2f} s ({imb / (t1 - t0):.1f} "
+            f"MB/s), read in {t3 - t2:.2f} s ({imb / (t3 - t2):.1f} MB/s); "
+            f".index.list {lmb:.2f} MB written in {t2 - t1:.2f} s, read in "
+            f"{t4 - t3:.2f} s; equal to the build array for array; {card}")
+        del back, back_pages
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _queries(dix, n: int):
@@ -2602,8 +2904,12 @@ def main() -> None:
     lap("parity")
     index, dix = phase_index(args.corpus_mb, args.seed)
     lap("index")
-    phase_build_scale(args.build_mb, args.seed, f"{card} ({smi})")
+    built = phase_build_scale(args.build_mb, args.seed, f"{card} ({smi})")
     lap("build at scale")
+    dlaunches = phase_disk(args.corpus_mb, args.seed, f"{card} ({smi})",
+                           built)
+    del built
+    lap("disk")
     queries = _queries(dix, N_QUERIES)
     wide = _wide_queries(dix, N_QUERIES, N_ALTERNATIONS)
     out, launches = phase_main(dix, queries, f"{card} ({smi})",
@@ -2665,7 +2971,8 @@ def main() -> None:
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=(launches[name] + wlaunches[name] + planches[name]
                        + slaunches[name] + blaunches[name]
-                       + mblaunches[name] + mlaunches[name]),
+                       + mblaunches[name] + mlaunches[name]
+                       + dlaunches[name]),
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
         for name, (src, replaces, _) in KERNELS.items()]}))

@@ -6,12 +6,19 @@ its own copies of the host modules it needs. The TPU kernels of the
 full-result and page-level query paths are CUDA kernels for Hopper
 (csrc/*.cu).
 
+  cli.py               the console app: python -m docodo_tpu_torch.cli
   index.py             index build over paged documents (native
                        tokenizer, CSR sorted on the card), the host
-                       engine Index, and the query side's word ->
-                       (variant keys, R) rule
-  native/              the C++ tokenizer, interner and bulk stemmers
-                       (g++ at first use + ctypes binding)
+                       engine Index (in memory, or in a folder whose
+                       files Index(path) loads), and the query side's
+                       word -> (variant keys, R) rule
+  core/                postings algebra (postings.py), the .index file
+                       and its varint codec (storage.py, varint.py), the
+                       page table and its .index.list file (pagetable.py)
+  sources/             text / pdf / html folders, XML manifests, SQLite,
+                       entities, the web crawl, the zip page cache
+  native/              the C++ tokenizer, interner, bulk stemmers and
+                       varint codec (g++ at first use + ctypes binding)
   lang/, constants.py  tokenizer, stemmers, vocabularies (.voc), stop
                        words, word coder
   utils/profiling.py   build phase timings, torch.profiler traces

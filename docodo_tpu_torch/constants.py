@@ -24,3 +24,4 @@ END_MATCHED_SYMBOL = "\u02ca"    # ˊ
 # morphological group ids of a vocabulary (ref Dict.cs)
 GROUP_NOT_EXACT_WORD_MASK = 0x01000000
 GROUP_NUMBER_MASK = 0x00FFFFFF
+PAGE_SIZE = 3000              # text-file pagination (ref DataSources.cs:308)

@@ -5,7 +5,7 @@ over it, `Index`, which the batcher and the server serve.
 It follows the page path of the JAX package's build (docodo_tpu/index.py:
 Index._index_task :390-481, _index_header_page :496-514,
 IndexBuilder.add_interned :957-1036, _gather_sorted :1050-1080) on one
-thread, in memory, with no spills, varint or storage. Body pages go
+thread, in memory, with no spills. Body pages go
 through the native tokenizer and interner (native/), whose interned ids
 fan out to term ids by one gather, the new words' stems taken in bulk;
 header pages, and every page with native=False, through the pure-Python
@@ -28,14 +28,19 @@ A document is an iterable of IndexPage(id, text) with a `name`; page
 "0" is the header page of 'name=value' lines. `device="cpu"` sorts on
 the CPU, as the tests do.
 
-The host engine (docodo_tpu/index.py:83 `Index`, trimmed to what the
-batcher and the server read): data sources whose page text it keeps in
-memory as the build reads it, `create()` (a rebuild bumps `generation`),
-and `search(req)`, the request parser and the posting algebra over the
-build with snippets and highlights.
+The host engine (docodo_tpu/index.py:83 `Index`): data sources, whose
+page text it keeps for snippets, `create()` (a rebuild bumps
+`generation`), and `search(req)`, the request parser and the posting
+algebra over the build with snippets and highlights. With a path the
+index lives on disk as the JAX package's does, in the same files byte
+for byte: `.index` (core/storage.py) and `.index.list`
+(core/pagetable.py), the page text in `<source>.cache.zip`
+(sources/cache.py); `Index(path)` loads what is there, and `create()`
+writes the files and installs the build. Without a path it writes no
+file and keeps the page text in memory.
 
     from docodo_tpu_torch.index import Index, IndexPagedTextFile
-    ind = Index()
+    ind = Index("./idx")                 # loads ./idx/.index if there
     ind.add_data_source(ListDataSource("docs", [
         IndexPagedTextFile("pick", text, "author=dickens")]))
     ind.create()
@@ -46,17 +51,23 @@ from __future__ import annotations
 
 import bisect
 import math
+import os
 import re
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from docodo_tpu_torch import constants as C
+from docodo_tpu_torch.core import storage
+from docodo_tpu_torch.core.pagetable import PageTable
 from docodo_tpu_torch.core.postings import PostingSeq
+from docodo_tpu_torch.core.storage import ArrayIndex
 from docodo_tpu_torch.lang import tokenizer
+from docodo_tpu_torch.lang.vocab import load_stop_words
 from docodo_tpu_torch.lang.wordcodes import WordCoder
 from docodo_tpu_torch.native import pipeline
 from docodo_tpu_torch.ops.device_index import INF32
@@ -69,121 +80,15 @@ from docodo_tpu_torch.query.search import (
     prepare_page_text,
     prepare_search_result,
 )
+from docodo_tpu_torch.sources.base import (  # noqa: F401 (re-exported)
+    IndexPage,
+    IndexPagedTextFile,
+    ListDataSource,
+)
+from docodo_tpu_torch.sources.cache import IndexTextCacheDataSource
 from docodo_tpu_torch.utils import profiling
 
-
-@dataclass
-class IndexPage:
-    id: str
-    text: str
-
-
-class IndexPagedTextFile:
-    """A pre-paged text document: header page "0" of 'name=value' lines
-    and one body page "1" (docodo_tpu/sources/base.py:29)."""
-
-    def __init__(self, name: str, text: str, headers: str):
-        self.name = name
-        self.pages = [IndexPage("0", headers), IndexPage("1", text)]
-
-    def __iter__(self):
-        return iter(self.pages)
-
-    def close(self) -> None:
-        pass
-
-
-class ListDataSource:
-    """A named fixed list of documents (docodo_tpu/sources/base.py:135)."""
-
-    def __init__(self, name: str, docs: Iterable):
-        self.name = name
-        self._docs = list(docs)
-        self._pos = 0
-
-    def reset(self) -> None:
-        self._pos = 0
-
-    def next_document(self):
-        if self._pos >= len(self._docs):
-            return None
-        doc = self._docs[self._pos]
-        self._pos += 1
-        return doc
-
-
-@dataclass
-class Postings:
-    """CSR postings: term t's coordinates are coords[offsets[t]:
-    offsets[t + 1]], ascending; terms in string order. max_coord is the
-    last coordinate the build added, as the JAX package's builder keeps
-    it."""
-
-    terms: List[str]
-    offsets: np.ndarray   # int64 [T + 1]
-    coords: np.ndarray    # uint64 [N]
-    max_coord: int
-    # term -> ordinal; the JAX package's DeviceIndex.from_index reads it,
-    # so the parity tests stage one host index in both packages
-    _tmap: Dict[str, int] = field(init=False, repr=False)
-
-    def __post_init__(self):
-        self._tmap = {t: i for i, t in enumerate(self.terms)}
-        self._enc_counts = None
-
-    def __len__(self) -> int:
-        return len(self.terms)
-
-    def get(self, term: str) -> Optional[np.ndarray]:
-        """A term's coordinates, or None for a term the index lacks."""
-        tid = self._tmap.get(term)
-        if tid is None:
-            return None
-        return self.coords[self.offsets[tid]: self.offsets[tid + 1]]
-
-    def enc_count(self, tid: int) -> int:
-        """The u16 words a term's list takes in the JAX package's varint
-        storage, which ranks its suggestions: per delta from the previous
-        coordinate (the first from 0), max(1, ceil(bits / 15))
-        (docodo_tpu/core/storage.py:101-113, core/varint.py:46)."""
-        if self._enc_counts is None:
-            deltas = np.diff(self.coords, prepend=np.uint64(0))
-            starts = self.offsets[:-1][self.offsets[:-1] < self.offsets[1:]]
-            deltas[starts] = self.coords[starts]
-            words = np.ones(deltas.shape, dtype=np.int64)
-            for j in (15, 30, 45, 60):
-                words += deltas >= (np.uint64(1) << np.uint64(j))
-            cs = np.concatenate([[0], np.cumsum(words)])
-            self._enc_counts = cs[self.offsets[1:]] - cs[self.offsets[:-1]]
-        return int(self._enc_counts[tid])
-
-
-@dataclass
-class PageTable:
-    """Page END coordinates (exclusive, ascending), each page's document
-    ordinal and id, and the document names (docodo_tpu/core/pagetable.py)."""
-
-    bounds: np.ndarray    # uint64 [P]
-    page_doc: np.ndarray  # int64 [P]
-    page_ids: List[str]
-    doc_names: List[str]
-
-    def __len__(self) -> int:
-        return len(self.page_ids)
-
-    def locate(self, coords: np.ndarray):
-        """For each coordinate its (page index, position in the page), by
-        binary search of the page ends (pagetable.py:77); a coordinate
-        past the last bound maps to the last page."""
-        coords = np.asarray(coords, dtype=np.uint64)
-        page = np.searchsorted(self.bounds, coords, side="right")
-        page = np.minimum(page, len(self.bounds) - 1)
-        base = np.where(page > 0, self.bounds[np.maximum(page - 1, 0)], 0)
-        pos = (coords - base).astype(np.int64)
-        return page.astype(np.int64), pos
-
-    def page_base(self, page_idx: int) -> int:
-        return int(self.bounds[page_idx - 1]) if page_idx > 0 else 0
+CACHE_END = ".cache.zip"
 
 
 @dataclass
@@ -192,7 +97,7 @@ class HostIndex:
     reads them, and the word coder (vocabularies, stop words) the build
     keyed its words with, which the query side must share."""
 
-    arr: Postings
+    arr: ArrayIndex
     pages: PageTable
     coder: WordCoder = field(default_factory=WordCoder)
 
@@ -371,13 +276,14 @@ class _Stream:
             self.coords.append(np.repeat(coords, counts))
         self.max_coord = int(coords[-1])
 
-    def postings(self, device: torch.device) -> Postings:
+    def postings(self, device: torch.device) -> ArrayIndex:
         """Term-sorted CSR (IndexBuilder._gather_sorted), sorted on
         `device`: each posting's key is its term's rank in string order,
         and the stream is in coordinate order (sort_postings)."""
         if not self.tids:
-            return Postings([], np.zeros(1, dtype=np.int64),
-                            np.zeros(0, dtype=np.uint64), self.max_coord)
+            return ArrayIndex.from_postings(
+                [], np.zeros(1, dtype=np.int64),
+                np.zeros(0, dtype=np.uint64), self.max_coord)
         tids = np.concatenate(self.tids)
         coords = np.concatenate(self.coords)
         order_terms = sorted(range(len(self.terms)),
@@ -387,8 +293,8 @@ class _Stream:
             len(order_terms), dtype=np.int32)
         offsets, coords = sort_postings(rank[tids], coords, len(self.terms),
                                         device)
-        return Postings([self.terms[i] for i in order_terms], offsets,
-                        coords, self.max_coord)
+        return ArrayIndex.from_postings([self.terms[i] for i in order_terms],
+                                        offsets, coords, self.max_coord)
 
 
 def sort_postings(keys: np.ndarray, coords: np.ndarray, num_terms: int,
@@ -461,10 +367,13 @@ def build_index(source: ListDataSource, vocs: Sequence = (),
 
 
 def _build(sources: Sequence, coder: WordCoder, native: bool,
-           device) -> HostIndex:
+           device, cancel: Optional[threading.Event] = None
+           ) -> Optional[HostIndex]:
     """build_index over several sources, one after the other in one
-    coordinate space."""
+    coordinate space; None when `cancel` was set before the build ended,
+    which it reads before every document and page."""
     dev = _device(device)
+    cancel = cancel or threading.Event()
     stream = _Stream(coder, native)
     bounds: List[int] = []
     page_doc: List[int] = []
@@ -474,10 +383,12 @@ def _build(sources: Sequence, coder: WordCoder, native: bool,
     try:
         for source in sources:
             coord = _build_source(source, stream, coord, bounds, page_doc,
-                                  page_ids, doc_names)
+                                  page_ids, doc_names, cancel)
     finally:
         if stream.interner is not None:
             stream.interner.close()
+    if cancel.is_set():
+        return None
     pages = PageTable(np.array(bounds, dtype=np.uint64),
                       np.array(page_doc, dtype=np.int64), page_ids,
                       doc_names)
@@ -487,13 +398,15 @@ def _build(sources: Sequence, coder: WordCoder, native: bool,
 
 
 def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
-                  page_ids, doc_names) -> int:
+                  page_ids, doc_names, cancel: threading.Event) -> int:
     """One source's pages into the stream. With the native interner, body
     pages pend and go through one tokenizer call BODY_UNITS at a time
     (a call a page would wait on the interpreter lock once a page while
     other threads run, as a server's do during a rebuild), and their
     tokens go to the stream FLUSH_TOKENS at a time; both flush before
-    every header page, so that the stream stays in coordinate order."""
+    every header page, so that the stream stays in coordinate order. A
+    document that fails while its pages are read keeps the pages read
+    before, and the build goes on (index.py:482-489)."""
     body: List[str] = []        # body pages not tokenized yet, in order
     body_units: List[int] = []  # their lengths in UTF-16 units
     body_at = 0                 # the coordinate of the first of them
@@ -533,42 +446,49 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
             pend_n = 0
 
     source.reset()
-    while (doc := source.next_document()) is not None:
+    while not cancel.is_set() and (doc := source.next_document()) is not None:
         doc_names.append(f"{source.name}{C.DOC_SEP}{doc.name}")
-        for page in doc:
-            if len(page.text) == 0:
-                continue
-            if page.id == "0":
-                flush()
-                coord = _index_header_page(stream, page.text, coord)
-            elif stream.interner is not None:
-                if not body:
-                    body_at = coord
-                body.append(page.text)
-                body_units.append(tokenizer.char_len(page.text))
-                coord += body_units[-1]
-                if coord - body_at >= BODY_UNITS:
-                    tokenize_body()
-                if pend_n >= FLUSH_TOKENS:
+        try:
+            for page in doc:
+                if cancel.is_set():
+                    break
+                if len(page.text) == 0:
+                    continue
+                if page.id == "0":
                     flush()
-            else:
-                with profiling.phase("build.tokenize"):
-                    low = tokenizer.lower_keep_length(page.text)
-                    words, starts = tokenizer.tokenize(low, lowered=True)
-                with profiling.phase("build.wordcode+gather"):
-                    keep = [k for k, w in enumerate(words)
-                            if C.MIN_WORD_LENGTH <= len(w)
-                            <= C.MAX_WORD_LENGTH]
-                    stream.add_tokens([words[k] for k in keep],
-                                      starts[keep].astype(np.uint64)
-                                      + np.uint64(coord))
-                coord += tokenizer.char_len(low)
-            bounds.append(coord)
-            page_doc.append(len(doc_names) - 1)
-            page_ids.append(page.id)
-        close = getattr(doc, "close", None)
-        if close:
-            close()
+                    coord = _index_header_page(stream, page.text, coord)
+                elif stream.interner is not None:
+                    if not body:
+                        body_at = coord
+                    body.append(page.text)
+                    body_units.append(tokenizer.char_len(page.text))
+                    coord += body_units[-1]
+                    if coord - body_at >= BODY_UNITS:
+                        tokenize_body()
+                    if pend_n >= FLUSH_TOKENS:
+                        flush()
+                else:
+                    with profiling.phase("build.tokenize"):
+                        low = tokenizer.lower_keep_length(page.text)
+                        words, starts = tokenizer.tokenize(low, lowered=True)
+                    with profiling.phase("build.wordcode+gather"):
+                        keep = [k for k, w in enumerate(words)
+                                if C.MIN_WORD_LENGTH <= len(w)
+                                <= C.MAX_WORD_LENGTH]
+                        stream.add_tokens([words[k] for k in keep],
+                                          starts[keep].astype(np.uint64)
+                                          + np.uint64(coord))
+                    coord += tokenizer.char_len(low)
+                bounds.append(coord)
+                page_doc.append(len(doc_names) - 1)
+                page_ids.append(page.id)
+        except Exception as e:  # noqa: BLE001 — a bad document, as the
+            # JAX package's build logs and skips it
+            print(f"Error in doc {doc.name}: {e}")
+        finally:
+            close = getattr(doc, "close", None)
+            if close:
+                close()
     flush()
     return coord
 
@@ -651,31 +571,73 @@ _FILTER_RE = re.compile(r"\B-filter:((?:[\w*?\\.()+{}/]+,?)+)")
 
 
 class Index:
-    """The host engine over the port's build (docodo_tpu/index.py:83):
-    what the batcher and the server read of docodo_tpu.Index. Always
-    indexes full forms (the JAX package's b_keep_forms = True), in
-    memory, on one build thread; `native` and `device` as build_index
-    takes them (a CUDA device raises here without CUDA)."""
+    """The host engine over the port's build (docodo_tpu/index.py:83).
+    Always indexes full forms (the JAX package's b_keep_forms = True), on
+    one build thread; `native` and `device` as build_index takes them (a
+    CUDA device raises here without CUDA).
 
-    def __init__(self, vocs: Sequence = (), stop_words=None,
-                 native: bool = True, device="cuda"):
+    With `path` the index lives in that folder in the JAX package's files,
+    and `Index(path)` loads what is there. `in_memory=False` keeps the
+    postings on disk and reads a term's at each lookup, as the JAX
+    package's lazy mode does; a device index needs them in memory.
+    Without a path (the default) nothing is written, the page text stays
+    in memory, and the index lives until the process ends."""
+
+    def __init__(self, path: Optional[str] = None, in_memory: bool = True,
+                 vocs: Sequence = (), stop_words=None, native: bool = True,
+                 device="cuda"):
         self.native = native
         self.device = _device(device)
+        self.work_path = path
+        self.in_memory = in_memory
         self.vocs = list(vocs)
         self.stop_words: set = set(stop_words) if stop_words else set()
-        self.sources: List[TextCacheDataSource] = []
+        self.sources: List = []
         self.host: Optional[HostIndex] = None
         self.can_search = False
         self.status = "Idle"
-        # bumped whenever a build installs: a device index restages then
+        # bumped whenever a build or a load installs: a device index
+        # restages then
         self.generation = 0
         self._search_lock = threading.RLock()
+        self._cancel = threading.Event()
+        if path is not None:
+            self.load()
+
+    # ---- configuration ---------------------------------------------------
+    def load_stop_words(self, path: str) -> None:
+        self.stop_words = load_stop_words(path)
+        self._recode()
+
+    def add_stop_words(self, words) -> None:
+        self.stop_words.update(words)
+        self._recode()
+
+    def _coder(self) -> WordCoder:
+        return WordCoder(vocs=self.vocs, stop_words=set(self.stop_words))
+
+    def _recode(self) -> None:
+        """Requests are keyed by the stop words of now, as the JAX
+        package's word_coder keys them (index.py:124), also over an index
+        built or loaded before."""
+        with self._search_lock:
+            if self.host is not None:
+                self.host = HostIndex(self.host.arr, self.host.pages,
+                                      self._coder())
 
     def add_data_source(self, source) -> None:
-        self.sources.append(TextCacheDataSource(source))
+        """A source the next create() reads; its page text is kept for
+        snippets, in `<path>/<source name>.cache.zip` with a path."""
+        if self.work_path is None:
+            self.sources.append(TextCacheDataSource(source))
+        else:
+            self.sources.append(IndexTextCacheDataSource(
+                source, os.path.join(self.work_path,
+                                     source.name + CACHE_END)))
 
+    # ---- state -----------------------------------------------------------
     @property
-    def arr(self) -> Optional[Postings]:
+    def arr(self) -> Optional[ArrayIndex]:
         return self.host.arr if self.host is not None else None
 
     @property
@@ -694,28 +656,202 @@ class Index:
     def max_coord(self) -> int:
         return self.arr.max_coord if self.arr is not None else 0
 
+    @property
+    def is_creating(self) -> bool:
+        return self.status != "Idle"
+
+    @property
+    def can_index(self) -> bool:
+        return bool(self.sources) and not self.is_creating
+
+    def _install(self, arr: ArrayIndex, pages: PageTable) -> None:
+        """A new index for the requests, under the search lock."""
+        with self._search_lock:
+            if self.host is not None:
+                self.host.arr.close()
+            self.host = HostIndex(arr, pages, self._coder())
+            self.generation += 1
+            self.can_search = True
+
+    # ---- storage ---------------------------------------------------------
+    def load(self) -> bool:
+        """The `.index` and `.index.list` files of the path, installed
+        (index.py:175). A missing file returns False; a damaged one is
+        reported and returns False with the index unsearchable."""
+        if self.work_path is None:
+            return False
+        index_file = os.path.join(self.work_path, storage.INDEX_FILE)
+        pages_file = os.path.join(self.work_path, storage.PAGES_FILE)
+        if not (os.path.exists(index_file) and os.path.exists(pages_file)):
+            return False
+        self.can_search = False
+        try:
+            arr = storage.read_index(index_file, in_memory=self.in_memory)
+            try:
+                with open(pages_file, "rb") as f:
+                    pages = PageTable.load(f)
+            except BaseException:
+                arr.close()
+                raise
+        except (OSError, ValueError) as e:
+            print(f"Can't load: {e}")
+            return False
+        self._install(arr, pages)
+        return True
+
+    def close(self) -> None:
+        self.can_search = False
+        if self.arr is not None:
+            self.arr.close()
+
+    def dispose(self) -> None:
+        """Closes the index file and the page caches; the index is empty
+        after."""
+        self.close()
+        for s in self.sources:
+            if isinstance(s, IndexTextCacheDataSource):
+                s.close()
+        self.sources = []
+        self.host = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.dispose()
+        return False
+
+    # ---- build -----------------------------------------------------------
+    def cancel(self) -> None:
+        """Stops a running create() at the next document or page; the
+        index before it stays."""
+        self._cancel.set()
+
     def create(self) -> None:
         """Rebuild from the data sources (index.py:219) and install the
-        build, its page text and a new generation at once."""
+        build, its page text and a new generation at once; with a path,
+        write `.index` and `.index.list` first."""
+        self._create(threading.Event())
+
+    def create_async(self) -> threading.Thread:
+        """create() on a thread of its own, which it returns started."""
+        cancel = threading.Event()
+        t = threading.Thread(target=self._create, args=(cancel,),
+                             daemon=True)
+        t.start()
+        return t
+
+    def _create(self, cancel: threading.Event) -> None:
         if not self.sources or self.status != "Idle":
             return
+        start = time.time()
         self.status = "Index"
+        self._cancel = cancel
         try:
-            host = _build(self.sources,
-                          WordCoder(vocs=self.vocs,
-                                    stop_words=set(self.stop_words)),
-                          self.native, self.device)
-            with self._search_lock:
-                for source in self.sources:
-                    source.publish()
-                self.host = host
-                self.generation += 1
-                self.can_search = True
-        except Exception:
+            if self.work_path is None:
+                host = _build(self.sources, self._coder(), self.native,
+                              self.device, cancel)
+                if host is not None:
+                    with self._search_lock:
+                        for source in self.sources:
+                            source.publish()
+                        self.host = host
+                        self.generation += 1
+                        self.can_search = True
+            else:
+                host = self._create_files(cancel)
+            if host is None:
+                print("Indexing was cancelled.")
+                return
+            print(f"Time elapsed: {time.time() - start:.1f} s")
+        except Exception as e:
+            print(f"Error: {e}")
             self.can_search = False
             raise
         finally:
             self.status = "Idle"
+
+    def _create_files(self, cancel: threading.Event) -> Optional[HostIndex]:
+        """The build of a path (index.py:229-376): the page text into
+        `<source>.cache.zip_`, the postings into `.index_`; then, under
+        the search lock, `.index.list` written, `.index` and the caches
+        renamed into place, and the build installed (read back lazily
+        with in_memory=False). A cancelled build leaves the files as
+        they were and returns None."""
+        os.makedirs(self.work_path, exist_ok=True)
+        tmp_caches = [IndexTextCacheDataSource(s.source, s.filename + "_")
+                      for s in self.sources]
+        try:
+            host = _build(tmp_caches, self._coder(), self.native,
+                          self.device, cancel)
+        finally:
+            for tmp in tmp_caches:
+                tmp.close()
+        if host is None:
+            for tmp in tmp_caches:
+                if os.path.exists(tmp.filename):
+                    os.remove(tmp.filename)
+            return None
+        index_file = os.path.join(self.work_path, storage.INDEX_FILE)
+        self.status = "Merge"
+        arr = host.arr
+        with open(index_file + "_", "wb") as f:
+            storage.write_postings_arrays(f, arr.max_coord, arr.terms,
+                                          arr.offsets, arr.coords)
+        with self._search_lock:
+            self.can_search = False
+            with open(os.path.join(self.work_path, storage.PAGES_FILE),
+                      "wb") as f:
+                host.pages.save(f)
+            if self.arr is not None:
+                self.arr.close()
+            os.replace(index_file + "_", index_file)
+            sources = []
+            for source, tmp in zip(self.sources, tmp_caches):
+                source.close()
+                if os.path.exists(tmp.filename):
+                    os.replace(tmp.filename, source.filename)
+                sources.append(IndexTextCacheDataSource(source.source,
+                                                        source.filename))
+            self.sources = sources
+            if self.in_memory:
+                self._install(host.arr, host.pages)
+            else:
+                self.load()
+        return host
+
+    # ---- histogram -------------------------------------------------------
+    def get_words_group(self, code) -> str:
+        """The words of a vocabulary group key '#HEX', at most 20
+        (index.py:681, ref Index.cs:270-281)."""
+        if isinstance(code, str):
+            if code.startswith(C.KNOWN_WORD_CHAR):
+                code = code[1:]
+            code = int(code, 16)
+        voc = self.vocs[code >> 24]
+        masked = code & C.GROUP_NUMBER_MASK
+        return ",".join([w for w, g in voc.words.items() if g == masked][:20])
+
+    @staticmethod
+    def calc_histogram(index: "Index", n: int = 1000) -> Dict[str, int]:
+        """The n terms of most stored words, with their counts; a
+        vocabulary group's key as its words in parentheses (index.py:694,
+        ref Index.cs:284-307)."""
+        out: Dict[str, int] = {}
+        if index.arr is None:
+            return out
+        arr = index.arr
+        for tid in np.argsort(-arr.enc_counts, kind="stable")[:n].tolist():
+            key = arr.terms[tid]
+            val = int(arr.enc_counts[tid])
+            try:
+                if key.startswith(C.KNOWN_WORD_CHAR):
+                    out["(" + index.get_words_group(key[1:]) + ")"] = val
+                else:
+                    out[key] = val
+            except (IndexError, ValueError) as e:
+                print(f"Error in Histogram: {e}")
+        return out
 
     # ---- lookup ---------------------------------------------------------
     def get_like_words(self, word: str) -> List[str]:

@@ -1,7 +1,7 @@
-"""Morphological vocabularies (.voc files) and stop-word lists: the
-loading side of docodo_tpu/lang/vocab.py (Vocab :48-145,
-load_stop_words :260). The tools that make .voc files from word lists
-run offline and stay in the JAX package.
+"""Morphological vocabularies (.voc files), their builders and stop-word
+lists (a copy of docodo_tpu/lang/vocab.py: Vocab :48-145, VocBuilder
+:147-221, build_freelib_voc / build_opencorpora_voc :223-258,
+load_stop_words :260).
 
 A .voc file is a flat sequence of records (ref Docodo.NET/Dict.cs:71-95):
 a .NET BinaryWriter string (7-bit-varint byte length, then UTF-8 bytes)
@@ -17,7 +17,7 @@ stems its new words in bulk first (prime_stems).
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 from docodo_tpu_torch.constants import (
     GROUP_NOT_EXACT_WORD_MASK,
@@ -143,6 +143,119 @@ class Vocab:
             _write_7bit_len(f, len(data))
             f.write(data)
             f.write(int(self.words[word]).to_bytes(4, "little", signed=True))
+
+
+class VocBuilder:
+    """Build a .voc from morphologically grouped word lists.
+
+    Words of one lemma group share one group id; groups whose stems collide
+    are unioned through a replacement map (ref Dict.cs:109-210).
+    """
+
+    def __init__(self, stemmer=None):
+        self.stemmer = stemmer
+        self.words: Dict[str, int] = {}
+        self.replaces: Dict[int, int] = {}
+        self._next_group = 1
+
+    def _stem(self, w: str) -> str:
+        return self.stemmer(w) if self.stemmer else w
+
+    def add_words_group(self, grouplist: Iterable[str]) -> None:
+        grouplist = list(grouplist)
+        curr = self._next_group
+        has_match = False  # some word in the group equals its own stem
+        found = False
+        replace_groups = set()
+
+        for word in grouplist:
+            stemme = self._stem(word)
+            if not has_match and stemme in grouplist:
+                has_match = True
+            if stemme in self.words:
+                new_curr = self.words[stemme]
+                new_curr = self.replaces.get(new_curr, new_curr)
+                if (curr & GROUP_NUMBER_MASK) != (new_curr & GROUP_NUMBER_MASK):
+                    if found:
+                        replace_groups.add(new_curr & GROUP_NUMBER_MASK)
+                    else:
+                        curr = new_curr
+                    found = True
+
+        if (curr & GROUP_NOT_EXACT_WORD_MASK) == 0:
+            has_match = True
+        if has_match:
+            curr &= ~GROUP_NOT_EXACT_WORD_MASK
+
+        for gr in replace_groups:
+            if gr in self.replaces:
+                if self.replaces[gr] != curr:
+                    raise ValueError("duplicate replaces")
+            else:
+                self.replaces[gr] = curr
+
+        for word in grouplist:
+            stemme = self._stem(word)
+            if stemme not in self.words:
+                self.words[stemme] = curr
+            elif has_match and (self.words[stemme] & GROUP_NOT_EXACT_WORD_MASK):
+                self.words[stemme] = curr & ~GROUP_NOT_EXACT_WORD_MASK
+
+        self._next_group += 1
+
+    def build(self, outfile) -> None:
+        close = False
+        if isinstance(outfile, (str, os.PathLike)):
+            outfile = open(outfile, "wb")
+            close = True
+        try:
+            for word in sorted(self.words):
+                data = word.encode("utf-8")
+                _write_7bit_len(outfile, len(data))
+                outfile.write(data)
+                grp = self.words[word]
+                grp = self.replaces.get(grp, grp)
+                outfile.write(int(grp).to_bytes(4, "little", signed=True))
+        finally:
+            if close:
+                outfile.close()
+
+
+def build_freelib_voc(folder: str, outfile: str) -> None:
+    """Build an English voc from FreeLing 'word lemma TAG' dictionaries
+    (ref Dict.cs:260-296; source files live in Dict/en of the reference)."""
+    builder = VocBuilder(stemmer=stemmers.stem_en)
+    for fname in sorted(os.listdir(folder)):
+        path = os.path.join(folder, fname)
+        if not os.path.isfile(path):
+            continue
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            for line in f:
+                parts = line.rstrip("\n").split(" ")
+                if len(parts) >= 2 and parts[0] and parts[1]:
+                    builder.add_words_group(parts[:2])
+    builder.build(outfile)
+
+
+def build_opencorpora_voc(xml_file: str, outfile: str) -> None:
+    """Build the Russian voc from an OpenCorpora XML dump
+    (ref Dict.cs:214-258)."""
+    import xml.etree.ElementTree as ET
+
+    builder = VocBuilder(stemmer=stemmers.stem_ru)
+    group: list[str] = []
+    for event, elem in ET.iterparse(xml_file, events=("start", "end")):
+        if event == "start" and elem.tag == "lemma":
+            group = []
+        elif event == "end":
+            if elem.tag == "lemma":
+                builder.add_words_group(group)
+                elem.clear()
+            elif elem.tag in ("l", "f"):
+                t = elem.get("t")
+                if t:
+                    group.append(t)
+    builder.build(outfile)
 
 
 def load_stop_words(path: str) -> set:

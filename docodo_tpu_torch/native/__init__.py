@@ -73,6 +73,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.docodo_stem_ru_bulk.restype = c.c_int64
     lib.docodo_stem_ru_bulk.argtypes = [
         c.c_char_p, c.c_void_p, c.c_int64, c.c_char_p, c.c_void_p]
+    lib.docodo_varint_encode.restype = c.c_int64
+    lib.docodo_varint_encode.argtypes = [c.c_void_p, c.c_int64, c.c_void_p]
+    lib.docodo_varint_encode_blocks.restype = c.c_int64
+    lib.docodo_varint_encode_blocks.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p]
+    lib.docodo_varint_decode.restype = c.c_int64
+    lib.docodo_varint_decode.argtypes = [c.c_void_p, c.c_int64, c.c_void_p]
+    lib.docodo_varint_decode_spans.restype = c.c_int64
+    lib.docodo_varint_decode_spans.argtypes = [
+        c.c_char_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p,
+        c.c_void_p]
+    lib.docodo_parse_records.restype = c.c_int64
+    lib.docodo_parse_records.argtypes = [
+        c.c_char_p, c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_void_p]
     return lib
 
 

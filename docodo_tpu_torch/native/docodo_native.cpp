@@ -8,7 +8,8 @@
 //     letter/digit classification, token segmentation (\p{L}+|\p{N}+,
 //     length 3..32 like ref Index.cs:97,113) and term-id interning into
 //     an open-addressing hash map with a string arena;
-//   * the English (Porter2) and Russian (Snowball) stemmers, in bulk.
+//   * the English (Porter2) and Russian (Snowball) stemmers, in bulk;
+//   * the 15-bit varint codec of the .index file and its record walk.
 //
 // Exposed as a C ABI for ctypes; fold/class tables are built in Python
 // (from Python's str.lower()/unicodedata) and passed in, so the native
@@ -586,6 +587,149 @@ int64_t docodo_stem_ru_bulk(
         ip += ln;
     }
     return op;
+}
+
+// 15-bit varint encode (core/varint.py): deltas of ascending u64
+// coordinates into u16 words, 15 payload bits each, low chunk first,
+// MSB = more chunks of this delta follow. Returns the word count; pass
+// out=null to size.
+int64_t docodo_varint_encode(
+    const uint64_t* coords, int64_t n, uint16_t* out) {
+    int64_t w = 0;
+    uint64_t prev = 0;
+    for (int64_t i = 0; i < n; i++) {
+        uint64_t d = coords[i] - prev;
+        prev = coords[i];
+        do {
+            uint16_t chunk = (uint16_t)(d & 0x7FFF);
+            d >>= 15;
+            if (d) chunk |= 0x8000;
+            if (out) out[w] = chunk;
+            w++;
+        } while (d);
+    }
+    return w;
+}
+
+// Encode many posting blocks in one pass: offsets[b]:offsets[b+1]
+// delimit block b in coords; each block's deltas restart (its first
+// delta is its first coordinate), as per-block docodo_varint_encode.
+// word_starts[b] receives block b's first word index (nblocks + 1
+// slots). Returns the total word count.
+int64_t docodo_varint_encode_blocks(
+    const uint64_t* coords, const int64_t* offsets, int64_t nblocks,
+    uint16_t* out, int64_t* word_starts) {
+    int64_t w = 0;
+    for (int64_t b = 0; b < nblocks; b++) {
+        word_starts[b] = w;
+        uint64_t prev = 0;
+        for (int64_t i = offsets[b]; i < offsets[b + 1]; i++) {
+            uint64_t d = coords[i] - prev;
+            prev = coords[i];
+            do {
+                uint16_t chunk = (uint16_t)(d & 0x7FFF);
+                d >>= 15;
+                if (d) chunk |= 0x8000;
+                out[w] = chunk;
+                w++;
+            } while (d);
+        }
+    }
+    word_starts[nblocks] = w;
+    return w;
+}
+
+// Decode a u16 varint stream back into ascending u64 coordinates.
+// Returns the coordinate count; pass out=null to size.
+int64_t docodo_varint_decode(
+    const uint16_t* words, int64_t nwords, uint64_t* out) {
+    int64_t c = 0;
+    uint64_t acc = 0;
+    uint64_t cur = 0;
+    int shift = 0;
+    for (int64_t i = 0; i < nwords; i++) {
+        uint16_t w = words[i];
+        cur |= (uint64_t)(w & 0x7FFF) << shift;
+        if (w & 0x8000) {
+            shift += 15;
+        } else {
+            acc += cur;
+            if (out) out[c] = acc;
+            c++;
+            cur = 0;
+            shift = 0;
+        }
+    }
+    return c;
+}
+
+// Decode the posting spans of an .index stream at once: span s is
+// span_words[s] u16 words (little-endian, at any byte alignment) at
+// byte span_off[s] of buf, delta-coded from 0. Its coordinates go to
+// out after those of the spans before it, and counts[s] receives how
+// many. Returns the total count; out needs a slot a word at most.
+int64_t docodo_varint_decode_spans(
+    const uint8_t* buf, const int64_t* span_off, const int32_t* span_words,
+    int64_t nspans, uint64_t* out, int64_t* counts) {
+    int64_t c = 0;
+    for (int64_t s = 0; s < nspans; s++) {
+        const uint8_t* p = buf + span_off[s];
+        const int64_t c0 = c;
+        uint64_t acc = 0;
+        uint64_t cur = 0;
+        int shift = 0;
+        for (int32_t i = 0; i < span_words[s]; i++) {
+            uint16_t w = (uint16_t)(p[2 * i] | (p[2 * i + 1] << 8));
+            if (shift < 64) cur |= (uint64_t)(w & 0x7FFF) << shift;
+            if (w & 0x8000) {
+                shift += 15;
+            } else {
+                acc += cur;
+                out[c++] = acc;
+                cur = 0;
+                shift = 0;
+            }
+        }
+        counts[s] = c - c0;
+    }
+    return c;
+}
+
+// Walk the record framing of an .index stream (core/storage.py) after
+// its 8-byte max_coord header: each record's term byte offset and
+// length, and its posting span's byte offset and word count. Returns
+// the record count, or -1 on a truncated or corrupt stream. Callers
+// size the outputs at (n - 8) / 5 + 1 records (the least record: a
+// 1-byte length, an empty term and a 4-byte count).
+int64_t docodo_parse_records(const uint8_t* buf, int64_t n,
+                             int64_t* term_off, int32_t* term_len,
+                             int64_t* span_off, int32_t* span_words) {
+    int64_t pos = 8, cnt = 0;
+    while (pos < n) {
+        int64_t slen = 0;
+        int shift = 0;
+        for (;;) {
+            if (pos >= n) return -1;
+            if (shift > 63) return -1;  // a runaway 7-bit length
+            uint8_t b = buf[pos++];
+            slen |= (int64_t)(b & 0x7F) << shift;
+            if (!(b & 0x80)) break;
+            shift += 7;
+        }
+        if (pos + slen + 4 > n) return -1;
+        term_off[cnt] = pos;
+        term_len[cnt] = (int32_t)slen;
+        pos += slen;
+        int32_t nw;
+        std::memcpy(&nw, buf + pos, 4);
+        pos += 4;
+        if (nw < 0 || pos + 2 * (int64_t)nw > n) return -1;
+        span_off[cnt] = pos;
+        span_words[cnt] = nw;
+        pos += 2 * nw;
+        cnt++;
+    }
+    return cnt;
 }
 
 }  // extern "C"

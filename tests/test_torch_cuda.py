@@ -1278,3 +1278,90 @@ def test_batcher_mesh_on_card_from_threads(cuda_device):
     assert st["device_queries"] + st["host_queries"] \
         + st["truncated_fallbacks"] == len(served)
     assert st["device_queries"] > 0 and st["device_timeouts"] == 0
+
+
+def _disk_pair(tmp_path, device):
+    """A seeded Zipf corpus written to disk by Index(path) on `device`
+    and loaded back from its files, beside the same corpus built in
+    memory: (loaded index, in-memory index, requests)."""
+    from docodo_tpu_torch.index import Index, ListDataSource
+    from docodo_tpu_torch.mix import serve_requests, wide_requests
+    from docodo_tpu_torch.synthetic import zipf_documents
+
+    docs = zipf_documents(400_000, seed=2, vocab=3000, doc_chars=20_000)
+    disk = Index(str(tmp_path), device=device)
+    disk.add_data_source(ListDataSource("synth", docs))
+    disk.create()
+    disk.dispose()
+    loaded = Index(str(tmp_path), device=device)
+    loaded.add_data_source(ListDataSource("synth", docs))
+    mem = Index(device=device)
+    mem.add_data_source(ListDataSource("synth", docs))
+    mem.create()
+    assert loaded.can_search and loaded.arr.terms == mem.arr.terms
+    for a, b in ((loaded.arr.offsets, mem.arr.offsets),
+                 (loaded.arr.coords, mem.arr.coords),
+                 (loaded.pages.bounds, mem.pages.bounds),
+                 (loaded.pages.page_doc, mem.pages.page_doc)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert loaded.pages.page_ids == mem.pages.page_ids
+    assert loaded.arr.max_coord == mem.arr.max_coord
+    return loaded, mem, serve_requests(mem, 240) + wide_requests(mem, 80)
+
+
+@pytest.mark.cuda
+def test_loaded_index_on_card_equals_the_in_memory_build(cuda_device,
+                                                         tmp_path):
+    """An index written by Index(path) and loaded from its files, staged
+    on the card: the standard and wide mixes through the kernel route
+    equal the in-memory build's device index field for field, and the
+    kernels launched."""
+    from docodo_tpu_torch.mix import (
+        mix_queries,
+        standard_mix,
+        wide_mix,
+    )
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+
+    loaded, mem, _ = _disk_pair(tmp_path, cuda_device)
+    a, b = DeviceIndex.from_index(loaded), DeviceIndex.from_index(mem)
+    counts = np.diff(b.offsets_np)
+    terms, rs = standard_mix(counts, b.terms, 2000)
+    wt, wr, _ = wide_mix(counts, b.terms, 1000, seed=77)
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
+    for queries in (mix_queries(terms, rs, b.terms),
+                    mix_queries(wt, wr, b.terms)):
+        got = a.search_batch_full(queries, use_kernels=True)
+        want = b.search_batch_full(queries, use_kernels=True)
+        assert got.keys() == want.keys()
+        for f in got:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert sum(k.launches for k in _cuda.KERNELS.values()) > 0
+
+
+@pytest.mark.cuda
+def test_loaded_index_served_on_card_from_threads(cuda_device, tmp_path):
+    """BatchExecutor over the loaded index on the card, 16 client threads:
+    every request equal to the in-memory build's host engine, snippets
+    included, some served on the card."""
+    import concurrent.futures as cf
+
+    from docodo_tpu_torch.query.batcher import BatchExecutor
+    from docodo_tpu_torch.query.search import result_fields
+
+    loaded, mem, reqs = _disk_pair(tmp_path, cuda_device)
+    want = {r: result_fields(mem.search(r)) for r in set(reqs)}
+    ex = BatchExecutor(loaded, max_wait_ms=2.0)
+    try:
+        assert ex.di.device.type == "cuda"
+        with cf.ThreadPoolExecutor(16) as pool:
+            served = list(pool.map(lambda r: (r, ex.search(r)), reqs))
+    finally:
+        ex.close()
+    for req, res in served:
+        assert result_fields(res) == want[req], req
+    assert ex.stats["device_queries"] > 0
+    assert ex.stats["device_timeouts"] == 0

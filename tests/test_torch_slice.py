@@ -185,9 +185,10 @@ def test_port_imports_no_jax():
     (standard and wide rows, the page level, the per-bucket serving
     shape with its deferred finish), chip_smoke's CPU-runnable helpers
     (the mixes, the oracles), the host engine `Index`, the batcher, the
-    HTTP server and the sharded layout (parallel/: a ShardedDeviceIndex
-    on two CPU shards) run without loading jax, the JAX package or the
-    benchmarks."""
+    HTTP server, the sharded layout (parallel/: a ShardedDeviceIndex
+    on two CPU shards), the console app and the data sources, and an
+    index written to disk and loaded back run without loading jax, the
+    JAX package or the benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -274,6 +275,22 @@ def test_port_imports_no_jax():
         [res] = sdi.search_batch([compile_request(idx, "pickwick club")])
         assert res.found_docs[0].name == idx.search("club").found_docs[0].name
         assert distributed.make_global_mesh(["cpu"] * 2, 2).num_local == 1
+        import os, tempfile
+        import docodo_tpu_torch.cli
+        import docodo_tpu_torch.sources
+        from docodo_tpu_torch.core import storage, varint
+        folder = tempfile.mkdtemp()
+        with open(os.path.join(folder, "a.txt"), "w") as f:
+            f.write("the pickwick club met at noon")
+        disk = Index(os.path.join(folder, "idx"), device="cpu")
+        disk.add_data_source(docodo_tpu_torch.sources.DocumentsDataSource(
+            "doc", folder + "/"))
+        disk.create()
+        again = Index(os.path.join(folder, "idx"), device="cpu")
+        again.add_data_source(docodo_tpu_torch.sources.DocumentsDataSource(
+            "doc", folder + "/"))
+        assert again.search("club").found_docs[0].pages[0].text
+        assert varint.decode(varint.encode(np.arange(3))).tolist() == [0, 1, 2]
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
         assert not loaded, loaded
