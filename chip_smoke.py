@@ -68,12 +68,9 @@ PAGE_TOPK = 16      # bench.py:41, the page-level leg's budget
 N_QUERIES = 10_000  # the standard and the wide mix's batch
 N_ALTERNATIONS = 1_000
 WIDE_SEED = 77      # bench.py:353
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, at 700 W
-INT_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, at 700 W
-OPS_PER_LANE = 32          # integer operations per lane that holds data
-OPS_PER_STEP = 4           # integer operations per binary-search step
 
 LOCATE_FULL = "docodo_tpu_torch/csrc/locate_full.cu"
+PROBES = "docodo_tpu_torch/csrc/probes.cu"
 CHUNKED = "docodo_tpu_torch/csrc/chunked.cu"
 VARIANTS = "docodo_tpu_torch/csrc/variants.cu"
 PQ = "docodo_tpu/ops/pallas_query.py"
@@ -126,6 +123,15 @@ KERNELS = {
                          [("_merge_and_locate_streams_kernel",
                            "_merge_and_locate_streams_plain")]),
 }
+# the probe kernels of the JAX package's benchmarks/ (PERF.md rows 18-19):
+# name -> (source, TPU kernel replaced); phase_probes launches and times
+# them
+PROBE_KERNELS = {
+    "probe_locate": (PROBES, "benchmarks/probe_locate.py:130"),
+    "row_gather": (PROBES, "benchmarks/probe_dma_fetch.py:80"),
+}
+# the rows of each mix phase_build_spilled serves on both 1 GB builds
+SPILLED_ROWS = 2_000
 STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
                     "union_locate_full", "merge_and_locate_topk",
                     "merge_tagged", "and_keep", "locate_runs")
@@ -145,10 +151,11 @@ BATCHER_CLIENTS = 64     # serve_qps.py's --conc default
 # makes. A request costs ~45-80 ms of the phase and a distinct one ~90 ms
 # more to check (PERF.md sections 5 and 6), so 12,000 would take
 # ~9 minutes a configuration. The first configuration (with the restage)
-# serves 1,000, the other three the first BATCHER_LATER of them, which
-# keeps the script, with the sharded phases, near 700 s
-BATCHER_SERVED = (850, 150)
-BATCHER_LATER = 300
+# serves 500, the other three the first BATCHER_LATER of them, which
+# keeps the script, with the sharded phases and the two 1 GB builds that
+# spill, under 1,000 s of the 1,200 it may take
+BATCHER_SERVED = (425, 75)
+BATCHER_LATER = 200
 BATCHER_TAIL = 100       # served after the restage has landed
 BATCHER_PROFILED = 256
 BATCHER_HTTP = 128
@@ -1048,7 +1055,7 @@ def phase_index(corpus_mb: float, seed: int):
     return ind, dix
 
 
-def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
+def phase_build_scale(build_mb: float, seed: int, card: str):
     """BASELINE.md's 1 GB build, twice over the same seeded Zipf
     documents. First by the JAX package's build_mb_s protocol
     (BUILD_r04.json, benchmarks/scale_build.py), which no entry point of
@@ -1064,9 +1071,10 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
     sorted on the card), whose lists of the same 1,000 words must equal
     the protocol's, moved to its coordinates (no newline between pages,
     header pages between documents). Returns build_index's index, which
-    phase_disk writes to disk."""
+    phase_disk writes to disk, and the documents."""
     import os
 
+    from docodo_tpu_torch.benchmarks import common as bc
     from docodo_tpu_torch.index import ListDataSource, build_index
     from docodo_tpu_torch.lang import tokenizer
     from docodo_tpu_torch.native import pipeline
@@ -1139,7 +1147,7 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
     del st, sc, off
     sort_ms = cuda_ms(lambda: build_postings_packed(dev, num_terms), reps=3)
     # the least time: the packed rows read once, the CSR written once
-    bound_ms = (packed.nbytes + csr_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = bc.bound(packed.nbytes + csr_bytes)["bound_ms"]
     say(f"build {mb:.1f} MB (seed {seed}, {len(texts)} documents): "
         f"{n} tokens, {packed.size} packed rows, {num_terms} terms; corpus "
         f"{t_corpus:.1f} s (untimed); tokenize+intern on {workers} threads "
@@ -1196,7 +1204,7 @@ def phase_build_scale(build_mb: float, seed: int, card: str) -> None:
         f"{arr.coords.size} postings; {report}; offsets[-1] = postings, "
         f"lists ascending, the 1,000 sampled words' lists equal the "
         f"protocol's; {card}")
-    return built
+    return built, docs
 
 
 def _serve_cli(argv, reqs, host, clients: int = 16):
@@ -1840,6 +1848,7 @@ def _ops(name: str, args, outs=None) -> int:
     level of their pairwise tree), and for a top-k-mode kernel one
     compare for every pair of the row's runs (its n_pages, from
     `outs`)."""
+    from docodo_tpu_torch.benchmarks.common import OPS_PER_LANE, OPS_PER_STEP
     from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32
 
@@ -1908,6 +1917,7 @@ def phase_kernel_times(batches, names, most: int = 0,
     (a stable sort of the packed coord << 2 | tag key). With `most`, at
     most that many of a core's calls, evenly spaced over the batches,
     are timed. `where` names the batches in the printed lines."""
+    from docodo_tpu_torch.benchmarks import common as bc
     from docodo_tpu_torch.ops import _cuda
     from docodo_tpu_torch.ops import query_kernels as qk
 
@@ -1952,14 +1962,9 @@ def phase_kernel_times(batches, names, most: int = 0,
         lib = _library_call(name, calls[cores[0][0]])
         library_ms = None if lib is None else cuda_ms(lib)
         nbytes = sum(_bytes_moved(name, a) for _, _, cs in runs for a in cs)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = ops / INT_OPS_PER_S * 1e3
         n_calls = sum(len(cs) for _, _, cs in runs)
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=max(byte_ms, op_ms),
-                         bound_by="bytes" if byte_ms >= op_ms
-                         else "operations",
-                         library_ms=library_ms)
+                         **bc.bound(nbytes, ops), library_ms=library_ms)
         if lib is not None:  # both sides on the profiler's device clock
             kdev = profiled_ms(lambda: [kern(*a) for kern, _, cs in runs
                                         for a in cs])
@@ -1996,7 +2001,7 @@ def phase_kernel_times(batches, names, most: int = 0,
             fbytes = sum(_bytes_moved(name, a) for a in other)
             say(f"kernel time: {name} {label}: {len(other)} calls, kernel "
                 f"{fms:.4f} ms, plain {fplain:.4f} ms, bound "
-                f"{fbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({fbytes} bytes); "
+                f"{bc.bound(fbytes)['bound_ms']:.4f} ms ({fbytes} bytes); "
                 f"equal to the plain version")
         for label, keep in SPLITS.get(name, ()):
             part = [(kern, plain, [a for a in cs if keep(a)])
@@ -2011,7 +2016,7 @@ def phase_kernel_times(batches, names, most: int = 0,
                          for a in cs)
             say(f"kernel time: {name} {label}: {n_part} calls, "
                 f"kernel {pms:.4f} ms, plain {pplain:.4f} ms, bound "
-                f"{pbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({pbytes} bytes)")
+                f"{bc.bound(pbytes)['bound_ms']:.4f} ms ({pbytes} bytes)")
     return res
 
 
@@ -2883,6 +2888,222 @@ def phase_distributed(index, dix, card: str) -> None:
         f"({time.perf_counter() - t0:.2f} s)")
 
 
+def phase_probes(dix, card: str):
+    """The probes of the JAX package's benchmarks/ that hold a TPU kernel,
+    run on the card through their entry points (docodo_tpu_torch.
+    benchmarks), counts zeroed just before and read just after: probe_locate
+    (docodo_probe_locate under its three page locates, at the TPU probe's
+    shape and on the 64 MB index's real page table and cap-64 W = 2
+    bucket), probe_dma_fetch (docodo_row_gather, copy at q 32 / 64 / 128
+    and sum128, beside torch.index_select, tab[ids] and gather_term) and
+    profile_cap64 (the stage prefixes of the cap-64 bucket over row 1's
+    kernel). Each run holds its kernels against their plain versions bit
+    for bit, two_level against bounds and every gather leg against
+    tab[ids]; both probe kernels and row 1's must launch. Returns
+    (launches, the two kernels' timing rows)."""
+    from docodo_tpu_torch.benchmarks import (probe_dma_fetch, probe_locate,
+                                             profile_cap64)
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    loc = probe_locate.run("cuda", dix=dix)
+    fetch = probe_dma_fetch.run("cuda")
+    stages = profile_cap64.run("cuda", dix=dix)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    for key in ("probe", "index"):
+        r = loc[key]
+        say(f"probe_locate, {r['shape']}: bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}); plain {r['plain_ms']:.3f} ms; the locate's "
+            f"share of row 1's body {r['locate_share']:.3f}; " + "; ".join(
+                f"{p} {r[p]['ms']:.4f} ms (device {r[p]['profiler_ms']:.4f}"
+                f" ms, {r[p]['share']:.3f} of bounds'), rows differing from "
+                f"bounds {r[p]['mismatch_rows']}, kernel vs plain "
+                f"{r[p]['max_abs_err']}" for p in pk.POLICIES) + f"; {card}")
+    say("probe_dma_fetch, R=16384 n=2048 B=10,000: " + "; ".join(
+        f"{name} {leg['ms']:.4f} ms ({leg['gb_s']:.1f} GB/s, device "
+        f"{leg['profiler_ms']:.4f} ms, bound {leg['bound_ms'] * 1e3:.1f} us)"
+        for name, leg in fetch.items() if isinstance(leg, dict))
+        + f"; plain copy {fetch['plain_copy_ms']:.4f} ms, plain sum128 "
+        f"{fetch['plain_sum128_ms']:.4f} ms; every leg equal to tab[ids], "
+        f"sum128 to its formula; {card}")
+    say(f"profile_cap64, the cap-64 W=2 hit-128 bucket ({stages['rows']} "
+        f"rows): " + "; ".join(
+            f"{name} {t['ms']:.3f} ms ({t['delta_ms']:+.3f}), device "
+            f"{t['profiler_ms']:.3f} ms ({t['delta_profiler_ms']:+.3f})"
+            for name, t in stages["stages"].items())
+        + "; the row-1 kernel merges both words itself (no tagged-sort "
+        f"stage); pages, counts, hits equal to the plain route's; {card}")
+    say(f"probes: {secs:.1f} s; launches "
+        f"{({n: c for n, c in launches.items() if c})}")
+    for name in (*PROBE_KERNELS, "sorted_and_locate_full"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                "probe path")
+    err = max(loc[k][p]["max_abs_err"] for k in ("probe", "index")
+              for p in pk.POLICIES)
+    probe, copy = loc["probe"], fetch["kernel copy q=32"]
+    times = {
+        "probe_locate": dict(
+            ms=probe["bounds"]["ms"], profiler_ms=probe["bounds"]["profiler_ms"],
+            plain_ms=probe["plain_ms"], bound_ms=probe["bound_ms"],
+            bound_by=probe["bound_by"], library_ms=None, max_abs_err=err),
+        "row_gather": dict(
+            ms=copy["ms"], profiler_ms=copy["profiler_ms"],
+            plain_ms=fetch["plain_copy_ms"], bound_ms=copy["bound_ms"],
+            bound_by=copy["bound_by"],
+            library_ms=fetch["index_select"]["ms"],
+            max_abs_err=fetch["max_abs_err"]),
+    }
+    return launches, times
+
+
+class _RssPeak:
+    """The process's resident set, sampled every 20 ms on a thread while
+    a `with` block runs: its value at the start and its largest, in
+    bytes."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+        return False
+
+    def _watch(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+
+def phase_build_spilled(docs, card: str, built):
+    """The memory-bounded build at BASELINE.md's scale: phase_build_scale's
+    1 GB documents (zipf_documents(build_mb, seed), nothing cut) through
+    Index(path).create() on the card, each thread's builder
+    spilling past the default max_tmp_index_items (1,000,001 postings),
+    its spills sorted on the card one at a time and merged on the host.
+    (a) One thread: its `.index` and `.index.list` must equal, byte for
+    byte, `built`'s (build_index's unspilled one-thread build) written
+    with write_postings_arrays and PageTable.save. (b) Two threads: its
+    arrays and page table must equal (a)'s, and SPILLED_ROWS rows of the
+    standard mix and of the wide mix + alternations, drawn on this index,
+    through search_batch_full on each build's device index, every field
+    equal (pages, ranks, counts, hits, docs). Seconds, MB/s, the spills,
+    the phases, peak host RSS (sampled) and the card's peak allocation
+    for each build beside build_index's. The files live under build/ and
+    are removed."""
+    import filecmp
+    import os
+    import shutil
+
+    from docodo_tpu_torch.core import storage
+    from docodo_tpu_torch.index import Index, ListDataSource
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+    from docodo_tpu_torch.utils import profiling
+
+    t_start = time.perf_counter()
+    mb = sum(len(p.text) for d in docs for p in d.pages) / 1e6
+    root = Path(__file__).resolve().parent / "build" / (
+        f"phase_spill_{os.getpid()}")
+    try:
+        (root / "unspilled").mkdir(parents=True)
+        arr, pages = built.arr, built.pages
+        with open(root / "unspilled" / storage.INDEX_FILE, "wb") as f:
+            storage.write_postings_arrays(f, arr.max_coord, arr.terms,
+                                          arr.offsets, arr.coords)
+        with open(root / "unspilled" / storage.PAGES_FILE, "wb") as f:
+            pages.save(f)
+        say(f"spilled build: the unspilled files written in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        builds = {}
+        for threads in (1, 2):
+            path = root / f"threads{threads}"
+            ind = Index(str(path))
+            ind.max_degree_of_parallelism = threads
+            ind.add_data_source(ListDataSource("synth", docs))
+            profiling.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with _RssPeak() as rss:
+                t0 = time.perf_counter()
+                ind.create()
+                secs = time.perf_counter() - t0
+            card_peak = torch.cuda.max_memory_allocated() - held
+            report = {name: (round(sec, 2), calls)
+                      for name, sec, calls in profiling.report()}
+            spills = report.get("build.spill-save", (0, 0))[1]
+            builds[threads] = ind
+            say(f"spilled build, {threads} thread(s), {mb:.1f} MB "
+                f"({len(docs)} documents), max_tmp_index_items "
+                f"{ind.max_tmp_index_items}: {secs:.2f} s = "
+                f"{mb / secs:.1f} MB/s; {spills} spills sorted on the card; "
+                f"phases (s, calls; summed over threads) {report}; peak "
+                f"host RSS {rss.peak / 1e9:.2f} GB ("
+                f"{(rss.peak - rss.start) / 1e9:+.2f} GB over its start), "
+                f"card peak "
+                f"{card_peak / 1e9:.3f} GB; {len(ind.arr.terms)} terms, "
+                f"{ind.arr.coords.size} postings; {card}")
+        one, two = builds[1], builds[2]
+        for name in (storage.INDEX_FILE, storage.PAGES_FILE):
+            require(filecmp.cmp(root / "threads1" / name,
+                                root / "unspilled" / name, shallow=False),
+                    f"the spilled one-thread build's {name} differs from "
+                    f"the unspilled build's")
+        a, b = one.arr, two.arr
+        require(a.terms == b.terms and a.max_coord == b.max_coord
+                and np.array_equal(a.offsets, b.offsets)
+                and np.array_equal(a.coords, b.coords)
+                and np.array_equal(one.pages.bounds, two.pages.bounds)
+                and np.array_equal(one.pages.page_doc, two.pages.page_doc)
+                and one.pages.page_ids == two.pages.page_ids
+                and one.pages.doc_names == two.pages.doc_names,
+                "the two-thread build's arrays differ from one thread's")
+        t0 = time.perf_counter()
+        dixs = [DeviceIndex.from_index(ind) for ind in (one, two)]
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        rows = {}
+        for label, queries in (
+                ("standard mix", _queries(dixs[0], SPILLED_ROWS)),
+                ("wide mix + alternations",
+                 _wide_queries(dixs[0], SPILLED_ROWS, SPILLED_ROWS // 10))):
+            t0 = time.perf_counter()
+            outs = [d.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                        use_kernels=True) for d in dixs]
+            for f in outs[0]:
+                require(np.array_equal(outs[0][f], outs[1][f]),
+                        f"spilled builds, {label}: field {f} differs "
+                        f"between one and two threads")
+            rows[label] = (len(queries),
+                           round(time.perf_counter() - t0, 1))
+        say(f"spilled builds: the one-thread build's .index and .index.list "
+            f"equal build_index's unspilled files byte for byte; the "
+            f"two-thread build's arrays and page table equal one thread's; "
+            f"both staged ({stage_s:.1f} s), (rows, s) {rows} through "
+            f"search_batch_full equal field for field (pages, ranks, "
+            f"counts, hits, docs); {card}")
+        del dixs
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=float, default=64.0)
@@ -2904,8 +3125,12 @@ def main() -> None:
     lap("parity")
     index, dix = phase_index(args.corpus_mb, args.seed)
     lap("index")
-    built = phase_build_scale(args.build_mb, args.seed, f"{card} ({smi})")
+    built, docs = phase_build_scale(args.build_mb, args.seed,
+                                    f"{card} ({smi})")
     lap("build at scale")
+    phase_build_spilled(docs, f"{card} ({smi})", built)
+    del docs
+    lap("spilled build")
     dlaunches = phase_disk(args.corpus_mb, args.seed, f"{card} ({smi})",
                            built)
     del built
@@ -2918,6 +3143,8 @@ def main() -> None:
                                  "wide mix + alternations", WIDE_KERNELS)
     pout, planches = phase_page(dix, queries, f"{card} ({smi})")
     lap("main and page")
+    prlaunches, probe_times = phase_probes(dix, f"{card} ({smi})")
+    lap("probes")
     slaunches = phase_serve(
         dix, queries + wide,
         {f: np.concatenate([out[f], wout[f]]) for f in out},
@@ -2972,10 +3199,13 @@ def main() -> None:
              launches=(launches[name] + wlaunches[name] + planches[name]
                        + slaunches[name] + blaunches[name]
                        + mblaunches[name] + mlaunches[name]
-                       + dlaunches[name]),
+                       + dlaunches[name] + prlaunches[name]),
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
-        for name, (src, replaces, _) in KERNELS.items()]}))
+        for name, (src, replaces, _) in KERNELS.items()] + [
+        dict(name=name, route="cuda", source=src, replaces=replaces,
+             launches=prlaunches[name], **probe_times[name])
+        for name, (src, replaces) in PROBE_KERNELS.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

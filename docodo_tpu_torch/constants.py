@@ -25,3 +25,4 @@ END_MATCHED_SYMBOL = "\u02ca"    # ˊ
 GROUP_NOT_EXACT_WORD_MASK = 0x01000000
 GROUP_NUMBER_MASK = 0x00FFFFFF
 PAGE_SIZE = 3000              # text-file pagination (ref DataSources.cs:308)
+MAX_TMP_INDEX_ITEMS = 1_000_001  # postings a builder holds before it spills (ref Index.cs:96)

@@ -50,6 +50,30 @@ class PageTable:
     def __len__(self) -> int:
         return len(self.page_ids)
 
+    @classmethod
+    def from_marks(cls, marks, shift: int = 0) -> "PageTable":
+        """The table of a builder's marks (pagetable.py:55):
+        ('source:docname', coord) opens a document, (':pageid', coord)
+        ends a page at coord + shift (ref Build.cs:53-72, 348-367)."""
+        t = cls()
+        t.extend_from_marks(marks, shift)
+        return t
+
+    def extend_from_marks(self, marks, shift: int = 0) -> None:
+        """Append a builder's marks, their page ends moved by `shift`
+        (pagetable.py:63)."""
+        bounds = self.bounds.tolist()
+        page_doc = self.page_doc.tolist()
+        for key, coord in marks:
+            if not key.startswith(DOC_SEP):
+                self.doc_names.append(key)
+            else:
+                bounds.append(int(coord) + shift)
+                page_doc.append(len(self.doc_names) - 1)
+                self.page_ids.append(key[1:])
+        self.bounds = np.array(bounds, dtype=np.uint64)
+        self.page_doc = np.array(page_doc, dtype=np.int64)
+
     def locate(self, coords: np.ndarray):
         """For each coordinate its (page index, position in the page), by
         binary search of the page ends (pagetable.py:77); a coordinate

@@ -225,25 +225,6 @@ __global__ void __launch_bounds__(FusedShape<N>::kThreads)
   }
 }
 
-// Raises a kernel's dynamic shared memory limit, once per kernel and
-// device: the limit is the current device's, and another card starts
-// from the 48 KB default. `sized` holds a bit per device (devices past
-// 31 set it at every launch), set after the attribute is; threads that
-// launch at once may each set the attribute, which is idempotent.
-template <class K>
-cudaError_t size_smem(K kernel, size_t bytes, std::atomic<unsigned>* sized) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (sized->load(std::memory_order_acquire) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  if (e == cudaSuccess) sized->fetch_or(bit, std::memory_order_release);
-  return e;
-}
-
 template <int N, class Tail>
 int launch_w2(const int* a, const int* a_pg, const int* na, const int* ra,
               const int* b, const int* b_pg, const int* nb, const int* rb,

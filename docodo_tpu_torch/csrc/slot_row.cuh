@@ -1,14 +1,16 @@
 // The row pieces shared by the slot kernels of locate_full.cu,
-// variants.cu and w1_kernel.cuh (sm_90a), each run by the row group that
-// holds the row (a block, or a few warps of one; common.cuh): a query row
-// held in shared memory, the W = 2 merge and the AND's segmentation over
-// it, the locate tail that writes the row's full-result outputs (its first
+// variants.cu, w1_kernel.cuh and probes.cu (sm_90a), each run by the row
+// group that holds the row (a block, or a few warps of one; common.cuh): a
+// query row held in shared memory, the W = 2 merge and the AND's
+// segmentation over it (tagged_keep, also over a row merged already), the
+// locate tail that writes the row's full-result outputs (its first
 // kpad runs), the page-level tail that ranks every run and writes the
 // row's top k, and the full-result tail that ends a row with that top k
 // inside the kernel; the three ways a row ends (SlotsTail, TopkTail,
 // PageTopkTail), each also for a row whose kept lanes are a prefix of it
-// (kPrefix: no scans to find them); and the launch shape of a slot kernel
-// chosen by its rows (launch_by_rows).
+// (kPrefix: no scans to find them); the launch shape of a slot kernel
+// chosen by its rows (launch_by_rows); and the one-time raise of a
+// kernel's dynamic shared memory limit (size_smem).
 
 #pragma once
 
@@ -158,6 +160,25 @@ int wave_rows(K kernel, std::atomic<int> (&cache)[32]) {
   return rows;
 }
 
+// Raises a kernel's dynamic shared memory limit, once per kernel and
+// device: the limit is the current device's, and another card starts
+// from the 48 KB default. `sized` holds a bit per device (devices past
+// 31 set it at every launch), set after the attribute is; threads that
+// launch at once may each set the attribute, which is idempotent.
+template <class K>
+cudaError_t size_smem(K kernel, size_t bytes, std::atomic<unsigned>* sized) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (sized->load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) sized->fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
 // The launch shape of a slot kernel by its rows, at the narrowest stream
 // width N that holds n lanes. A launch of at most one wave takes one row's
 // latency, so it gives each lane of a row a thread (G = N) when all its
@@ -215,6 +236,49 @@ __device__ inline int rank_from(const int* s, int lo, int m, int v,
   return lo;
 }
 
+// The AND over a merged row of n lanes held in sm.row.val and sm.tag (tag 0
+// word A, 1 word B, 2 padding; ascending values, INF32 padding last), with
+// the words' windows r1 / r2 (pallas_query._sorted_and_keep): cross-operand
+// duplicates fold onto their first lane, and segment_keep keeps the
+// segments that hold both words. Fills this thread's keep flags; called by
+// every thread of the row group g after the row is written and synced.
+template <class Grp, int L, int N>
+__device__ void tagged_keep(const Grp& g, AndSmem<N>& sm, int r1, int r2,
+                            int n, bool (&keep)[L]) {
+  RowSmem<N>& s = sm.row;
+  const unsigned char* s_tag = sm.tag;
+  const int ipt = (n + Grp::kThreads - 1) / Grp::kThreads;
+  const int base = g.rank() * ipt;
+  const int abs_r = max(abs(r1), abs(r2));
+  const bool ordered = r1 < 0 && r2 < 0;
+  bool isa[L], isb[L], ghost[L], valid[L], seg[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int l = base + k;
+    isa[k] = isb[k] = ghost[k] = valid[k] = seg[k] = false;
+    if (k < ipt && l < n) {
+      const int v = s.val[l];
+      const bool val = v < kInf;
+      const int pv = l > 0 ? s.val[l - 1] : -1;
+      const int nv = l < n - 1 ? s.val[l + 1] : kInf;
+      const bool dup_prev = val && v == pv;
+      const bool dup_next = val && v == nv;
+      const bool a_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 0;
+      const bool b_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 1;
+      isa[k] = ((val && s_tag[l] == 0) || (dup_next && a_next)) && !dup_prev;
+      isb[k] = ((val && s_tag[l] == 1) || (dup_next && b_next)) && !dup_prev;
+      ghost[k] = dup_prev;
+      valid[k] = val;
+      const int gap = v - (l == 0 ? 0 : pv);
+      seg[k] = l == 0 || (abs_r != 0 && gap > abs_r && val);
+    }
+  }
+  bool eff[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) eff[k] = valid[k] && !ghost[k];
+  segment_keep(g, s, isa, isb, eff, seg, ordered, n, ipt, keep);
+}
+
 // W = 2 proximity/phrase AND (pallas_query._sorted_and_keep) of one row's
 // two posting blocks, into sm.row.val / sm.row.page and this thread's keep
 // flags: the blocks merge by rank into (coord, tag) order (word A first on
@@ -244,8 +308,6 @@ __device__ void merge_and_keep(
   const int tid = g.rank();
   const size_t row = g.row();
   const int n = 2 * cap;
-  const int ipt = (n + T - 1) / T;
-  const int base = tid * ipt;
   const int na = clamp_len(na_[row], cap);
   const int nb = clamp_len(nb_[row], cap);
   const int* arow = a + row * cap;
@@ -294,37 +356,7 @@ __device__ void merge_and_keep(
     s_tag[p] = 2;
   }
   g.sync();
-
-  const int r1 = ra_[row];
-  const int r2 = rb_[row];
-  const int abs_r = max(abs(r1), abs(r2));
-  const bool ordered = r1 < 0 && r2 < 0;
-  bool isa[L], isb[L], ghost[L], valid[L], seg[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int l = base + k;
-    isa[k] = isb[k] = ghost[k] = valid[k] = seg[k] = false;
-    if (k < ipt && l < n) {
-      const int v = s.val[l];
-      const bool val = v < kInf;
-      const int pv = l > 0 ? s.val[l - 1] : -1;
-      const int nv = l < n - 1 ? s.val[l + 1] : kInf;
-      const bool dup_prev = val && v == pv;
-      const bool dup_next = val && v == nv;
-      const bool a_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 0;
-      const bool b_next = l < n - 1 && nv < kInf && s_tag[l + 1] == 1;
-      isa[k] = ((val && s_tag[l] == 0) || (dup_next && a_next)) && !dup_prev;
-      isb[k] = ((val && s_tag[l] == 1) || (dup_next && b_next)) && !dup_prev;
-      ghost[k] = dup_prev;
-      valid[k] = val;
-      const int gap = v - (l == 0 ? 0 : pv);
-      seg[k] = l == 0 || (abs_r != 0 && gap > abs_r && val);
-    }
-  }
-  bool eff[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) eff[k] = valid[k] && !ghost[k];
-  segment_keep(g, s, isa, isb, eff, seg, ordered, n, ipt, keep);
+  tagged_keep(g, sm, ra_[row], rb_[row], n, keep);
 }
 
 // The page runs of the row held in s.val / s.page, given the keep mask of

@@ -3,9 +3,14 @@ the page table that DeviceIndex.from_index stages; and the host engine
 over it, `Index`, which the batcher and the server serve.
 
 It follows the page path of the JAX package's build (docodo_tpu/index.py:
-Index._index_task :390-481, _index_header_page :496-514,
-IndexBuilder.add_interned :957-1036, _gather_sorted :1050-1080) on one
-thread, in memory, with no spills. Body pages go
+Index._index_task :390-481, _index_header_page :496-514, IndexBuilder
+:837-1129, _merge_indexes :516). Without a path it builds in memory, on
+one thread, with no spills. With a path (Index(path).create()) each of
+max_degree_of_parallelism threads feeds an IndexBuilder that spills its
+postings past max_tmp_index_items into a folder of its own, and the
+spills merge on the host into the `.index` (core/storage.merge_spills);
+the threads claim consecutive documents, so any number of them builds
+the one-thread index. Body pages go
 through the native tokenizer and interner (native/), whose interned ids
 fan out to term ids by one gather, the new words' stems taken in bulk;
 header pages, and every page with native=False, through the pure-Python
@@ -50,20 +55,22 @@ file and keeps the page text in memory.
 from __future__ import annotations
 
 import bisect
+import itertools
 import math
 import os
 import re
+import shutil
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from docodo_tpu_torch import constants as C
 from docodo_tpu_torch.core import storage
-from docodo_tpu_torch.core.pagetable import PageTable
+from docodo_tpu_torch.core.pagetable import PageTable, _read_str, _write_str
 from docodo_tpu_torch.core.postings import PostingSeq
 from docodo_tpu_torch.core.storage import ArrayIndex
 from docodo_tpu_torch.lang import tokenizer
@@ -89,6 +96,35 @@ from docodo_tpu_torch.sources.cache import IndexTextCacheDataSource
 from docodo_tpu_torch.utils import profiling
 
 CACHE_END = ".cache.zip"
+
+
+def levenshtein(s: str, t: str) -> int:
+    """Edit distance (index.py:55, ref Index.cs:46-89)."""
+    n, m = len(s), len(t)
+    if n == 0:
+        return m
+    if m == 0:
+        return n
+    prev = list(range(m + 1))
+    for i in range(1, n + 1):
+        cur = [i] + [0] * m
+        for j in range(1, m + 1):
+            cost = 0 if t[j - 1] == s[i - 1] else 1
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + cost)
+        prev = cur
+    return prev[m]
+
+
+class SearchOptions:
+    """A request's options (index.py:72): `dist`, the window of each
+    word; `do_correction` and `remove_word_breaks` are kept and read by
+    nothing, as in the JAX package."""
+
+    def __init__(self, dist: int = 0, do_correction: bool = False,
+                 remove_word_breaks: bool = True):
+        self.dist = dist
+        self.do_correction = do_correction
+        self.remove_word_breaks = remove_word_breaks
 
 
 @dataclass
@@ -178,7 +214,9 @@ class _Stream:
         self.word_rows: List[List[int]] = []
         self.tids: List[np.ndarray] = []
         self.coords: List[np.ndarray] = []
-        self.max_coord = 0
+        self.count = 0        # postings held
+        self.max_coord = 0    # the last coordinate added
+        self.seen = False     # whether a coordinate was added
         self.interner = pipeline.NativeInterner() if native else None
         # interned id -> its word, and the start and length of its row of
         # term ids in code_flat (length -1 until the id is first seen)
@@ -187,6 +225,24 @@ class _Stream:
         self.code_lens = np.zeros(0, dtype=np.int64)
         self.code_flat = np.zeros(0, dtype=np.int64)
         self.code_flat_n = 0
+
+    def drop_postings(self) -> None:
+        """Drop the postings held, after a spill (IndexBuilder.
+        _reset_buffers). The term dictionary and the interned words' rows
+        stay, where the JAX package numbers its terms afresh: a spill
+        holds the terms it has postings of (postings())."""
+        self.tids = []
+        self.coords = []
+        self.count = 0
+
+    def _append(self, tids: np.ndarray, coords: np.ndarray) -> None:
+        self.tids.append(tids)
+        self.coords.append(coords)
+        self.count += tids.size
+
+    def _saw(self, coord) -> None:
+        self.max_coord = int(coord)
+        self.seen = True
 
     def tid(self, code: str) -> int:
         t = self.tmap.get(code)
@@ -207,9 +263,9 @@ class _Stream:
 
     def add(self, code: str, coord: int) -> None:
         """One posting of a term key (IndexBuilder.add)."""
-        self.max_coord = int(coord)
-        self.tids.append(np.array([self.tid(code)], dtype=np.int64))
-        self.coords.append(np.array([coord], dtype=np.uint64))
+        self._saw(coord)
+        self._append(np.array([self.tid(code)], dtype=np.int64),
+                     np.array([coord], dtype=np.uint64))
 
     def add_word(self, word: str, coord: int) -> None:
         """A word's postings at one coordinate (IndexBuilder.add_word)."""
@@ -223,11 +279,10 @@ class _Stream:
             return
         rows = [self.word_rows[self.word_row(w)] for w in words]
         lens = np.fromiter((len(r) for r in rows), np.int64, len(rows))
-        self.tids.append(np.fromiter((t for r in rows for t in r), np.int64,
-                                     int(lens.sum())))
-        self.coords.append(np.repeat(np.asarray(coords, dtype=np.uint64),
-                                     lens))
-        self.max_coord = int(coords[-1])
+        self._append(np.fromiter((t for r in rows for t in r), np.int64,
+                                 int(lens.sum())),
+                     np.repeat(np.asarray(coords, dtype=np.uint64), lens))
+        self._saw(coords[-1])
 
     def add_interned(self, ids: np.ndarray, coords: np.ndarray) -> None:
         """Tokens as the native interner's ids (IndexBuilder.add_interned):
@@ -272,9 +327,8 @@ class _Stream:
         if total:
             first = self.code_offs[ids] - (np.cumsum(counts) - counts)
             gather = np.repeat(first, counts) + np.arange(total)
-            self.tids.append(self.code_flat[gather])
-            self.coords.append(np.repeat(coords, counts))
-        self.max_coord = int(coords[-1])
+            self._append(self.code_flat[gather], np.repeat(coords, counts))
+        self._saw(coords[-1])
 
     def postings(self, device: torch.device) -> ArrayIndex:
         """Term-sorted CSR (IndexBuilder._gather_sorted), sorted on
@@ -286,12 +340,14 @@ class _Stream:
                 np.zeros(0, dtype=np.uint64), self.max_coord)
         tids = np.concatenate(self.tids)
         coords = np.concatenate(self.coords)
-        order_terms = sorted(range(len(self.terms)),
-                             key=self.terms.__getitem__)
+        # the terms with postings here (after a spill, not every term of
+        # the dictionary), ranked in string order
+        held = np.flatnonzero(np.bincount(tids, minlength=len(self.terms)))
+        order_terms = sorted(held.tolist(), key=self.terms.__getitem__)
         rank = np.empty(len(self.terms), dtype=np.int32)
         rank[np.array(order_terms, dtype=np.int64)] = np.arange(
             len(order_terms), dtype=np.int32)
-        offsets, coords = sort_postings(rank[tids], coords, len(self.terms),
+        offsets, coords = sort_postings(rank[tids], coords, len(order_terms),
                                         device)
         return ArrayIndex.from_postings([self.terms[i] for i in order_terms],
                                         offsets, coords, self.max_coord)
@@ -319,7 +375,224 @@ def sort_postings(keys: np.ndarray, coords: np.ndarray, num_terms: int,
             sc.astype(np.uint64) if narrow else sc.view(np.uint64))
 
 
-def _index_header_page(stream: _Stream, text: str, coord: int) -> int:
+def _load_marks(path: str) -> List[Tuple[str, int]]:
+    """A builder's marks from its `index.tmplist` (index.py:816)."""
+    marks = []
+    with open(path, "rb") as f:
+        while True:
+            s = _read_str(f)
+            if s is None:
+                break
+            raw = f.read(8)
+            if len(raw) < 8:
+                break
+            marks.append((s, int.from_bytes(raw, "little")))
+    return marks
+
+
+def _save_marks(path: str, marks: List[Tuple[str, int]]) -> None:
+    """A builder's marks to `index.tmplist` (index.py:830): each a 7-bit
+    length + UTF-8 key and a u64-LE coordinate."""
+    with open(path, "wb") as f:
+        for key, coord in marks:
+            _write_str(f, key)
+            f.write(int(coord).to_bytes(8, "little"))
+
+
+SPILL_END = ".tmpind"
+MARKS_FILE = "index.tmplist"
+
+
+class IndexBuilder:
+    """A posting accumulator that spills to disk (docodo_tpu/index.py:837,
+    ref Build.cs:258-437): one a build thread of Index.create(), and the
+    standalone API.
+
+        bldr = IndexBuilder(path="idx", device="cpu").add_voc(voc)
+        bldr.add_doc("A", ""); bldr.add_word(w, coord); bldr.end_page("1")
+        index = bldr.build()
+
+    Postings arrive in coordinate order. With a folder (the parent's
+    path) the builder holds at most max_tmp_index_items of them: past
+    that it saves them, sorted into a CSR on the parent's device
+    (sort_postings: the card sorts one spill at a time), as the next
+    `<n>.tmpind` of its folder `<path>/<n>`, and starts afresh. Without a
+    path it never spills and the build stays in memory. `add_interned`
+    takes ids of the builder's own native `interner`. Marks: add_doc
+    opens a document, end_page ends a page at a coordinate (by default
+    the last one added); save() writes them to `index.tmplist`."""
+
+    def __init__(self, parent: Optional["Index"] = None,
+                 path: Optional[str] = None, in_memory: bool = True,
+                 vocs=None, stop_words_file: Optional[str] = None, *,
+                 device="cuda", native: bool = True):
+        if parent is None:
+            parent = Index(path, in_memory, vocs=vocs or (), native=native,
+                           device=device)
+            if stop_words_file:
+                parent.load_stop_words(stop_words_file)
+        self.parent = parent
+        folder = None
+        if parent.work_path is not None:
+            folder = os.path.join(parent.work_path,
+                                  str(next(parent._builder_numbers)))
+        self._start(parent._coder(), parent.native, parent.device, folder,
+                    parent.max_tmp_index_items)
+
+    @classmethod
+    def _detached(cls, coder: WordCoder, native: bool,
+                  device) -> "IndexBuilder":
+        """A builder of no Index, in memory (build_index's)."""
+        b = cls.__new__(cls)
+        b.parent = None
+        b._start(coder, native, device, None, C.MAX_TMP_INDEX_ITEMS)
+        return b
+
+    def _start(self, coder, native, device, folder, max_items) -> None:
+        self.device = torch.device(device)
+        self.path = folder
+        self.max_items = max_items
+        if folder is not None:
+            os.makedirs(folder, exist_ok=True)
+        self.n_tmp_index = 0
+        self.marks: List[Tuple[str, int]] = []
+        # build threads: where the builder's next document starts
+        self.coord = 0
+        self._stream = _Stream(coder, native)
+
+    @property
+    def max_coord(self) -> int:
+        return self._stream.max_coord
+
+    @property
+    def seen(self) -> bool:
+        """Whether any coordinate was added."""
+        return self._stream.seen
+
+    @property
+    def interner(self):
+        return self._stream.interner
+
+    def close(self) -> None:
+        """Frees the native interner."""
+        if self._stream is not None and self._stream.interner is not None:
+            self._stream.interner.close()
+            self._stream.interner = None
+
+    def _take_stream(self, other: "IndexBuilder") -> None:
+        """Go on with `other`'s term dictionary and interner, whose
+        postings are saved (a build thread's next segment): the
+        coordinates start again from 0."""
+        self.close()
+        self._stream, other._stream = other._stream, None
+        self._stream.drop_postings()
+        self._stream.max_coord = 0
+        self._stream.seen = False
+
+    # fluent configuration (the standalone path), before any posting
+    def add_voc(self, voc) -> "IndexBuilder":
+        self.parent.add_voc(voc)
+        self._stream.coder = self.parent._coder()
+        return self
+
+    def stop_words(self, path: str) -> "IndexBuilder":
+        self.parent.load_stop_words(path)
+        self._stream.coder = self.parent._coder()
+        return self
+
+    # ---- feed ------------------------------------------------------------
+    def add(self, code: str, coord: int) -> None:
+        """One posting of a term key (index.py:894)."""
+        self._stream.add(code, coord)
+        self._spill_if_full()
+
+    def add_word(self, word: str, coord: int) -> None:
+        """A word's postings at one coordinate, a key each."""
+        self._stream.add_word(word, coord)
+        self._spill_if_full()
+
+    def add_tokens(self, words: List[str], coords: np.ndarray) -> None:
+        """A page's tokens, each word fanned out to its keys."""
+        self._stream.add_tokens(words, coords)
+        self._spill_if_full()
+
+    def add_interned(self, ids: np.ndarray, coords: np.ndarray) -> None:
+        """Tokens as ids of `interner` at their coordinates."""
+        self._stream.add_interned(ids, coords)
+        self._spill_if_full()
+
+    def add_doc(self, sourceid: str, name: str,
+                maxcoord: Optional[int] = None) -> None:
+        self.marks.append((f"{sourceid}{C.DOC_SEP}{name}",
+                           self.max_coord if maxcoord is None else maxcoord))
+
+    def end_page(self, page_id: str, maxcoord: Optional[int] = None) -> None:
+        self.marks.append((C.DOC_SEP + page_id,
+                           self.max_coord if maxcoord is None else maxcoord))
+
+    def _spill_if_full(self) -> None:
+        if self.path is not None and self._stream.count > self.max_items:
+            self.save(save_pages=False)
+            self._stream.drop_postings()
+
+    # ---- output ----------------------------------------------------------
+    def arrays(self) -> ArrayIndex:
+        """The postings held, as a CSR sorted on the device."""
+        return self._stream.postings(self.device)
+
+    def spills(self) -> List[str]:
+        """The builder's spill files, in order."""
+        return [os.path.join(self.path, f"{k}{SPILL_END}")
+                for k in range(1, self.n_tmp_index + 1)]
+
+    def save(self, save_pages: bool = True) -> None:
+        """The postings held to the next `<n>.tmpind` (ref
+        Build.cs:370-404), and with save_pages the marks."""
+        if self.path is None:
+            raise RuntimeError("a builder without a folder keeps its "
+                               "postings in memory")
+        self.n_tmp_index += 1
+        with profiling.phase("build.spill-save"):
+            arr = self.arrays()
+            with open(self.spills()[-1], "wb") as f:
+                storage.write_postings_arrays(f, self.max_coord, arr.terms,
+                                              arr.offsets, arr.coords)
+            if save_pages:
+                _save_marks(os.path.join(self.path, MARKS_FILE), self.marks)
+
+    def build(self) -> "Index":
+        """The standalone build (ref Build.cs:407-434): the parent index
+        from the postings and marks, which must not have spilled. With a
+        path the `.index` and `.index.list` files are written and
+        loaded; without one the build is installed in memory."""
+        if self.n_tmp_index != 0:
+            raise RuntimeError("Can't build, index is too large")
+        if not self.marks:
+            self.add_doc("", "", 0)
+            self.end_page("1")
+        parent = self.parent
+        table = PageTable.from_marks(self.marks)
+        try:
+            if parent.work_path is None:
+                parent._install(self.arrays(), table)
+                return parent
+            with parent._search_lock:
+                self.save()
+                parent.close()
+                index_path = os.path.join(parent.work_path,
+                                          storage.INDEX_FILE)
+                with open(os.path.join(parent.work_path,
+                                       storage.PAGES_FILE), "wb") as f:
+                    table.save(f)
+                os.replace(self.spills()[-1], index_path)
+                shutil.rmtree(self.path, ignore_errors=True)
+                parent.load()
+            return parent
+        finally:
+            self.close()
+
+
+def _index_header_page(builder: "IndexBuilder", text: str, coord: int) -> int:
     """Header page: 'name=value' lines index '&name' at the value start
     and the value words after it (index.py:496-514, ref Build.cs:485-524)."""
     lines = text.split("\n")
@@ -333,8 +606,9 @@ def _index_header_page(stream: _Stream, text: str, coord: int) -> int:
             dc = len(fields[0]) + 1
             for piece in pieces:
                 if len(piece) >= 1 and re.match(r"\w", piece[0]):
-                    stream.add(C.FIELD_NAME_CHAR + fields[0], coord + dc - 1)
-                    stream.add_word(piece, coord + dc)
+                    builder.add(C.FIELD_NAME_CHAR + fields[0],
+                                coord + dc - 1)
+                    builder.add_word(piece, coord + dc)
                 dc += len(piece)
         coord += len(line) + 1
     return coord
@@ -370,43 +644,55 @@ def _build(sources: Sequence, coder: WordCoder, native: bool,
            device, cancel: Optional[threading.Event] = None
            ) -> Optional[HostIndex]:
     """build_index over several sources, one after the other in one
-    coordinate space; None when `cancel` was set before the build ended,
-    which it reads before every document and page."""
+    coordinate space, in memory (one builder, no spills); None when
+    `cancel` was set before the build ended, which it reads before every
+    document and page."""
     dev = _device(device)
     cancel = cancel or threading.Event()
-    stream = _Stream(coder, native)
-    bounds: List[int] = []
-    page_doc: List[int] = []
-    page_ids: List[str] = []
-    doc_names: List[str] = []
+    builder = IndexBuilder._detached(coder, native, dev)
     coord = 0
     try:
         for source in sources:
-            coord = _build_source(source, stream, coord, bounds, page_doc,
-                                  page_ids, doc_names, cancel)
+            source.reset()
+            coord = _build_docs(source.name, _documents(source, cancel),
+                                builder, coord, cancel)
     finally:
-        if stream.interner is not None:
-            stream.interner.close()
+        builder.close()
     if cancel.is_set():
         return None
-    pages = PageTable(np.array(bounds, dtype=np.uint64),
-                      np.array(page_doc, dtype=np.int64), page_ids,
-                      doc_names)
     with profiling.phase("build.sort"):
-        arr = stream.postings(dev)
-    return HostIndex(arr, pages, coder)
+        arr = builder.arrays()
+    return HostIndex(arr, PageTable.from_marks(builder.marks), coder)
 
 
-def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
-                  page_ids, doc_names, cancel: threading.Event) -> int:
-    """One source's pages into the stream. With the native interner, body
-    pages pend and go through one tokenizer call BODY_UNITS at a time
-    (a call a page would wait on the interpreter lock once a page while
-    other threads run, as a server's do during a rebuild), and their
-    tokens go to the stream FLUSH_TOKENS at a time; both flush before
-    every header page, so that the stream stays in coordinate order. A
-    document that fails while its pages are read keeps the pages read
-    before, and the build goes on (index.py:482-489)."""
+def _documents(source, cancel: threading.Event):
+    """A source's documents in order, until `cancel` is set."""
+    while not cancel.is_set():
+        doc = source.next_document()
+        if doc is None:
+            return
+        yield doc
+
+
+def _build_docs(source_name: str, docs, builder: "IndexBuilder", coord: int,
+                cancel: threading.Event) -> int:
+    """Documents of one source into the builder from `coord` on; returns
+    the coordinate after them. Each document opens with its mark and each
+    non-empty page ends with one (the page table's). With the native
+    interner, body pages pend and go through one tokenizer call
+    BODY_UNITS at a time (a call a page would wait on the interpreter
+    lock once a page while other threads run, as a server's do during a
+    rebuild), and their tokens go to the builder FLUSH_TOKENS at a time;
+    both flush before every header page and at the end, so that postings
+    arrive in coordinate order. A builder that spills tokenizes and
+    flushes within its budget. A document that fails while its pages
+    are read keeps the pages read before, and the build goes on
+    (index.py:482-489)."""
+    # a builder that spills keeps its pending tokens within its budget
+    # too (index.py:408): at most half of it, from at most 4 UTF-16 units
+    # a posting of text
+    flush_at = max(4096, min(FLUSH_TOKENS, builder.max_items // 2))
+    units_at = max(65536, min(BODY_UNITS, 4 * builder.max_items))
     body: List[str] = []        # body pages not tokenized yet, in order
     body_units: List[int] = []  # their lengths in UTF-16 units
     body_at = 0                 # the coordinate of the first of them
@@ -423,7 +709,7 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
             return
         with profiling.phase("build.tokenize"):
             ids, starts = pipeline.tokenize_intern_native(
-                "\n".join(body), stream.interner, C.MIN_WORD_LENGTH,
+                "\n".join(body), builder.interner, C.MIN_WORD_LENGTH,
                 C.MAX_WORD_LENGTH)
         seps = np.searchsorted(np.cumsum(np.array(body_units) + 1), starts,
                                side="right")
@@ -439,15 +725,14 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
         tokenize_body()
         if pend_ids:
             with profiling.phase("build.wordcode+gather"):
-                stream.add_interned(np.concatenate(pend_ids),
-                                    np.concatenate(pend_coords))
+                builder.add_interned(np.concatenate(pend_ids),
+                                     np.concatenate(pend_coords))
             pend_ids.clear()
             pend_coords.clear()
             pend_n = 0
 
-    source.reset()
-    while not cancel.is_set() and (doc := source.next_document()) is not None:
-        doc_names.append(f"{source.name}{C.DOC_SEP}{doc.name}")
+    for doc in docs:
+        builder.add_doc(source_name, doc.name, coord)
         try:
             for page in doc:
                 if cancel.is_set():
@@ -456,16 +741,16 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
                     continue
                 if page.id == "0":
                     flush()
-                    coord = _index_header_page(stream, page.text, coord)
-                elif stream.interner is not None:
+                    coord = _index_header_page(builder, page.text, coord)
+                elif builder.interner is not None:
                     if not body:
                         body_at = coord
                     body.append(page.text)
                     body_units.append(tokenizer.char_len(page.text))
                     coord += body_units[-1]
-                    if coord - body_at >= BODY_UNITS:
+                    if coord - body_at >= units_at:
                         tokenize_body()
-                    if pend_n >= FLUSH_TOKENS:
+                    if pend_n >= flush_at:
                         flush()
                 else:
                     with profiling.phase("build.tokenize"):
@@ -475,13 +760,11 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
                         keep = [k for k, w in enumerate(words)
                                 if C.MIN_WORD_LENGTH <= len(w)
                                 <= C.MAX_WORD_LENGTH]
-                        stream.add_tokens([words[k] for k in keep],
-                                          starts[keep].astype(np.uint64)
-                                          + np.uint64(coord))
+                        builder.add_tokens([words[k] for k in keep],
+                                           starts[keep].astype(np.uint64)
+                                           + np.uint64(coord))
                     coord += tokenizer.char_len(low)
-                bounds.append(coord)
-                page_doc.append(len(doc_names) - 1)
-                page_ids.append(page.id)
+                builder.end_page(page.id, coord)
         except Exception as e:  # noqa: BLE001 — a bad document, as the
             # JAX package's build logs and skips it
             print(f"Error in doc {doc.name}: {e}")
@@ -491,6 +774,64 @@ def _build_source(source, stream: _Stream, coord: int, bounds, page_doc,
                 close()
     flush()
     return coord
+
+
+# documents a build thread claims at a time (Index._build_segments)
+CLAIM_DOCS = 64
+
+
+class _Segment(NamedTuple):
+    """Consecutive documents one build thread indexed from coordinate 0:
+    the first claim's number, the builder's folder and spills, where its
+    coordinates end (the end of its last page), the last coordinate added
+    and whether any was."""
+
+    claim: int
+    folder: str
+    spills: List[str]
+    extent: int
+    max_coord: int
+    seen: bool
+
+
+class _Dealer:
+    """The sources' documents in order, handed to build threads a claim
+    of at most CLAIM_DOCS consecutive documents of one source at a time,
+    the claims numbered from 0; none once `cancel` is set."""
+
+    def __init__(self, sources, cancel: threading.Event):
+        self._sources = list(sources)
+        self._cancel = cancel
+        self._at = 0
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def claim(self):
+        """(claim number, source name, documents), or None at the end."""
+        with self._lock:
+            while self._at < len(self._sources):
+                source = self._sources[self._at]
+                docs = []
+                while len(docs) < CLAIM_DOCS and not self._cancel.is_set():
+                    doc = source.next_document()
+                    if doc is None:
+                        break
+                    docs.append(doc)
+                if self._cancel.is_set():
+                    return None
+                if docs:
+                    self._next += 1
+                    return self._next - 1, source.name, docs
+                self._at += 1
+            return None
+
+
+def _remove_builder_folders(work_path: str) -> None:
+    """A path's builder folders (named by number) and what they hold."""
+    for d in os.listdir(work_path):
+        full = os.path.join(work_path, d)
+        if d.isdigit() and os.path.isdir(full):
+            shutil.rmtree(full, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -572,12 +913,14 @@ _FILTER_RE = re.compile(r"\B-filter:((?:[\w*?\\.()+{}/]+,?)+)")
 
 class Index:
     """The host engine over the port's build (docodo_tpu/index.py:83).
-    Always indexes full forms (the JAX package's b_keep_forms = True), on
-    one build thread; `native` and `device` as build_index takes them (a
-    CUDA device raises here without CUDA).
+    Always indexes full forms (the JAX package's b_keep_forms = True);
+    `native` and `device` as build_index takes them (a CUDA device raises
+    here without CUDA).
 
     With `path` the index lives in that folder in the JAX package's files,
-    and `Index(path)` loads what is there. `in_memory=False` keeps the
+    and `Index(path)` loads what is there; its build runs on
+    max_degree_of_parallelism threads (1 by default), each builder
+    spilling past max_tmp_index_items postings. `in_memory=False` keeps the
     postings on disk and reads a term's at each lookup, as the JAX
     package's lazy mode does; a device index needs them in memory.
     Without a path (the default) nothing is written, the page text stays
@@ -599,12 +942,21 @@ class Index:
         # bumped whenever a build or a load installs: a device index
         # restages then
         self.generation = 0
+        # the build of a path (create() with work_path): its threads,
+        # and the postings a thread's builder holds before it spills
+        self.max_degree_of_parallelism = 1
+        self.max_tmp_index_items = C.MAX_TMP_INDEX_ITEMS
+        self._builder_numbers = itertools.count()
         self._search_lock = threading.RLock()
         self._cancel = threading.Event()
         if path is not None:
             self.load()
 
     # ---- configuration ---------------------------------------------------
+    def add_voc(self, voc) -> None:
+        self.vocs.append(voc)
+        self._recode()
+
     def load_stop_words(self, path: str) -> None:
         self.stop_words = load_stop_words(path)
         self._recode()
@@ -722,6 +1074,10 @@ class Index:
         return False
 
     # ---- build -----------------------------------------------------------
+    def get_builder(self) -> IndexBuilder:
+        """A standalone builder of this index (index.py:216)."""
+        return IndexBuilder(parent=self)
+
     def cancel(self) -> None:
         """Stops a running create() at the next document or page; the
         index before it stays."""
@@ -772,37 +1128,38 @@ class Index:
             self.status = "Idle"
 
     def _create_files(self, cancel: threading.Event) -> Optional[HostIndex]:
-        """The build of a path (index.py:229-376): the page text into
-        `<source>.cache.zip_`, the postings into `.index_`; then, under
-        the search lock, `.index.list` written, `.index` and the caches
-        renamed into place, and the build installed (read back lazily
-        with in_memory=False). A cancelled build leaves the files as
-        they were and returns None."""
+        """The build of a path (index.py:219-376): the page text into
+        `<source>.cache.zip_`, the postings by max_degree_of_parallelism
+        threads, each spilling past max_tmp_index_items into its
+        builder's folder, merged into `.index_`; then, under the search
+        lock, `.index.list` written, `.index` and the caches renamed into
+        place, and the build installed (read back lazily with
+        in_memory=False). A cancelled build leaves the files as they were
+        and returns None."""
         os.makedirs(self.work_path, exist_ok=True)
+        _remove_builder_folders(self.work_path)
         tmp_caches = [IndexTextCacheDataSource(s.source, s.filename + "_")
                       for s in self.sources]
         try:
-            host = _build(tmp_caches, self._coder(), self.native,
-                          self.device, cancel)
+            segments = self._build_segments(tmp_caches, cancel)
         finally:
             for tmp in tmp_caches:
                 tmp.close()
-        if host is None:
+        if segments is None:
             for tmp in tmp_caches:
                 if os.path.exists(tmp.filename):
                     os.remove(tmp.filename)
+            _remove_builder_folders(self.work_path)
             return None
         index_file = os.path.join(self.work_path, storage.INDEX_FILE)
         self.status = "Merge"
-        arr = host.arr
-        with open(index_file + "_", "wb") as f:
-            storage.write_postings_arrays(f, arr.max_coord, arr.terms,
-                                          arr.offsets, arr.coords)
+        with profiling.phase("build.merge"):
+            arr, pages = self._merge_segments(segments, index_file + "_")
         with self._search_lock:
             self.can_search = False
             with open(os.path.join(self.work_path, storage.PAGES_FILE),
                       "wb") as f:
-                host.pages.save(f)
+                pages.save(f)
             if self.arr is not None:
                 self.arr.close()
             os.replace(index_file + "_", index_file)
@@ -815,10 +1172,126 @@ class Index:
                                                         source.filename))
             self.sources = sources
             if self.in_memory:
-                self._install(host.arr, host.pages)
+                self._install(arr, pages)
             else:
                 self.load()
-        return host
+        return self.host
+
+    def _build_segments(self, sources, cancel: threading.Event):
+        """The documents of `sources`, in order, by
+        max_degree_of_parallelism threads (index.py:253-265, _index_task
+        :390). A thread claims CLAIM_DOCS consecutive documents at a time;
+        a run of claims one thread takes one after the other is a segment,
+        indexed from coordinate 0 by one builder with a folder of its own,
+        which spills past max_tmp_index_items and saves its last postings
+        and its marks when the run ends; the thread's next builder goes on
+        with its term dictionary and interner. Returns the segments in
+        document order, or None when cancelled; a thread's error is raised
+        once every thread has ended."""
+        for source in sources:
+            source.reset()
+        dealer = _Dealer(sources, cancel)
+        segments: List[_Segment] = []
+        errors: List[BaseException] = []
+        lock = threading.Lock()
+
+        def work():
+            builder: Optional[IndexBuilder] = None
+            first = last = -2
+
+            def end_segment():
+                builder.save()
+                with lock:
+                    segments.append(_Segment(
+                        first, builder.path, builder.spills(),
+                        builder.coord, builder.max_coord, builder.seen))
+
+            try:
+                while (claim := dealer.claim()) is not None:
+                    k, name, docs = claim
+                    if k != last + 1:
+                        prev = builder
+                        if prev is not None:
+                            end_segment()
+                        builder = IndexBuilder(parent=self)
+                        if prev is not None:
+                            builder._take_stream(prev)
+                        first = k
+                    last = k
+                    builder.coord = _build_docs(name, docs, builder,
+                                                builder.coord, cancel)
+                if builder is not None:
+                    end_segment()
+            except BaseException as e:  # noqa: BLE001 — raised after join
+                with lock:
+                    errors.append(e)
+            finally:
+                if builder is not None:
+                    builder.close()
+
+        threads = [threading.Thread(target=work, daemon=True)
+                   for _ in range(max(1, self.max_degree_of_parallelism))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        if cancel.is_set():
+            return None
+        return sorted(segments)
+
+    def _merge_segments(self, segments: List["_Segment"], out: str):
+        """The segments' spills into one stream at `out` and their marks
+        into one page table (index.py:516 _merge_indexes). A segment's
+        spills merge first (merge_spills, no shift); then the segments'
+        files merge with their coordinates moved to where each segment
+        starts in one coordinate space over all documents in order: a
+        file's max_coord header is set to its segment's extent (the end
+        of its last page), the last segment with postings keeps its own,
+        so the merged max_coord is the last coordinate added, and the
+        files after it (no postings) get 0. One segment's file is the
+        index as it is. Returns (the in-memory ArrayIndex or None with
+        in_memory=False, the PageTable); the folders are removed."""
+        files = []
+        for seg in segments:
+            merged = os.path.join(seg.folder, f"1{SPILL_END}")
+            if len(seg.spills) > 1:
+                storage.merge_spills(seg.spills, merged + "_",
+                                     mem_items=self.max_tmp_index_items)
+                for p in seg.spills:
+                    os.remove(p)
+                os.replace(merged + "_", merged)
+            files.append(merged)
+        table = PageTable()
+        shift = 0
+        for seg in segments:
+            table.extend_from_marks(
+                _load_marks(os.path.join(seg.folder, MARKS_FILE)), shift)
+            shift += seg.extent
+        arrays: Optional[list] = [] if self.in_memory else None
+        if len(files) == 1:
+            os.replace(files[0], out)
+            max_coord = segments[0].max_coord
+        else:
+            last = max((i for i, seg in enumerate(segments) if seg.seen),
+                       default=-1)
+            for i, (path, seg) in enumerate(zip(files, segments)):
+                head = seg.extent if i < last else (
+                    seg.max_coord if i == last else 0)
+                with open(path, "r+b") as f:
+                    f.write(int(head).to_bytes(8, "little"))
+            max_coord = storage.merge_spills(
+                files, out, shift_coords=True,
+                mem_items=self.max_tmp_index_items, arrays_out=arrays)
+        _remove_builder_folders(self.work_path)
+        if not self.in_memory:
+            return None, table
+        if not arrays:
+            return storage.read_index(out), table
+        terms, offsets, coords = arrays[0]
+        return ArrayIndex.from_postings(terms, offsets, coords,
+                                        max_coord), table
 
     # ---- histogram -------------------------------------------------------
     def get_words_group(self, code) -> str:
@@ -890,6 +1363,12 @@ class Index:
             return PostingSeq()
         return PostingSeq(coords, R=-1) * self.search_word(value.lower())
 
+    def get_close_words(self, word: str) -> List[str]:
+        """The ten terms nearest `word` by edit distance, ties in term
+        order (index.py:650, ref Search.cs:169-174)."""
+        terms = self.arr.terms if self.arr is not None else []
+        return sorted(terms, key=lambda s: levenshtein(s, word))[:10]
+
     def get_suggestions(self, req: str, n: int = 10) -> List[str]:
         """Prefix completions of the request's last word, by posting
         volume (index.py:654, ref Search.cs:176-188)."""
@@ -913,11 +1392,13 @@ class Index:
         return [key[len(lastword):] for _, _, key in cands[:n]]
 
     # ---- search ---------------------------------------------------------
-    def search(self, req: str) -> SearchResult:
+    def search(self, req: str,
+               opt: Optional[SearchOptions] = None) -> SearchResult:
         """One request (index.py:714, ref Search.cs:440-601): `-filter:`
         doc-name regexes out, the request sanitized and parsed, its
         expression and its {field=value} part evaluated over the
-        postings, the two doc-intersected, the docs materialized and
+        postings with each word's window opt.dist (DEFAULT_DIST without
+        options), the two doc-intersected, the docs materialized and
         sorted by rank (ascending, as the reference does)."""
         if not self.can_search:
             return ErrorSearchResult("Index is not built")
@@ -935,8 +1416,9 @@ class Index:
                     req, thunks, search_word=self.search_word,
                     search_field=self.search_field,
                     stop_words=self.stop_words)
+                dist = C.DEFAULT_DIST if opt is None else opt.dist
                 for t in thunks:
-                    t.dist = C.DEFAULT_DIST
+                    t.dist = dist
                 res: Optional[PostingSeq] = None
                 resf: Optional[PostingSeq] = None
                 try:

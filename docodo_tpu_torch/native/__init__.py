@@ -84,10 +84,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.docodo_varint_decode_spans.argtypes = [
         c.c_char_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p,
         c.c_void_p]
-    lib.docodo_parse_records.restype = c.c_int64
-    lib.docodo_parse_records.argtypes = [
-        c.c_char_p, c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p,
-        c.c_void_p]
+    lib.docodo_parse_records_from.restype = c.c_int64
+    lib.docodo_parse_records_from.argtypes = [
+        c.c_char_p, c.c_int64, c.c_int64, c.c_int64, c.c_void_p, c.c_void_p,
+        c.c_void_p, c.c_void_p, c.c_void_p]
     return lib
 
 

@@ -701,32 +701,45 @@ int64_t docodo_varint_decode_spans(
 // the record count, or -1 on a truncated or corrupt stream. Callers
 // size the outputs at (n - 8) / 5 + 1 records (the least record: a
 // 1-byte length, an empty term and a 4-byte count).
-int64_t docodo_parse_records(const uint8_t* buf, int64_t n,
-                             int64_t* term_off, int32_t* term_len,
-                             int64_t* span_off, int32_t* span_words) {
-    int64_t pos = 8, cnt = 0;
-    while (pos < n) {
+// The whole records of an index stream from byte `start` on, at most
+// max_records of them: each record's term (byte offset, length) and its
+// u16 words (byte offset, count). Stops before a record the n bytes do
+// not hold whole and sets *end to the byte after the last record parsed.
+// Returns the records, or -1 for a stream no writer makes (a runaway
+// length, a negative count).
+int64_t docodo_parse_records_from(const uint8_t* buf, int64_t n,
+                                  int64_t start, int64_t max_records,
+                                  int64_t* term_off, int32_t* term_len,
+                                  int64_t* span_off, int32_t* span_words,
+                                  int64_t* end) {
+    int64_t pos = start, cnt = 0;
+    *end = start;
+    while (pos < n && cnt < max_records) {
         int64_t slen = 0;
         int shift = 0;
         for (;;) {
-            if (pos >= n) return -1;
+            if (pos >= n) return cnt;
             if (shift > 63) return -1;  // a runaway 7-bit length
             uint8_t b = buf[pos++];
             slen |= (int64_t)(b & 0x7F) << shift;
             if (!(b & 0x80)) break;
             shift += 7;
         }
-        if (pos + slen + 4 > n) return -1;
-        term_off[cnt] = pos;
-        term_len[cnt] = (int32_t)slen;
+        if (slen < 0) return -1;
+        if (pos + slen + 4 > n) return cnt;
+        const int64_t toff = pos;
         pos += slen;
         int32_t nw;
         std::memcpy(&nw, buf + pos, 4);
         pos += 4;
-        if (nw < 0 || pos + 2 * (int64_t)nw > n) return -1;
+        if (nw < 0) return -1;
+        if (pos + 2 * (int64_t)nw > n) return cnt;
+        term_off[cnt] = toff;
+        term_len[cnt] = (int32_t)slen;
         span_off[cnt] = pos;
         span_words[cnt] = nw;
         pos += 2 * nw;
+        *end = pos;
         cnt++;
     }
     return cnt;

@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 import zipfile
 from collections import OrderedDict
 from typing import Optional
 
 from docodo_tpu_torch.sources.base import IndexPage
+from docodo_tpu_torch.utils import profiling
 
 
 class _CachedDoc:
@@ -106,9 +108,17 @@ class IndexTextCacheDataSource:
         return _CachedDoc(doc, self)
 
     def _write_page(self, doc_name: str, page: IndexPage) -> None:
+        # a build's spans: the wait for this source's lock (build threads
+        # of one source take turns here) and the zip write under it
+        t0 = time.perf_counter()
         with self._lock:
-            if self._zip is not None and self._mode == "w":
-                self._zip.writestr(doc_name + "{" + page.id + "}", page.text)
+            if self._zip is None or self._mode != "w":
+                return
+            t1 = time.perf_counter()
+            self._zip.writestr(doc_name + "{" + page.id + "}", page.text)
+            t2 = time.perf_counter()
+        profiling.record("build.page-cache-wait", t1 - t0)
+        profiling.record("build.page-cache", t2 - t1)
 
     # ---- read side ------------------------------------------------------------
     def __getitem__(self, doc_name: str):

@@ -1365,3 +1365,126 @@ def test_loaded_index_served_on_card_from_threads(cuda_device, tmp_path):
         assert result_fields(res) == want[req], req
     assert ex.stats["device_queries"] > 0
     assert ex.stats["device_timeouts"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (csrc/probes.cu): PERF.md rows 18 and 19
+# ---------------------------------------------------------------------------
+
+def _probe_inputs(rng, rows, n, bounds):
+    """Merged (coord, tag) rows of n lanes: word-A coordinates over the
+    pages, word-B ones near them (so that rows keep hits), each row's
+    length 1..n with INF32 / tag 2 after it, duplicates across the words,
+    both window signs; and int32 bounds."""
+    end = int(bounds[-1])
+    vals = np.full((rows, n), INF32, np.int32)
+    tag = np.full((rows, n), 2, np.int32)
+    for i in range(rows):
+        m = int(rng.integers(1, n + 1))
+        a = rng.integers(0, end, size=(m + 1) // 2)
+        b = np.minimum(rng.choice(a, size=m // 2) + rng.integers(0, 40,
+                                                                  m // 2),
+                       end + 50)
+        v = np.concatenate([a, b]).astype(np.int64)
+        t = np.concatenate([np.zeros(a.size), np.ones(b.size)])
+        order = np.lexsort((t, v))
+        vals[i, :m], tag[i, :m] = v[order], t[order]
+    ra = np.where(np.arange(rows) % 3 == 0, -12, 30).astype(np.int32)
+    rb = np.where(np.arange(rows) % 3 == 0, -9, 262).astype(np.int32)
+    return vals, tag, ra, rb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ("bounds", "arith", "two_level"))
+@pytest.mark.parametrize("n,rows,pages,uneven", [
+    (128, 5952, 578, False), (128, 61, 3000, True), (100, 33, 100, False),
+    (256, 100, 256, True), (512, 9, 21971, True), (1024, 7, 129, True)])
+def test_probe_locate_matches_plain_on_card(cuda_device, policy, n, rows,
+                                            pages, uneven):
+    """docodo_probe_locate under each page policy against its plain
+    version: every output exact, ranks within 1 ulp; two_level equal to
+    bounds; stream widths 100-1024, rows that leave the last block
+    part-filled, one to 172 blocks of 128 bounds."""
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    rng = np.random.default_rng(n + rows)
+    bounds = (np.cumsum(rng.integers(500, 6000, size=pages)) if uneven
+              else np.arange(1, pages + 1) * 3000).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _probe_inputs(rng, rows, n, bounds) + (bounds,)]
+    got = pk.probe_locate(*args, policy=policy)
+    want = pk.probe_locate_plain(*args, policy=policy)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.float32:
+            assert _ulps(g, w) <= 1, k
+        else:
+            assert torch.equal(g, w), k
+    assert int(got[4].sum()) > 0
+    if policy == "two_level":
+        base = pk.probe_locate(*args, policy="bounds")
+        assert all(torch.equal(g, b) for g, b in zip(got, base))
+
+
+def _ulps(a, b) -> int:
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("copy", "sum128"))
+@pytest.mark.parametrize("q", (32, 64, 128))
+@pytest.mark.parametrize("r,n,b", [(512, 256, 100), (1, 128, 77),
+                                   (16384, 2048, 1000), (300, 4096, 333),
+                                   (64, 24576, 5)])
+def test_row_gather_matches_plain_on_card(cuda_device, mode, q, r, n, b):
+    """docodo_row_gather against tab[ids] and the sum formula, exact: B
+    not a multiple of q, ids that repeat, one row, rows of 1-6 ring
+    slots (96 KB a block)."""
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    rng = np.random.default_rng(r + n + b + q)
+    tab = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (r, n))
+                           .astype(np.int32)).to(cuda_device)
+    ids = rng.integers(0, r, b).astype(np.int32)
+    ids[::3] = ids[0]
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = pk._cuda.ROW_GATHER.launches
+    got = pk.row_gather(tab, ids, mode=mode, q=q)
+    want = pk.row_gather_plain(tab, ids, mode=mode, q=q)
+    torch.cuda.synchronize()
+    assert pk._cuda.ROW_GATHER.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_row_gather_copies_rows_of_any_quad_width(cuda_device):
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    tab = torch.arange(5 * 20, dtype=torch.int32,
+                       device=cuda_device).reshape(5, 20)
+    ids = torch.tensor([4, 0, 0, 3], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(pk.row_gather(tab, ids), tab[ids.long()])
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_what_they_cannot_take(cuda_device):
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    tab = torch.zeros((8, 256), dtype=torch.int32, device=cuda_device)
+    ids = torch.tensor([0, 8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        pk.row_gather(tab, ids)                     # an id past the table
+    with pytest.raises(ValueError):
+        pk.row_gather(tab, ids[:1], q=16)           # no such q
+    with pytest.raises(ValueError):
+        pk.row_gather(tab[:, :200], ids[:1], mode="sum128")
+    vals = torch.zeros((2, 2048), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        pk.probe_locate(vals, vals, vals[:, 0], vals[:, 0],
+                        torch.ones(3, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        pk.probe_locate(vals[:, :128], vals[:, :128], vals[:, 0], vals[:, 0],
+                        torch.ones(3, dtype=torch.int32, device=cuda_device),
+                        policy="compare_all")

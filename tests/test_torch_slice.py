@@ -186,9 +186,11 @@ def test_port_imports_no_jax():
     shape with its deferred finish), chip_smoke's CPU-runnable helpers
     (the mixes, the oracles), the host engine `Index`, the batcher, the
     HTTP server, the sharded layout (parallel/: a ShardedDeviceIndex
-    on two CPU shards), the console app and the data sources, and an
-    index written to disk and loaded back run without loading jax, the
-    JAX package or the benchmarks."""
+    on two CPU shards), the console app and the data sources, an index
+    written to disk and loaded back, a build of two threads that
+    spills, the standalone builder, SearchOptions and the probes
+    (benchmarks/) run without loading jax, the JAX package or the
+    benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -291,6 +293,27 @@ def test_port_imports_no_jax():
             "doc", folder + "/"))
         assert again.search("club").found_docs[0].pages[0].text
         assert varint.decode(varint.encode(np.arange(3))).tolist() == [0, 1, 2]
+        from docodo_tpu_torch import IndexBuilder, SearchOptions
+        from docodo_tpu_torch.benchmarks import (probe_dma_fetch,
+                                                 probe_locate, profile_cap64)
+        spilled = Index(os.path.join(folder, "spilled"), device="cpu")
+        spilled.max_degree_of_parallelism = 2
+        spilled.max_tmp_index_items = 4
+        spilled.add_data_source(docodo_tpu_torch.sources.DocumentsDataSource(
+            "doc", folder + "/"))
+        spilled.create()
+        assert spilled.search("club", SearchOptions(dist=40)).found_docs
+        bldr = IndexBuilder(device="cpu")
+        bldr.add_doc("docs", "a")
+        bldr.add_word("pickwick", 4)
+        bldr.end_page("1", 20)
+        assert bldr.build().search("pickwick").found_pages
+        fetch = probe_dma_fetch.run("cpu", r=8, n=128, b=5)
+        assert fetch["index_select"]["max_abs_err"] == 0
+        probe_locate.run_shape("probe", probe_locate.probe_streams(
+            np.random.default_rng(0), 16, 64, 60_000, "cpu"),
+            dix.bounds, dix.device)
+        assert profile_cap64.stages
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
         assert not loaded, loaded

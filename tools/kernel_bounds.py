@@ -30,9 +30,14 @@ one line per shape, a total per row, and a JSON line. Needs no card.
 from __future__ import annotations
 
 import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from docodo_tpu_torch.benchmarks.common import HBM_BYTES_PER_S  # noqa: E402
 
 PAGE_TOPK = 16
-HBM_BYTES_PER_S = 3.35e12
 I32 = 4
 PAGES = 21971  # the 64 MB corpus's page bounds, read once by row 17
 
