@@ -2894,8 +2894,8 @@ def phase_probes(dix, card: str):
     benchmarks), counts zeroed just before and read just after: probe_locate
     (docodo_probe_locate under its three page locates, at the TPU probe's
     shape and on the 64 MB index's real page table and cap-64 W = 2
-    bucket), probe_dma_fetch (docodo_row_gather, copy at q 32 / 64 / 128
-    and sum128, beside torch.index_select, tab[ids] and gather_term) and
+    bucket), probe_dma_fetch (docodo_row_gather, copy and sum128 at q 32
+    / 64 / 128, beside torch.index_select, tab[ids] and gather_term) and
     profile_cap64 (the stage prefixes of the cap-64 bucket over row 1's
     kernel). Each run holds its kernels against their plain versions bit
     for bit, two_level against bounds and every gather leg against

@@ -3,8 +3,8 @@ a row into shared memory, completed on an mbarrier) beat PyTorch's row
 gather? The counterpart of benchmarks/probe_dma_fetch.py on the card.
 
 At the TPU probe's shape (R = 16384 rows of n = 2048 int32, B = 10,000
-row ids drawn with seed 5, q = 32 ids a block), five legs, each held
-equal to tab[ids]:
+row ids drawn with seed 5, q = 32 rows in flight a block at most), five
+legs, each held equal to tab[ids]:
 
   index_select   torch.index_select(tab, 0, ids), the library's gather
   tab[ids]       advanced indexing
@@ -12,7 +12,8 @@ equal to tab[ids]:
                  same rows as lists of n postings
   kernel copy    docodo_row_gather, mode copy (also at q = 64 and 128)
   kernel sum128  docodo_row_gather, each row summed over its 128-lane
-                 chunks, held equal to that formula
+                 chunks, held equal to that formula (also at q = 64 and
+                 128)
 
 Each leg's ms (CUDA events, median of 10; torch.profiler's device ms),
 GB/s of rows read, and the bytes bound at 3.35 TB/s.
@@ -37,10 +38,13 @@ R, N, B, Q = 16384, 2048, 10_000, 32
 
 
 def gather_bound(ids, n: int, mode: str) -> dict:
-    """The ids and the rows read once, the output written once."""
+    """The ids and each distinct row read once (a repeated id reads its
+    row again from L2, not from device memory), the output written
+    once."""
     rows = ids.numel()
+    distinct = ids.unique().numel()
     out = rows * (n if mode == "copy" else 128) * 4
-    return bc.bound(4 * rows + rows * n * 4 + out)
+    return bc.bound(4 * rows + distinct * n * 4 + out)
 
 
 def _check(name: str, got, ref) -> float:
@@ -101,11 +105,10 @@ def run(device="cuda", *, r: int = R, n: int = N, b: int = B,
         "gather_term": (lambda: gather_term(flat, offsets, ids, n)[0],
                         "copy", None),
     }
-    for qq in qs:
-        legs[f"kernel copy q={qq}"] = (
-            lambda qq=qq: core(tab, ids, "copy", qq), "copy", qq)
-    legs[f"kernel sum128 q={q}"] = (
-        lambda: core(tab, ids, "sum128", q), "sum128", q)
+    for m in pk.GATHER_MODES:
+        for qq in qs:
+            legs[f"kernel {m} q={qq}"] = (
+                lambda m=m, qq=qq: core(tab, ids, m, qq), m, qq)
     out = {"device": str(dev), "rows": r, "lanes": n, "ids": b, "q": q,
            "max_abs_err": max(wrapper_err.values())}
     for name, (fn, mode, qq) in legs.items():

@@ -10,6 +10,13 @@ beside it.
                 pallas_call :114): table rows by id, copied whole or
                 summed to 128 lanes
 
+probe_locate's kernel gives a row of n <= 128 lanes one warp (n / 128
+warps past that), four lanes a thread in registers; row_gather's is a
+persistent grid, each block with a contiguous share of the ids and a
+ring of at most q row slots in GATHER_SMEM bytes (a row of up to
+GATHER_SMEM bytes) fed by bulk copies (csrc/probes.cu says how and
+why).
+
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors only; any other device raises. The plain
 versions run on any device, so a run on the card can hold each kernel
@@ -34,7 +41,7 @@ MAX_TWO_LEVEL_PAGES = 1024 * PAGE_BLOCK  # csrc kMaxCoarse blocks staged
 MAX_LANES = 1024
 GATHER_MODES = ("copy", "sum128")
 GATHER_Q = (32, 64, 128)
-GATHER_SMEM = 96 * 1024  # csrc kGatherSmem: the ring of rows a block
+GATHER_SMEM = 96 * 1024  # csrc kGatherSmem: the ring's bytes, past one slot
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +114,10 @@ def _probe_kernel(vals, tag, ra, rb, bounds, policy, page_len):
             torch.empty((rows,), dtype=torch.int32, device=dev),
             torch.empty((rows,), dtype=torch.int32, device=dev),
             torch.empty((rows, n), dtype=torch.int32, device=dev))
-    _cuda.PROBE_LOCATE.launch(dev, vals, tag, ra, rb, bounds, p, page_len,
-                              POLICIES.index(policy), rows, n, *outs)
+    if rows:  # no rows, no launch
+        _cuda.PROBE_LOCATE.launch(dev, vals, tag, ra, rb, bounds, p,
+                                  page_len, POLICIES.index(policy), rows, n,
+                                  *outs)
     return outs
 
 
@@ -157,7 +166,8 @@ def _gather_plain(tab, ids, mode, q):
     rows = tab[ids.long()]
     if mode == "copy":
         return rows
-    return rows.reshape(ids.shape[0], -1, 128).sum(dim=1).to(torch.int32)
+    return rows.reshape(ids.shape[0], tab.shape[1] // 128, 128).sum(
+        dim=1).to(torch.int32)
 
 
 def _gather_kernel(tab, ids, mode, q):
@@ -168,8 +178,9 @@ def _gather_kernel(tab, ids, mode, q):
     width = n if mode == "copy" else 128
     out = torch.empty((ids.shape[0], width), dtype=torch.int32,
                       device=tab.device)
-    _cuda.ROW_GATHER.launch(tab.device, tab, ids, n, ids.shape[0], q,
-                            GATHER_MODES.index(mode), out)
+    if ids.shape[0]:  # no ids, no launch
+        _cuda.ROW_GATHER.launch(tab.device, tab, ids, n, ids.shape[0], q,
+                                GATHER_MODES.index(mode), out)
     return out
 
 
@@ -198,8 +209,9 @@ def row_gather(tab, ids, *, mode: str = "copy", q: int = 32):
     """Rows tab[ids] of an int32 table [R, n] for ids int32 [B] in
     [0, R): [B, n] (mode "copy"), or [B, 128] with out[b, l] = the sum
     over k of tab[ids[b], 128 k + l] (mode "sum128", int32 wrapping). On
-    the card each block of the kernel takes q ids (GATHER_Q). The ids
-    are checked on the host first (one synchronisation)."""
+    the card q (GATHER_Q) is the most rows a block of the kernel keeps in
+    flight, its ring's depth. The ids are checked on the host first (one
+    synchronisation)."""
     _gather_args(tab, ids, mode, q)
     _check_ids(tab, ids)
     return _on_device(_gather_kernel, _gather_plain, tab, ids, mode, q)
@@ -210,3 +222,4 @@ def row_gather_plain(tab, ids, *, mode: str = "copy", q: int = 32):
     _gather_args(tab, ids, mode, q)
     _check_ids(tab, ids)
     return _gather_plain(tab, ids, mode, q)
+

@@ -1488,3 +1488,113 @@ def test_probe_kernels_reject_what_they_cannot_take(cuda_device):
         pk.probe_locate(vals[:, :128], vals[:, :128], vals[:, 0], vals[:, 0],
                         torch.ones(3, dtype=torch.int32, device=cuda_device),
                         policy="compare_all")
+
+
+# the launch shapes of the redesigned probe kernels: row_gather's
+# persistent grid (in both modes 264 blocks of 12 slots at n = 2048 on an
+# H100 80GB HBM3) and probe_locate's warp a row
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("copy", "sum128"))
+@pytest.mark.parametrize("q", (32, 64, 128))
+@pytest.mark.parametrize("r,n,b", [(64, 2048, 0), (4096, 2048, 100),
+                                   (4096, 2048, 1000), (16384, 2048, 10_007),
+                                   (9, 24576, 300), (700, 128, 50_000)])
+def test_row_gather_persistent_grid_on_card(cuda_device, mode, q, r, n, b):
+    """docodo_row_gather exact against its plain version: no ids, fewer
+    ids than the grid's blocks, shares of unequal length, ids repeated,
+    rows as wide as the ring takes, more rows a block than its ring has
+    slots; one launch a call with ids, none without."""
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    rng = np.random.default_rng(r + n + b + q)
+    tab = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (r, n))
+                           .astype(np.int32)).to(cuda_device)
+    ids = rng.integers(0, r, b).astype(np.int32)
+    ids[::5] = r - 1
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = pk._cuda.ROW_GATHER.launches
+    got = pk.row_gather(tab, ids, mode=mode, q=q)
+    want = pk.row_gather_plain(tab, ids, mode=mode, q=q)
+    torch.cuda.synchronize()
+    assert pk._cuda.ROW_GATHER.launches == before + (1 if b else 0)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (32, 64, 128))
+def test_row_gather_copies_rows_of_four_lanes_on_card(cuda_device, q):
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    rng = np.random.default_rng(q)
+    tab = torch.from_numpy(rng.integers(-99, 99, (100, 4)).astype(np.int32)
+                           ).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, 100, 5000).astype(np.int32)
+                           ).to(cuda_device)
+    assert torch.equal(pk.row_gather(tab, ids, q=q), tab[ids.long()])
+
+
+def _probe_check(args, policy):
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    got = pk.probe_locate(*args, policy=policy)
+    want = pk.probe_locate_plain(*args, policy=policy)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.float32:
+            assert _ulps(g, w) <= 1, k
+        else:
+            assert torch.equal(g, w), k
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ("bounds", "arith", "two_level"))
+@pytest.mark.parametrize("n", (128, 1024))
+def test_probe_locate_edge_rows_on_card(cuda_device, policy, n):
+    """docodo_probe_locate against its plain version on rows of all
+    INF32 padding, rows that keep no lane (word A only), a run across a
+    page bound, and with one page."""
+    rng = np.random.default_rng(n)
+    bounds = np.arange(1, 41, dtype=np.int32) * 3000
+    vals, tag, ra, rb = _probe_inputs(rng, 8, n, bounds)
+    vals[0], tag[0] = INF32, 2
+    tag[1, vals[1] < INF32] = 0
+    vals[2, :4], tag[2, :4] = (2990, 2995, 3001, 3004), (0, 1, 0, 1)
+    vals[2, 4:], tag[2, 4:] = INF32, 2
+    for bd in (bounds, bounds[:1]):
+        args = [torch.from_numpy(x).to(cuda_device)
+                for x in (vals, tag, ra, rb, bd)]
+        got = _probe_check(args, policy)
+        assert int(got[4][0]) == 0 and int(got[3][0]) == 0
+        assert int(got[4][1]) == 0
+        assert int(got[4][2]) == 4
+    assert int(got[3][2]) == 1  # one page: the run does not break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (128, 1024))
+def test_probe_locate_two_level_at_its_most_pages_on_card(cuda_device, n):
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    rng = np.random.default_rng(n + 1)
+    bounds = (np.arange(1, pk.MAX_TWO_LEVEL_PAGES + 1) * 7).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _probe_inputs(rng, 300, n, bounds) + (bounds,)]
+    base = _probe_check(args, "bounds")
+    got = _probe_check(args, "two_level")
+    assert all(torch.equal(g, b) for g, b in zip(got, base))
+
+
+@pytest.mark.cuda
+def test_probe_locate_no_rows_launches_nothing(cuda_device):
+    from docodo_tpu_torch.ops import probe_kernels as pk
+
+    empty = torch.zeros((0, 128), dtype=torch.int32, device=cuda_device)
+    one = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    before = pk._cuda.PROBE_LOCATE.launches
+    got = pk.probe_locate(empty, empty, one, one,
+                          torch.ones(3, dtype=torch.int32, device=cuda_device))
+    assert pk._cuda.PROBE_LOCATE.launches == before
+    assert got[0].shape == (0, 128) and got[3].shape == (0,)

@@ -220,6 +220,50 @@ def test_row_gather_plain_matches_numpy(r, n, b):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
 
 
+@pytest.mark.parametrize("mode,width", [("copy", 256), ("sum128", 128)])
+def test_row_gather_plain_takes_no_ids(mode, width):
+    """No ids: an empty [0, n] (or [0, 128]) result in both modes."""
+    tab = torch.arange(4 * 256, dtype=torch.int32).reshape(4, 256)
+    got = pk.row_gather(tab, torch.zeros(0, dtype=torch.int32), mode=mode)
+    assert got.shape == (0, width) and got.dtype == torch.int32
+
+
+def _arith_magic(page_len):
+    """csrc/probes.cu Arith::of, which the host computes for the kernel:
+    mul = ceil(2^shift / page_len), shift = 31 + ceil(log2 page_len)."""
+    shift = 31 + (page_len - 1).bit_length()
+    return -(-(1 << shift) // page_len), shift
+
+
+@pytest.mark.parametrize("lens", [range(lo, lo + 512)
+                                  for lo in range(1, 4097, 512)]
+                         + [(3000, 65535, 2**20 + 1, 2**31 - 1)])
+def test_arith_multiply_shift_divides_exactly(lens):
+    """Arith's page, (v * mul) >> shift, is v // page_len for every
+    0 <= v < 2^31: checked over page lengths 1-4096 and some larger, at
+    the values most likely to round wrong and some drawn at random."""
+    rng = np.random.default_rng(lens[0])
+    for d in lens:
+        mul, shift = _arith_magic(d)
+        assert mul <= 2**32  # the product of a 31-bit v fits 64 bits
+        top = (2**31 - 1) // d * d
+        vs = [0, 1, d - 1, d, d + 1, 2**31 - 2, 2**31 - 1, top, top - 1,
+              *(int(x) for x in rng.integers(0, 2**31, 8))]
+        for v in vs:
+            if 0 <= v < 2**31:
+                assert (v * mul) >> shift == v // d, (d, v)
+
+
+@pytest.mark.parametrize("mode,width", [("copy", 2048), ("sum128", 128)])
+def test_gather_bound_reads_each_distinct_row_once(mode, width):
+    """Row 19's bound: the ids read, each distinct row read once (a
+    repeat comes from L2), every output row written."""
+    ids = torch.tensor([3, 3, 3, 7, 7, 1] * 100, dtype=torch.int32)
+    got = probe_dma_fetch.gather_bound(ids, 2048, mode)
+    nbytes = 4 * 600 + 3 * 2048 * 4 + 600 * width * 4
+    assert got == bc.bound(nbytes)
+
+
 @pytest.mark.parametrize("mode", ["copy", "sum128"])
 def test_row_gather_plain_matches_the_tpu_kernel(mode):
     """Against fetch_kernel in interpret mode (n = 1024: the TPU's sum
@@ -277,8 +321,11 @@ def test_probe_locate_runs_on_the_cpu(small_dix):
 def test_probe_dma_fetch_runs_on_the_cpu():
     res = probe_dma_fetch.run("cpu", r=512, n=256, b=100)
     legs = [v for v in res.values() if isinstance(v, dict)]
-    assert len(legs) == 7 and all(leg["ms"] is None for leg in legs)
+    # index_select, tab[ids], gather_term, both modes at q 32 / 64 / 128
+    assert len(legs) == 9 and all(leg["ms"] is None for leg in legs)
     assert res["kernel copy q=32"]["bound_by"] == "bytes"
+    assert res["kernel sum128 q=128"]["bound_ms"] < res[
+        "kernel copy q=128"]["bound_ms"]
     assert res["max_abs_err"] == 0
     assert all(leg["max_abs_err"] == 0 for leg in legs)
 
