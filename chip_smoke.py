@@ -39,7 +39,22 @@ the host has two or more, else gloo on one card), held against one
 process's ShardedDeviceIndex; dryrun_multichip(4); and a 256 MB index
 as four shards serving both mixes beside one card's route, every
 compared row equal to one card's and sampled rows to the exact host
-evaluation.
+evaluation. Between the vocabulary and the batcher, the JAX package's
+last surface (phase_surface): the 1 GB documents through
+tokenize_intern_packed into one native interner in slices of whole
+documents, split_packed and build_postings_packed on the card, held
+against the packed protocol above; the standard mix's buckets through
+multi_bucket_query_full_chained and multi_bucket_query_step_chained,
+five reps chained with one readback, against the unchained calls; the
+set operations (device_and / device_or / batch_and / batch_or /
+device_locate_rank) on 256 pairs of posting lists and
+batched_query_step_variants on the vocabulary groups, against the host
+and the CPU; Index[term] on the 64 MB index and on the console app's
+folder, loaded in memory and lazily. The memory-bounded build
+(Index(path).create() spilling) runs the 1 GB documents on one thread,
+its files byte-equal to the unspilled build's, and the first quarter of
+them on two threads against build_index of that quarter: the depth cut
+that pays for phase_surface.
 
     python3 chip_smoke.py [--corpus-mb 64] [--build-mb 1000] [--seed 0]
                           [--mesh-mb 256]
@@ -55,7 +70,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -130,8 +147,27 @@ PROBE_KERNELS = {
     "probe_locate": (PROBES, "benchmarks/probe_locate.py:130"),
     "row_gather": (PROBES, "benchmarks/probe_dma_fetch.py:80"),
 }
-# the rows of each mix phase_build_spilled serves on both 1 GB builds
+# each phase's seconds in one run of commit ccdff79, before phase_surface
+# and the cut of phase_build_spilled, on an NVIDIA H100 80GB HBM3 at
+# 700 W; printed beside this run's
+BEFORE = ("ccdff79", {
+    "build": 24.2, "parity": 33.8, "index": 40.9, "build at scale": 92.8,
+    "spilled build": 322.1, "disk": 103.4, "main and page": 7.2,
+    "probes": 16.0, "serve": 8.5, "kernel times": 56.2,
+    "oracle and vocabulary": 0.8, "batcher": 152.2, "mesh batcher": 19.0,
+    "distributed": 24.0, "mesh": 59.8, "in all": 960.9})
+# the rows of each mix phase_build_spilled serves on both builds of its
+# two-thread leg
 SPILLED_ROWS = 2_000
+# phase_surface: slices of whole documents of about this many characters
+# (benchmarks/scale_build.py:140 cuts its text every 8,000,000), the
+# chained reps, the posting-list pairs of the set operations and their
+# longest list, the Index[term] lookups an index
+SURFACE_SLICE_CHARS = 8_000_000
+SURFACE_REPS = 5
+SURFACE_PAIRS = 256
+SURFACE_CAP = 2048
+SURFACE_TERMS = 1000
 STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
                     "union_locate_full", "merge_and_locate_topk",
                     "merge_tagged", "and_keep", "locate_runs")
@@ -1062,7 +1098,8 @@ def phase_build_scale(build_mb: float, seed: int, card: str):
     the port runs: the documents (body pages joined by newlines)
     tokenized and interned on threads (parallel_tokenize_intern), packed
     with absolute starts (one coordinate space over the documents in
-    order), copied to the card from pinned memory and sorted into one CSR
+    order, a newline between documents as between pages), copied to the
+    card from pinned memory and sorted into one CSR
     there (build_postings_packed). Requires offsets[-1] to be the token
     count, every list ascending and 1,000 seeded terms' lists equal to a
     numpy lexsort of the same stream. End to end is tokenize to the CSR
@@ -1071,7 +1108,10 @@ def phase_build_scale(build_mb: float, seed: int, card: str):
     sorted on the card), whose lists of the same 1,000 words must equal
     the protocol's, moved to its coordinates (no newline between pages,
     header pages between documents). Returns build_index's index, which
-    phase_disk writes to disk, and the documents."""
+    phase_disk writes to disk, the documents, and what phase_surface
+    holds its packed build against (`proto`: the document texts and
+    their bases, the terms, the 1,000 sampled ids and their postings,
+    the token count, the tokenize MB/s)."""
     import os
 
     from docodo_tpu_torch.benchmarks import common as bc
@@ -1098,7 +1138,9 @@ def phase_build_scale(build_mb: float, seed: int, card: str):
     ids_l, starts_l, terms = pipeline.parallel_tokenize_intern(
         texts, workers=workers)
     t2 = time.perf_counter()
-    bases = np.cumsum([0] + [tokenizer.char_len(t) for t in texts[:-1]])
+    # one newline between documents, as between pages: a text of several
+    # documents joined by newlines tokenizes as they do one by one
+    bases = np.cumsum([0] + [tokenizer.char_len(t) + 1 for t in texts[:-1]])
     counts = np.fromiter((a.size for a in ids_l), np.int64, len(ids_l))
     ids = np.concatenate(ids_l)
     starts = (np.concatenate(starts_l).astype(np.int64)
@@ -1161,7 +1203,10 @@ def phase_build_scale(build_mb: float, seed: int, card: str):
         f"copied, CSR {csr_bytes / 1e6:.1f} MB, peak "
         f"{peak / 1e9:.2f} GB; offsets[-1] = tokens, lists ascending, "
         f"1,000 seeded lists equal numpy lexsort; {card}")
-    del dev, pinned, texts, ids, starts, packed, mask
+    proto = dict(texts=texts, bases=bases, terms=terms, sample=sample,
+                 sub_ids=sub_ids, sub_starts=sub_starts, tokens=n, mb=mb,
+                 tokenize_mb_s=mb / (t2 - t1), workers=workers)
+    del dev, pinned, ids, starts, packed, mask
     torch.cuda.empty_cache()
 
     # the port's entry point over the same documents
@@ -1181,14 +1226,12 @@ def phase_build_scale(build_mb: float, seed: int, card: str):
     require(bool((firsts | (steps > 0)).all()),
             f"build_index {mb:.0f} MB: a list is not ascending")
     del steps, firsts
-    # body page k starts at protocol coordinate sum_{i<k}(units_i + 1)
-    # less one for each document before it; in build_index at the end of
-    # the page before it
+    # body page k starts at protocol coordinate sum_{i<k}(units_i + 1);
+    # in build_index at the end of the page before it
     body = np.array([pid != "0" for pid in pages.page_ids])
     units = np.array([tokenizer.char_len(p.text) for d in docs
                       for p in d.pages[1:]], dtype=np.int64)
-    doc_of = pages.page_doc[body]
-    at = np.cumsum(units + 1) - (units + 1) - doc_of
+    at = np.cumsum(units + 1) - (units + 1)
     shift = (np.concatenate([[0], pages.bounds[:-1].astype(np.int64)])[body]
              - at)
     moved = sub_starts + shift[np.searchsorted(at, sub_starts,
@@ -1204,7 +1247,7 @@ def phase_build_scale(build_mb: float, seed: int, card: str):
         f"{arr.coords.size} postings; {report}; offsets[-1] = postings, "
         f"lists ascending, the 1,000 sampled words' lists equal the "
         f"protocol's; {card}")
-    return built, docs
+    return built, docs, proto
 
 
 def _serve_cli(argv, reqs, host, clients: int = 16):
@@ -1277,7 +1320,8 @@ def _serve_cli(argv, reqs, host, clients: int = 16):
     return status, secs, t_start
 
 
-def phase_disk(corpus_mb: float, seed: int, card: str, built) -> dict:
+def phase_disk(corpus_mb: float, seed: int, card: str, built,
+               tmp: Path) -> dict:
     """The index on disk and the console app (docodo_tpu_torch.cli). The
     seeded corpus as .txt files (the first 8 in a subfolder whose .dscr
     gives them an author and a year, one with a .dscr of its own), then:
@@ -1294,13 +1338,13 @@ def phase_disk(corpus_mb: float, seed: int, card: str, built) -> dict:
     snippets from its page cache included, with requests served on the
     card. Last, `built` (phase_build_scale's 1 GB build) is written with
     write_postings_arrays and PageTable.save and read back with
-    read_index and PageTable.load, equal. The files are removed at the
-    end. Returns the launches of the mixes on the loaded index."""
+    read_index and PageTable.load, equal. The files live in `tmp`, which
+    the caller removes (phase_surface reads the console app's folder,
+    `tmp / "idx"`, first). Returns the launches of the mixes on the
+    loaded index."""
     import glob
     import random
-    import shutil
     import sys
-    import tempfile
 
     from docodo_tpu_torch.core import storage
     from docodo_tpu_torch.core.pagetable import PageTable
@@ -1314,192 +1358,187 @@ def phase_disk(corpus_mb: float, seed: int, card: str, built) -> dict:
     from docodo_tpu_torch.synthetic import zipf_documents
 
     root = Path(__file__).resolve().parent
-    (root / "build").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="phase_disk_", dir=root / "build"))
     mb = lambda *paths: sum(p.stat().st_size for p in paths) / 1e6
+    # (a) the corpus as files
+    docs = zipf_documents(int(corpus_mb * 1e6), seed=seed)
+    corpus = tmp / "corpus"
+    (corpus / "sub").mkdir(parents=True)
+    (corpus / "sub" / ".dscr").write_text("author=dickens\nyear=1836\n")
+    for i, d in enumerate(docs):
+        folder = corpus / "sub" if i < 8 else corpus
+        (folder / f"{d.name}.txt").write_text(
+            " ".join(p.text for p in d.pages[1:]))
+    (corpus / f"{docs[8].name}.txt.dscr").write_text("category=fiction\n")
+    source_mb = sum(f.stat().st_size for f in corpus.rglob("*.txt")) / 1e6
+    idx = tmp / "idx"
+    argv = [f"-i:{idx}", f"-source:files,{corpus}/", "-mem"]
+
+    # (b) the console app builds the index
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "docodo_tpu_torch.cli", *argv],
+        input="I\nE\n", capture_output=True, text=True, timeout=900,
+        cwd=str(root))
+    t_cli = time.perf_counter() - t0
+    require(proc.returncode == 0 and "Indexing completed." in proc.stdout
+            and "Error" not in proc.stdout,
+            f"cli build exited {proc.returncode}: {proc.stdout[-2000:]} "
+            f"{proc.stderr[-2000:]}")
+    files = {n: idx / n for n in (storage.INDEX_FILE, storage.PAGES_FILE,
+                                  "files.cache.zip")}
+    say(f"disk: {len(docs)} documents as .txt files ({source_mb:.1f} MB)"
+        f"; `python -m docodo_tpu_torch.cli {' '.join(argv)}` with keys "
+        f"I, E: {t_cli:.2f} s in all (its process's start and the "
+        f"build), .index {mb(files['.index']):.2f} MB, .index.list "
+        f"{mb(files['.index.list']):.2f} MB, files.cache.zip "
+        f"{mb(files['files.cache.zip']):.2f} MB; on {card}")
+
+    # (c) loaded, against the in-memory build of the same folder; the
+    # vocabularies and stop words the console app loads from Dict/
+    vocs = [Vocab(f) for f in sorted(glob.glob(str(root / "Dict"
+                                                   / "*.voc")))]
+    stops = root / "Dict" / "stop.txt"
+    stop_words = load_stop_words(str(stops)) if stops.exists() else None
+    t0 = time.perf_counter()
+    loaded = Index(str(idx), vocs=vocs, stop_words=stop_words)
+    t_load = time.perf_counter() - t0
+    require(loaded.can_search, "Index(path) did not load the cli's index")
+    loaded.add_data_source(IndexTextFilesDataSource("files", f"{corpus}/"))
+    t0 = time.perf_counter()
+    mem = Index(vocs=vocs, stop_words=stop_words)
+    mem.add_data_source(IndexTextFilesDataSource("files", f"{corpus}/"))
+    mem.create()
+    t_mem = time.perf_counter() - t0
+    got, want = loaded.host, mem.host
+    require(got.arr.terms == want.arr.terms
+            and got.pages.page_ids == want.pages.page_ids
+            and got.pages.doc_names == want.pages.doc_names
+            and got.arr.max_coord == want.arr.max_coord
+            and all(a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in ((got.arr.offsets, want.arr.offsets),
+                                 (got.arr.coords, want.arr.coords),
+                                 (got.pages.bounds, want.pages.bounds),
+                                 (got.pages.page_doc,
+                                  want.pages.page_doc))),
+            "the loaded index differs from the in-memory build")
+    say(f"disk: Index(path) loaded in {t_load:.2f} s "
+        f"({mb(files['.index']) / t_load:.1f} MB/s of .index; "
+        f"{len(got.arr.terms)} terms, {got.arr.coords.size} postings, "
+        f"{len(got.pages)} pages); equal array for array (terms, "
+        f"offsets, coords, max_coord, bounds, page_doc, page_ids, "
+        f"doc_names) to Index() built in memory on the card from the "
+        f"same folder in {t_mem:.2f} s; on {card}")
+    dl, dm = DeviceIndex.from_index(loaded), DeviceIndex.from_index(mem)
+    mixes = (("standard mix", _queries(dm, N_QUERIES)),
+             ("wide mix + alternations",
+              _wide_queries(dm, N_QUERIES, N_ALTERNATIONS)))
+    for _, q in mixes:  # warm
+        dl.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
+                             use_kernels=True)
+    torch.cuda.synchronize()
+    plain = []
+    inner = tdi.query_step_full
+
+    def plain_bucket(*a, **k):
+        plain.append(1)
+        return inner(*a, **k)
+
+    tdi.query_step_full = plain_bucket
+    for k in _cuda.KERNELS.values():
+        k.launches = 0
     try:
-        # (a) the corpus as files
-        docs = zipf_documents(int(corpus_mb * 1e6), seed=seed)
-        corpus = tmp / "corpus"
-        (corpus / "sub").mkdir(parents=True)
-        (corpus / "sub" / ".dscr").write_text("author=dickens\nyear=1836\n")
-        for i, d in enumerate(docs):
-            folder = corpus / "sub" if i < 8 else corpus
-            (folder / f"{d.name}.txt").write_text(
-                " ".join(p.text for p in d.pages[1:]))
-        (corpus / f"{docs[8].name}.txt.dscr").write_text("category=fiction\n")
-        source_mb = sum(f.stat().st_size for f in corpus.rglob("*.txt")) / 1e6
-        idx = tmp / "idx"
-        argv = [f"-i:{idx}", f"-source:files,{corpus}/", "-mem"]
-
-        # (b) the console app builds the index
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "docodo_tpu_torch.cli", *argv],
-            input="I\nE\n", capture_output=True, text=True, timeout=900,
-            cwd=str(root))
-        t_cli = time.perf_counter() - t0
-        require(proc.returncode == 0 and "Indexing completed." in proc.stdout
-                and "Error" not in proc.stdout,
-                f"cli build exited {proc.returncode}: {proc.stdout[-2000:]} "
-                f"{proc.stderr[-2000:]}")
-        files = {n: idx / n for n in (storage.INDEX_FILE, storage.PAGES_FILE,
-                                      "files.cache.zip")}
-        say(f"disk: {len(docs)} documents as .txt files ({source_mb:.1f} MB)"
-            f"; `python -m docodo_tpu_torch.cli {' '.join(argv)}` with keys "
-            f"I, E: {t_cli:.2f} s in all (its process's start and the "
-            f"build), .index {mb(files['.index']):.2f} MB, .index.list "
-            f"{mb(files['.index.list']):.2f} MB, files.cache.zip "
-            f"{mb(files['files.cache.zip']):.2f} MB; on {card}")
-
-        # (c) loaded, against the in-memory build of the same folder; the
-        # vocabularies and stop words the console app loads from Dict/
-        vocs = [Vocab(f) for f in sorted(glob.glob(str(root / "Dict"
-                                                       / "*.voc")))]
-        stops = root / "Dict" / "stop.txt"
-        stop_words = load_stop_words(str(stops)) if stops.exists() else None
-        t0 = time.perf_counter()
-        loaded = Index(str(idx), vocs=vocs, stop_words=stop_words)
-        t_load = time.perf_counter() - t0
-        require(loaded.can_search, "Index(path) did not load the cli's index")
-        loaded.add_data_source(IndexTextFilesDataSource("files", f"{corpus}/"))
-        t0 = time.perf_counter()
-        mem = Index(vocs=vocs, stop_words=stop_words)
-        mem.add_data_source(IndexTextFilesDataSource("files", f"{corpus}/"))
-        mem.create()
-        t_mem = time.perf_counter() - t0
-        got, want = loaded.host, mem.host
-        require(got.arr.terms == want.arr.terms
-                and got.pages.page_ids == want.pages.page_ids
-                and got.pages.doc_names == want.pages.doc_names
-                and got.arr.max_coord == want.arr.max_coord
-                and all(a.dtype == b.dtype and np.array_equal(a, b)
-                        for a, b in ((got.arr.offsets, want.arr.offsets),
-                                     (got.arr.coords, want.arr.coords),
-                                     (got.pages.bounds, want.pages.bounds),
-                                     (got.pages.page_doc,
-                                      want.pages.page_doc))),
-                "the loaded index differs from the in-memory build")
-        say(f"disk: Index(path) loaded in {t_load:.2f} s "
-            f"({mb(files['.index']) / t_load:.1f} MB/s of .index; "
-            f"{len(got.arr.terms)} terms, {got.arr.coords.size} postings, "
-            f"{len(got.pages)} pages); equal array for array (terms, "
-            f"offsets, coords, max_coord, bounds, page_doc, page_ids, "
-            f"doc_names) to Index() built in memory on the card from the "
-            f"same folder in {t_mem:.2f} s; on {card}")
-        dl, dm = DeviceIndex.from_index(loaded), DeviceIndex.from_index(mem)
-        mixes = (("standard mix", _queries(dm, N_QUERIES)),
-                 ("wide mix + alternations",
-                  _wide_queries(dm, N_QUERIES, N_ALTERNATIONS)))
-        for _, q in mixes:  # warm
-            dl.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
-                                 use_kernels=True)
+        outs = [dl.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
+                                     use_kernels=True) for _, q in mixes]
         torch.cuda.synchronize()
-        plain = []
-        inner = tdi.query_step_full
-
-        def plain_bucket(*a, **k):
-            plain.append(1)
-            return inner(*a, **k)
-
-        tdi.query_step_full = plain_bucket
-        for k in _cuda.KERNELS.values():
-            k.launches = 0
-        try:
-            outs = [dl.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
-                                         use_kernels=True) for _, q in mixes]
-            torch.cuda.synchronize()
-        finally:
-            tdi.query_step_full = inner
-        launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
-        for name in STANDARD_KERNELS + WIDE_KERNELS:
-            require(launches[name] > 0, f"kernel {name} was not launched "
-                    "on the loaded index")
-        require(not plain, f"{len(plain)} buckets of the loaded index took "
-                "query_step_full")
-        for (label, q), out in zip(mixes, outs):
-            ref = dm.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
-                                       use_kernels=True)
-            for f, v in out.items():
-                require(np.array_equal(v, ref[f]), f"disk, {label}: {f} "
-                        "differs from the in-memory build's")
-        say(f"disk: both mixes ({sum(len(q) for _, q in mixes)} rows) on "
-            f"the loaded index's DeviceIndex through the kernel route, "
-            f"every field equal to the in-memory build's; launches "
-            f"{({n: c for n, c in launches.items() if c})}; no plain "
-            f"bucket")
-        del dl, dm, outs, mixes
-        torch.cuda.empty_cache()
-
-        # (d) the console app serves the folder
-        words = {}
-        for d in docs[:8]:
-            body = d.pages[1].text.split()
-            words[d.name] = body[len(body) // 2: len(body) // 2 + 2]
-        std = serve_requests(loaded, 400)
-        wide = wide_requests(loaded, 200)
-        reqs = std[:80] + wide[:16]
-        for name, (w1, w2) in words.items():
-            reqs += [f'"{w1} {w2}"', f"{w1} {{author=dickens}}"]
-        reqs += ["{year=1836}", "{category=fiction}", "{name=sub}",
-                 f"{words[docs[0].name][0]} {{source=files}}",
-                 f'"{words[docs[1].name][0]} {words[docs[1].name][1]}" '
-                 f"{{year=1836}}"]
-        reqs += std[80: 80 + BATCHER_HTTP - len(reqs)]
-        random.Random(seed).shuffle(reqs)
-        require(len(reqs) == BATCHER_HTTP, f"{len(reqs)} requests")
-        status, secs, t_start = _serve_cli(argv, reqs, loaded)
-        st = status["batcher"]
-        require(status["canSearch"] and st["device_queries"] > 0
-                and st["device_timeouts"] == 0,
-                f"cli server /status: {status}")
-        say(f"disk: `python -m docodo_tpu_torch.cli {' '.join(argv)} server "
-            f"-p:0 -batch` up in {t_start:.2f} s; {len(reqs)} /search "
-            f"requests (the batcher's recipe, wide ones, quoted phrases and "
-            f"field requests) from 16 clients in {secs:.2f} s, every body "
-            f"equal to result_to_json(Index.search) of the loaded index, "
-            f"snippets from files.cache.zip included; /status batcher "
-            f"{st}; the process exited 0 when its input closed")
-        loaded.dispose()
-        mem.dispose()
-
-        # (e) phase_build_scale's build written and read back
-        big = tmp / "big"
-        big.mkdir()
-        arr, pages = built.arr, built.pages
-        t0 = time.perf_counter()
-        with open(big / storage.INDEX_FILE, "wb") as f:
-            storage.write_postings_arrays(f, arr.max_coord, arr.terms,
-                                          arr.offsets, arr.coords)
-        t1 = time.perf_counter()
-        with open(big / storage.PAGES_FILE, "wb") as f:
-            pages.save(f)
-        t2 = time.perf_counter()
-        back = storage.read_index(str(big / storage.INDEX_FILE))
-        t3 = time.perf_counter()
-        with open(big / storage.PAGES_FILE, "rb") as f:
-            back_pages = PageTable.load(f)
-        t4 = time.perf_counter()
-        require(back.terms == arr.terms and back.max_coord == arr.max_coord
-                and np.array_equal(back.offsets, arr.offsets)
-                and np.array_equal(back.coords, arr.coords)
-                and back_pages.page_ids == pages.page_ids
-                and back_pages.doc_names == pages.doc_names
-                and np.array_equal(back_pages.bounds, pages.bounds)
-                and np.array_equal(back_pages.page_doc, pages.page_doc),
-                "the build at scale read back differs from the build")
-        imb = mb(big / storage.INDEX_FILE)
-        lmb = mb(big / storage.PAGES_FILE)
-        say(f"disk, the build at scale ({arr.coords.size} postings, "
-            f"{len(arr.terms)} terms, {len(pages)} pages): .index "
-            f"{imb:.1f} MB written in {t1 - t0:.2f} s ({imb / (t1 - t0):.1f} "
-            f"MB/s), read in {t3 - t2:.2f} s ({imb / (t3 - t2):.1f} MB/s); "
-            f".index.list {lmb:.2f} MB written in {t2 - t1:.2f} s, read in "
-            f"{t4 - t3:.2f} s; equal to the build array for array; {card}")
-        del back, back_pages
-        return launches
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        tdi.query_step_full = inner
+    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+    for name in STANDARD_KERNELS + WIDE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched "
+                "on the loaded index")
+    require(not plain, f"{len(plain)} buckets of the loaded index took "
+            "query_step_full")
+    for (label, q), out in zip(mixes, outs):
+        ref = dm.search_batch_full(q, topk=TOPK, hit_cap=HIT_CAP,
+                                   use_kernels=True)
+        for f, v in out.items():
+            require(np.array_equal(v, ref[f]), f"disk, {label}: {f} "
+                    "differs from the in-memory build's")
+    say(f"disk: both mixes ({sum(len(q) for _, q in mixes)} rows) on "
+        f"the loaded index's DeviceIndex through the kernel route, "
+        f"every field equal to the in-memory build's; launches "
+        f"{({n: c for n, c in launches.items() if c})}; no plain "
+        f"bucket")
+    del dl, dm, outs, mixes
+    torch.cuda.empty_cache()
+
+    # (d) the console app serves the folder
+    words = {}
+    for d in docs[:8]:
+        body = d.pages[1].text.split()
+        words[d.name] = body[len(body) // 2: len(body) // 2 + 2]
+    std = serve_requests(loaded, 400)
+    wide = wide_requests(loaded, 200)
+    reqs = std[:80] + wide[:16]
+    for name, (w1, w2) in words.items():
+        reqs += [f'"{w1} {w2}"', f"{w1} {{author=dickens}}"]
+    reqs += ["{year=1836}", "{category=fiction}", "{name=sub}",
+             f"{words[docs[0].name][0]} {{source=files}}",
+             f'"{words[docs[1].name][0]} {words[docs[1].name][1]}" '
+             f"{{year=1836}}"]
+    reqs += std[80: 80 + BATCHER_HTTP - len(reqs)]
+    random.Random(seed).shuffle(reqs)
+    require(len(reqs) == BATCHER_HTTP, f"{len(reqs)} requests")
+    status, secs, t_start = _serve_cli(argv, reqs, loaded)
+    st = status["batcher"]
+    require(status["canSearch"] and st["device_queries"] > 0
+            and st["device_timeouts"] == 0,
+            f"cli server /status: {status}")
+    say(f"disk: `python -m docodo_tpu_torch.cli {' '.join(argv)} server "
+        f"-p:0 -batch` up in {t_start:.2f} s; {len(reqs)} /search "
+        f"requests (the batcher's recipe, wide ones, quoted phrases and "
+        f"field requests) from 16 clients in {secs:.2f} s, every body "
+        f"equal to result_to_json(Index.search) of the loaded index, "
+        f"snippets from files.cache.zip included; /status batcher "
+        f"{st}; the process exited 0 when its input closed")
+    loaded.dispose()
+    mem.dispose()
+
+    # (e) phase_build_scale's build written and read back
+    big = tmp / "big"
+    big.mkdir()
+    arr, pages = built.arr, built.pages
+    t0 = time.perf_counter()
+    with open(big / storage.INDEX_FILE, "wb") as f:
+        storage.write_postings_arrays(f, arr.max_coord, arr.terms,
+                                      arr.offsets, arr.coords)
+    t1 = time.perf_counter()
+    with open(big / storage.PAGES_FILE, "wb") as f:
+        pages.save(f)
+    t2 = time.perf_counter()
+    back = storage.read_index(str(big / storage.INDEX_FILE))
+    t3 = time.perf_counter()
+    with open(big / storage.PAGES_FILE, "rb") as f:
+        back_pages = PageTable.load(f)
+    t4 = time.perf_counter()
+    require(back.terms == arr.terms and back.max_coord == arr.max_coord
+            and np.array_equal(back.offsets, arr.offsets)
+            and np.array_equal(back.coords, arr.coords)
+            and back_pages.page_ids == pages.page_ids
+            and back_pages.doc_names == pages.doc_names
+            and np.array_equal(back_pages.bounds, pages.bounds)
+            and np.array_equal(back_pages.page_doc, pages.page_doc),
+            "the build at scale read back differs from the build")
+    imb = mb(big / storage.INDEX_FILE)
+    lmb = mb(big / storage.PAGES_FILE)
+    say(f"disk, the build at scale ({arr.coords.size} postings, "
+        f"{len(arr.terms)} terms, {len(pages)} pages): .index "
+        f"{imb:.1f} MB written in {t1 - t0:.2f} s ({imb / (t1 - t0):.1f} "
+        f"MB/s), read in {t3 - t2:.2f} s ({imb / (t3 - t2):.1f} MB/s); "
+        f".index.list {lmb:.2f} MB written in {t2 - t1:.2f} s, read in "
+        f"{t4 - t3:.2f} s; equal to the build array for array; {card}")
+    del back, back_pages
+    return launches
 
 
 def _queries(dix, n: int):
@@ -2186,12 +2225,12 @@ def phase_page_oracle(dix, queries, out, rng, n: int = 512) -> None:
             "page-level oracle mismatches")
 
 
-def phase_vocabulary(seed: int, rng) -> None:
+def phase_vocabulary(seed: int, rng):
     """A Russian corpus of the forms Dict/ru.voc knows, indexed with the
     vocabulary and stop words; words become (variant keys, R) groups by
     word_group (vocabulary group keys, an exact upper-case form, a
     wildcard OR), are served by search_batch_full on the card and held
-    against the numpy oracle."""
+    against the numpy oracle. Returns (index, queries of groups)."""
     from docodo_tpu_torch.index import word_group
     from docodo_tpu_torch.lang.vocab import Vocab
     from docodo_tpu_torch.ops.device_index import DeviceIndex
@@ -2234,6 +2273,7 @@ def phase_vocabulary(seed: int, rng) -> None:
         f"with hits")
     phase_oracle(dix, queries, out, rng, "vocabulary groups",
                  n=len(queries), topk=topk, hit_cap=hit_cap)
+    return ind, queries
 
 
 def _serve(ex, reqs, clients: int, restage=None):
@@ -2992,32 +3032,34 @@ class _RssPeak:
 
 
 def phase_build_spilled(docs, card: str, built):
-    """The memory-bounded build at BASELINE.md's scale: phase_build_scale's
-    1 GB documents (zipf_documents(build_mb, seed), nothing cut) through
-    Index(path).create() on the card, each thread's builder
-    spilling past the default max_tmp_index_items (1,000,001 postings),
-    its spills sorted on the card one at a time and merged on the host.
-    (a) One thread: its `.index` and `.index.list` must equal, byte for
-    byte, `built`'s (build_index's unspilled one-thread build) written
-    with write_postings_arrays and PageTable.save. (b) Two threads: its
-    arrays and page table must equal (a)'s, and SPILLED_ROWS rows of the
-    standard mix and of the wide mix + alternations, drawn on this index,
-    through search_batch_full on each build's device index, every field
-    equal (pages, ranks, counts, hits, docs). Seconds, MB/s, the spills,
-    the phases, peak host RSS (sampled) and the card's peak allocation
-    for each build beside build_index's. The files live under build/ and
-    are removed."""
+    """The memory-bounded build: Index(path).create() on the card, each
+    thread's builder spilling past the default max_tmp_index_items
+    (1,000,001 postings), its spills sorted on the card one at a time and
+    merged on the host. (a) One thread over phase_build_scale's 1 GB
+    documents (zipf_documents(build_mb, seed), BASELINE.md's scale): its
+    `.index` and `.index.list` must equal, byte for byte, `built`'s
+    (build_index's unspilled one-thread build) written with
+    write_postings_arrays and PageTable.save. (b) Two threads over the
+    first quarter of the documents (the depth cut that pays for
+    phase_surface; it was the whole 1 GB): its arrays and page table must
+    equal build_index's in-memory build of the same quarter, and
+    SPILLED_ROWS rows of the standard mix and of the wide mix +
+    alternations, drawn on that index, through search_batch_full on both
+    builds' device indexes, every field equal (pages, ranks, counts,
+    hits, docs). Seconds, MB/s, the spills, the phases, peak host RSS
+    (sampled) and the card's peak allocation for each build. The files
+    live under build/ and are removed."""
     import filecmp
     import os
     import shutil
 
     from docodo_tpu_torch.core import storage
-    from docodo_tpu_torch.index import Index, ListDataSource
+    from docodo_tpu_torch.index import Index, ListDataSource, build_index
     from docodo_tpu_torch.ops.device_index import DeviceIndex
     from docodo_tpu_torch.utils import profiling
 
     t_start = time.perf_counter()
-    mb = sum(len(p.text) for d in docs for p in d.pages) / 1e6
+    quarter = docs[: max(1, len(docs) // 4)]
     root = Path(__file__).resolve().parent / "build" / (
         f"phase_spill_{os.getpid()}")
     try:
@@ -3031,11 +3073,12 @@ def phase_build_spilled(docs, card: str, built):
         say(f"spilled build: the unspilled files written in "
             f"{time.perf_counter() - t_start:.1f} s")
         builds = {}
-        for threads in (1, 2):
+        for threads, part in ((1, docs), (2, quarter)):
+            mb = sum(len(p.text) for d in part for p in d.pages) / 1e6
             path = root / f"threads{threads}"
             ind = Index(str(path))
             ind.max_degree_of_parallelism = threads
-            ind.add_data_source(ListDataSource("synth", docs))
+            ind.add_data_source(ListDataSource("synth", part))
             profiling.reset()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3050,7 +3093,7 @@ def phase_build_spilled(docs, card: str, built):
             spills = report.get("build.spill-save", (0, 0))[1]
             builds[threads] = ind
             say(f"spilled build, {threads} thread(s), {mb:.1f} MB "
-                f"({len(docs)} documents), max_tmp_index_items "
+                f"({len(part)} documents), max_tmp_index_items "
                 f"{ind.max_tmp_index_items}: {secs:.2f} s = "
                 f"{mb / secs:.1f} MB/s; {spills} spills sorted on the card; "
                 f"phases (s, calls; summed over threads) {report}; peak "
@@ -3059,12 +3102,14 @@ def phase_build_spilled(docs, card: str, built):
                 f"card peak "
                 f"{card_peak / 1e9:.3f} GB; {len(ind.arr.terms)} terms, "
                 f"{ind.arr.coords.size} postings; {card}")
-        one, two = builds[1], builds[2]
         for name in (storage.INDEX_FILE, storage.PAGES_FILE):
             require(filecmp.cmp(root / "threads1" / name,
                                 root / "unspilled" / name, shallow=False),
                     f"the spilled one-thread build's {name} differs from "
                     f"the unspilled build's")
+        t0 = time.perf_counter()
+        one, two = build_index(ListDataSource("synth", quarter)), builds[2]
+        ref_s = time.perf_counter() - t0
         a, b = one.arr, two.arr
         require(a.terms == b.terms and a.max_coord == b.max_coord
                 and np.array_equal(a.offsets, b.offsets)
@@ -3073,7 +3118,8 @@ def phase_build_spilled(docs, card: str, built):
                 and np.array_equal(one.pages.page_doc, two.pages.page_doc)
                 and one.pages.page_ids == two.pages.page_ids
                 and one.pages.doc_names == two.pages.doc_names,
-                "the two-thread build's arrays differ from one thread's")
+                "the two-thread build's arrays differ from build_index's "
+                "of the same documents")
         t0 = time.perf_counter()
         dixs = [DeviceIndex.from_index(ind) for ind in (one, two)]
         torch.cuda.synchronize()
@@ -3089,19 +3135,408 @@ def phase_build_spilled(docs, card: str, built):
             for f in outs[0]:
                 require(np.array_equal(outs[0][f], outs[1][f]),
                         f"spilled builds, {label}: field {f} differs "
-                        f"between one and two threads")
+                        f"between build_index and two threads")
             rows[label] = (len(queries),
                            round(time.perf_counter() - t0, 1))
         say(f"spilled builds: the one-thread build's .index and .index.list "
             f"equal build_index's unspilled files byte for byte; the "
-            f"two-thread build's arrays and page table equal one thread's; "
-            f"both staged ({stage_s:.1f} s), (rows, s) {rows} through "
-            f"search_batch_full equal field for field (pages, ranks, "
-            f"counts, hits, docs); {card}")
+            f"two-thread build's arrays and page table equal build_index's "
+            f"of the same {len(quarter)} documents (in memory, "
+            f"{ref_s:.1f} s); both staged ({stage_s:.1f} s), (rows, s) "
+            f"{rows} through search_batch_full equal field for field "
+            f"(pages, ranks, counts, hits, docs); {card}")
         del dixs
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _captured(name: str, call):
+    """The (args, kwargs) of the last call `call()` makes of
+    device_index.<name>."""
+    from docodo_tpu_torch.ops import device_index as tdi
+
+    seen = []
+    inner = getattr(tdi, name)
+
+    def record(*a, **k):
+        seen.append((a, k))
+        return inner(*a, **k)
+
+    setattr(tdi, name, record)
+    try:
+        call()
+    finally:
+        setattr(tdi, name, inner)
+    return seen[-1]
+
+
+def _surface_packed(proto, card: str) -> None:
+    """(a) of phase_surface: the 1 GB documents tokenized by
+    tokenize_intern_packed into one native interner, in slices of whole
+    documents (SURFACE_SLICE_CHARS, newlines between documents, so that a
+    slice starts at one of the protocol's document bases), each slice's
+    stream cut by split_packed at a power of two >= 5/4 of the first
+    slice's rows and every part built on the card by
+    build_postings_packed, as benchmarks/scale_build.py:140-186 runs
+    it."""
+    from docodo_tpu_torch.native import pipeline
+    from docodo_tpu_torch.ops.device_index import (
+        build_postings_packed,
+        pack_tokens,
+        pack_tokens_split,
+        split_packed,
+    )
+
+    texts, bases = proto["texts"], proto["bases"]
+    cuts, size = [0], 0
+    for i, t in enumerate(texts):
+        size += len(t) + 1
+        if size >= SURFACE_SLICE_CHARS or i == len(texts) - 1:
+            cuts.append(i + 1)
+            size = 0
+    it = pipeline.make_interner()
+    tok_s = build_s = 0.0
+    cap = first = None
+    parts = []  # (sorted coords, offsets, base) on the card
+    rows = postings = 0
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        text = "\n".join(texts[lo:hi])
+        t0 = time.perf_counter()
+        packed = pipeline.tokenize_intern_packed(text, it)
+        tok_s += time.perf_counter() - t0
+        rows += packed.size
+        if cap is None:
+            cap = 1 << (-(-packed.size * 5 // 4) - 1).bit_length()
+            first = (text, packed)
+        num_terms = len(it)
+        t0 = time.perf_counter()
+        for part in split_packed(packed, cap):
+            dev = torch.from_numpy(part.view(np.int32)).to("cuda")
+            _, sc, off = build_postings_packed(dev, num_terms)
+            postings += int(off[-1])
+            parts.append((sc, off, int(bases[lo])))
+        build_s += time.perf_counter() - t0
+    require(postings == proto["tokens"],
+            f"packed build: {postings} postings in the parts, "
+            f"{proto['tokens']} tokens")
+    # the 1,000 sampled terms, by string: each part's list moved by its
+    # slice's base, the parts in order, against the protocol's list
+    ids = {w: i for i, w in enumerate(it.terms())}
+    sample, sub_ids, sub_starts = (proto["sample"], proto["sub_ids"],
+                                   proto["sub_starts"])
+    want_sorted = sub_starts[np.lexsort((sub_starts, sub_ids))]
+    want_ids = np.sort(sub_ids)
+    pid = torch.tensor([ids[proto["terms"][t]] for t in sample],
+                       dtype=torch.long, device="cuda")
+    got = [[] for _ in sample]
+    for sc, off, base in parts:
+        live = (pid < off.numel() - 1)
+        at = torch.where(live, pid, 0)
+        lo_, hi_ = off[at], torch.where(live, off[at + 1], off[at])
+        lens = (hi_ - lo_).cpu().numpy().astype(np.int64)
+        if not lens.any():
+            continue
+        starts = lo_.cpu().numpy().astype(np.int64)
+        flat = (np.repeat(starts - (np.cumsum(lens) - lens), lens)
+                + np.arange(int(lens.sum())))
+        vals = sc[torch.from_numpy(flat).cuda()].cpu().numpy()
+        for k, part in enumerate(np.split(vals, np.cumsum(lens)[:-1])):
+            if part.size:
+                got[k].append(part.astype(np.int64) + base)
+    for k, t in enumerate(sample):
+        w = want_sorted[want_ids == t]
+        g = np.concatenate(got[k]) if got[k] else np.zeros(0, np.int64)
+        require(np.array_equal(g, w), f"packed build: the list of "
+                f"{proto['terms'][t]!r} differs from the protocol's")
+    # one slice against the unpacked path, and split at an eighth of the
+    # cap both ways (split_packed, pack_tokens_split), parts against the
+    # whole slice's CSR
+    text, packed = first
+    ids0, starts0 = pipeline.tokenize_intern(text, pipeline.make_interner())
+    require(np.array_equal(packed, pack_tokens(ids0, starts0)),
+            "packed build: slice 0's rows differ from "
+            "pack_tokens(*tokenize_intern(...))")
+    n_terms0 = int(ids0.max()) + 1
+    whole = build_postings_packed(
+        torch.from_numpy(packed.view(np.int32)).cuda(), n_terms0)
+    n0 = int(whole[2][-1])
+    for how, pieces in (("split_packed", split_packed(packed, cap // 8)),
+                        ("pack_tokens_split",
+                         pack_tokens_split(ids0, starts0, cap // 8))):
+        st, sc = [], []
+        for p in pieces:
+            t_, c_, o_ = build_postings_packed(
+                torch.from_numpy(p.view(np.int32)).cuda(), n_terms0)
+            st.append(t_[: int(o_[-1])])
+            sc.append(c_[: int(o_[-1])])
+        st, sc = torch.cat(st), torch.cat(sc)
+        order = torch.sort((st.long() << 32) | sc.long()).indices
+        require(len(pieces) > 1 and torch.equal(st[order], whole[0][:n0])
+                and torch.equal(sc[order], whole[1][:n0]),
+                f"packed build: slice 0 in {len(pieces)} parts by {how} "
+                f"differs from its whole build")
+    torch.cuda.synchronize()
+    mb = proto["mb"]
+    say(f"surface, packed build: {mb:.1f} MB in {len(cuts) - 1} slices of "
+        f"whole documents (~{SURFACE_SLICE_CHARS / 1e6:g} M characters) "
+        f"through tokenize_intern_packed into one native interner on one "
+        f"thread: {tok_s:.2f} s = {mb / tok_s:.1f} MB/s (the protocol's "
+        f"parallel_tokenize_intern on {proto['workers']} threads: "
+        f"{proto['tokenize_mb_s']:.1f} MB/s); {rows} rows, split_packed "
+        f"at cap {cap} into {len(parts)} parts, built on the card by "
+        f"build_postings_packed in {build_s:.2f} s; postings = tokens "
+        f"({postings}); the 1,000 sampled terms' lists, each part moved by "
+        f"its slice's base, equal the protocol's; slice 0 equals "
+        f"pack_tokens(*tokenize_intern(...)), and its parts at cap "
+        f"{cap // 8} by split_packed and by pack_tokens_split build its "
+        f"CSR; {card}")
+    del parts
+
+
+def _surface_chained(dix, queries, card: str) -> dict:
+    """(b) of phase_surface: the standard mix's buckets (as
+    search_batch_full and search_batch hand them to the dispatchers)
+    through multi_bucket_query_full_chained and
+    multi_bucket_query_step_chained on the kernel route, SURFACE_REPS
+    reps chained through their checksums with one readback, launch counts
+    zeroed just before and read just after; every output field of every
+    rep equal to the unchained call's and every checksum to the sums
+    over its outputs. Returns the launches."""
+    from docodo_tpu_torch.ops import device_index as tdi
+
+    legs = (
+        ("full", "multi_bucket_query_full", 7, STANDARD_KERNELS,
+         lambda: dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                       use_kernels=True)),
+        ("page-level step", "multi_bucket_query_step", 6, PAGE_KERNELS,
+         lambda: dix.search_batch(queries, topk=PAGE_TOPK,
+                                  use_kernels=True)))
+    total = {name: 0 for name in _launches()}
+    for label, name, split, required, call in legs:
+        a, k = _captured(name, call)
+        fn, chained = getattr(tdi, name), getattr(tdi, name + "_chained")
+        plain = fn(*a, **k)
+        want = torch.zeros((), device=dix.device)
+        for o in plain:
+            want = (want + o.ranks.sum() + o.n_hits.to(torch.float32).sum()
+                    if label == "full" else want + o[1].sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SURFACE_REPS):
+            fn(*a, **k)
+            torch.cuda.synchronize()
+        unchained_ms = (time.perf_counter() - t0) * 1e3 / SURFACE_REPS
+        _zero_launches()
+        t0 = time.perf_counter()
+        chain = torch.zeros((), device=dix.device)
+        reps = []
+        for _ in range(SURFACE_REPS):
+            outs, chain = chained(*a[:split], chain, *a[split:], **k)
+            reps.append((outs, chain))
+        final = float(chain)  # the one readback
+        chained_ms = (time.perf_counter() - t0) * 1e3 / SURFACE_REPS
+        launches = _launches()
+        for kname in required:
+            require(launches[kname] > 0, f"chained {label}: kernel {kname} "
+                    "was not launched")
+        for n, c in launches.items():
+            total[n] += c
+        require(final == float(want), f"chained {label}: checksum {final} "
+                f"!= {float(want)} over the unchained outputs")
+        for outs, s in reps:
+            require(float(s) == float(want), f"chained {label}: a rep's "
+                    "checksum differs")
+            for g, w in zip(outs, plain):
+                require(all(torch.equal(x, y) for x, y in zip(g, w)
+                            if x is not None),
+                        f"chained {label}: a rep's outputs differ from the "
+                        f"unchained call's")
+        say(f"surface, chained {label}: {len(a[split - 2])} buckets of the "
+            f"standard mix, {SURFACE_REPS} reps chained through their "
+            f"checksums with one readback {chained_ms:.3f} ms a rep, "
+            f"unchained with a synchronise a rep {unchained_ms:.3f} ms; "
+            f"every field and checksum ({final:.6g}) equal to the "
+            f"unchained call's; launches "
+            f"{({n: c for n, c in launches.items() if c})}; {card}")
+    return total
+
+
+def _surface_set_ops(dix, vocabulary, card: str) -> None:
+    """(c) of phase_surface: device_and / device_or / batch_and /
+    batch_or / device_locate_rank on the card over SURFACE_PAIRS pairs of
+    the 64 MB index's posting lists, against the host PostingSeq * and +
+    and the same calls on the CPU; batched_query_step_variants over
+    phase_vocabulary's groups on the card against its CPU run, and on
+    V = 1 rows against batched_query_step."""
+    from docodo_tpu_torch.core.postings import PostingSeq
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.ops import seqops
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SURFACE_PAIRS)
+    counts = np.diff(dix.offsets_np)
+    # lists of (cap / 2, cap] postings: a pair shares a few dozen windows
+    pool = np.flatnonzero((counts > SURFACE_CAP // 2)
+                          & (counts <= SURFACE_CAP))
+    pairs = rng.choice(pool, size=(SURFACE_PAIRS, 2))
+    coords = dix.coords.cpu().numpy()
+    lists = [[coords[dix.offsets_np[t]:dix.offsets_np[t + 1]] for t in p]
+             for p in pairs]
+    pad = [np.stack([seqops.pad_to(ls[j], SURFACE_CAP)[0] for ls in lists])
+           for j in (0, 1)]
+    n = [np.array([ls[j].size for ls in lists], np.int32) for j in (0, 1)]
+    r = np.where(np.arange(SURFACE_PAIRS) % 3 == 0, -9, 262).astype(np.int32)
+    cpu = [torch.from_numpy(x) for x in (pad[0], n[0], r, pad[1], n[1], r)]
+    card_in = [x.cuda() for x in cpu]
+    bounds, page_doc = dix.bounds, dix.page_doc
+    for op, one, host in (
+            (seqops.batch_and, seqops.device_and, PostingSeq.__mul__),
+            (seqops.batch_or, seqops.device_or, PostingSeq.__add__)):
+        got = op(*card_in)
+        want = op(*cpu)
+        require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                f"{op.__name__} on the card differs from the CPU")
+        out, cnt, rr = (x.cpu().numpy() for x in got)
+        for q, ls in enumerate(lists):
+            h = host(PostingSeq(ls[0], int(r[q])),
+                     PostingSeq(ls[1], int(r[q])))
+            require(np.array_equal(out[q, :cnt[q]], h.coords.astype(np.int64))
+                    and rr[q] == h.R, f"{op.__name__} row {q} differs from "
+                    f"the host PostingSeq")
+            o1, c1, r1 = one(*[x[q] for x in card_in])
+            require(torch.equal(o1, got[0][q]) and int(c1) == cnt[q]
+                    and int(r1) == rr[q], f"{one.__name__} of pair {q} "
+                    "differs from its batch row")
+        if op is seqops.batch_and:
+            kept = int(cnt.sum())
+            for q in range(SURFACE_PAIRS):
+                g = seqops.device_locate_rank(got[0][q], got[1][q], bounds,
+                                              page_doc, 2 * SURFACE_CAP)
+                w = seqops.device_locate_rank(
+                    want[0][q], want[1][q], bounds.cpu(), page_doc.cpu(),
+                    2 * SURFACE_CAP)
+                require(all(torch.equal(x.cpu(), y)
+                            for x, y in zip(g[:3], w[:3]))
+                        and ulps(g[3].cpu(), w[3]) <= 1,
+                        f"device_locate_rank of pair {q} differs from the "
+                        f"CPU")
+    # the variant step over phase_vocabulary's groups
+    ind, queries = vocabulary
+    vdix = DeviceIndex.from_index(ind)
+    vcpu = DeviceIndex.from_index(ind, device="cpu")
+    # buckets of (W, V to a power of two, cap), as search_batch_full
+    # makes them
+    buckets: dict = {}
+    for q in queries:
+        cg = vdix.compile_group_query(q)
+        if cg is not None:
+            buckets.setdefault((cg[2], tdi._bucket(cg[3], lo=1),
+                                tdi._bucket(cg[4])), []).append(cg)
+    variant_rows = one_rows = 0
+    for (w, v, cap), cgs in sorted(buckets.items()):
+        terms = np.full((len(cgs), w, v), -1, np.int32)
+        rs = np.ones((len(cgs), w), np.int32)
+        for i, cg in enumerate(cgs):
+            for j, (idv, rv) in enumerate(zip(cg[0], cg[1])):
+                terms[i, j, : len(idv)] = idv
+                rs[i, j] = rv
+        tt, rt = torch.from_numpy(terms), torch.from_numpy(rs)
+        got = tdi.batched_query_step_variants(
+            vdix.term_offsets, vdix.coords, vdix.bounds, vdix.page_doc,
+            tt.cuda(), rt.cuda(), cap, PAGE_TOPK, vdix.small)
+        want = tdi.batched_query_step_variants(
+            vcpu.term_offsets, vcpu.coords, vcpu.bounds, vcpu.page_doc, tt,
+            rt, cap, PAGE_TOPK, vcpu.small)
+        require(torch.equal(got[0].cpu(), want[0])
+                and torch.equal(got[2].cpu(), want[2])
+                and ulps(got[1].cpu(), want[1]) <= 1,
+                f"batched_query_step_variants W {w} V {v} on the card "
+                f"differs from the CPU")
+        single = (terms[:, :, 1:] < 0).all(axis=(1, 2)) if v > 1 else \
+            np.ones(len(cgs), bool)
+        if single.any():
+            step = tdi.batched_query_step(
+                vdix.term_offsets, vdix.coords, vdix.bounds, vdix.page_doc,
+                tt[single][:, :, 0].cuda(), rt[single].cuda(), cap,
+                PAGE_TOPK, vdix.small)
+            require(all(torch.equal(x[torch.from_numpy(single).cuda()], y)
+                        for x, y in zip(got, step)),
+                    f"batched_query_step_variants' V = 1 rows (W {w}) "
+                    f"differ from batched_query_step")
+        variant_rows += int((~single).sum())
+        one_rows += int(single.sum())
+    require(variant_rows > 0, "vocabulary groups: no row of V > 1")
+    say(f"surface, set operations: {SURFACE_PAIRS} pairs of the 64 MB "
+        f"index's lists ({SURFACE_CAP // 2 + 1}-{SURFACE_CAP} postings) "
+        f"through batch_and / "
+        f"batch_or on the card equal to the CPU and to the host "
+        f"PostingSeq * / + ({kept} coordinates kept by the AND), "
+        f"device_and / device_or pair by pair equal to the batch rows, "
+        f"device_locate_rank of every AND row equal to the CPU; "
+        f"batched_query_step_variants over phase_vocabulary's groups "
+        f"({variant_rows} rows of V > 1, {one_rows} of V = 1) equal to "
+        f"the CPU, its V = 1 rows to batched_query_step; "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+
+def _surface_getitem(index, dix, folder: Path, card: str) -> None:
+    """(d) of phase_surface: Index[term] on the 64 MB index against its
+    device CSR, and on phase_disk's folder loaded in memory and lazily
+    against the loaded CSR, for SURFACE_TERMS seeded terms each; an
+    absent term raises KeyError."""
+    from docodo_tpu_torch.index import Index
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SURFACE_TERMS)
+    coords = dix.coords.cpu().numpy()
+    for t in rng.choice(len(dix.terms), size=SURFACE_TERMS, replace=False):
+        off = dix.offsets_np
+        require(np.array_equal(index[dix.terms[t]].coords,
+                               coords[off[t]:off[t + 1]]),
+                f"Index[{dix.terms[t]!r}] differs from the device CSR")
+    loaded = Index(str(folder))
+    lazy = Index(str(folder), in_memory=False)
+    try:
+        arr = loaded.arr
+        require(loaded.can_search and lazy.can_search
+                and lazy.arr.coords is None, "phase_disk's folder did not "
+                "load in memory and lazily")
+        for t in rng.choice(len(arr.terms), size=SURFACE_TERMS,
+                            replace=False):
+            want = arr.coords[arr.offsets[t]:arr.offsets[t + 1]]
+            for ind in (loaded, lazy):
+                require(np.array_equal(ind[arr.terms[t]].coords, want),
+                        f"Index[{arr.terms[t]!r}] of the loaded folder "
+                        f"differs from its CSR")
+        for ind in (index, loaded, lazy):
+            try:
+                ind["nosuchword"]
+                require(False, "Index['nosuchword'] raised no KeyError")
+            except KeyError:
+                pass
+    finally:
+        loaded.dispose()
+        lazy.dispose()
+    say(f"surface, Index[term]: {SURFACE_TERMS} terms of the 64 MB index "
+        f"equal to its device CSR, {SURFACE_TERMS} of phase_disk's folder "
+        f"loaded in memory and lazily equal to its CSR, an absent term "
+        f"KeyError; {time.perf_counter() - t0:.1f} s; {card}")
+
+
+def phase_surface(proto, index, dix, queries, vocabulary, folder: Path,
+                  card: str) -> dict:
+    """The JAX package's last surface on the card: (a) the packed build
+    at 1 GB (_surface_packed), (b) the chained calls
+    (_surface_chained), (c) the set operations and the variant step
+    (_surface_set_ops), (d) Index[term] (_surface_getitem). Returns the
+    launches of (b)."""
+    _surface_packed(proto, card)
+    launches = _surface_chained(dix, queries, card)
+    _surface_set_ops(dix, vocabulary, card)
+    _surface_getitem(index, dix, folder, card)
+    return launches
 
 
 def main() -> None:
@@ -3125,58 +3560,71 @@ def main() -> None:
     lap("parity")
     index, dix = phase_index(args.corpus_mb, args.seed)
     lap("index")
-    built, docs = phase_build_scale(args.build_mb, args.seed,
-                                    f"{card} ({smi})")
+    built, docs, proto = phase_build_scale(args.build_mb, args.seed,
+                                           f"{card} ({smi})")
     lap("build at scale")
     phase_build_spilled(docs, f"{card} ({smi})", built)
     del docs
     lap("spilled build")
-    dlaunches = phase_disk(args.corpus_mb, args.seed, f"{card} ({smi})",
-                           built)
-    del built
-    lap("disk")
-    queries = _queries(dix, N_QUERIES)
-    wide = _wide_queries(dix, N_QUERIES, N_ALTERNATIONS)
-    out, launches = phase_main(dix, queries, f"{card} ({smi})",
-                               "standard mix", STANDARD_KERNELS)
-    wout, wlaunches = phase_main(dix, wide, f"{card} ({smi})",
-                                 "wide mix + alternations", WIDE_KERNELS)
-    pout, planches = phase_page(dix, queries, f"{card} ({smi})")
-    lap("main and page")
-    prlaunches, probe_times = phase_probes(dix, f"{card} ({smi})")
-    lap("probes")
-    slaunches = phase_serve(
-        dix, queries + wide,
-        {f: np.concatenate([out[f], wout[f]]) for f in out},
-        f"{card} ({smi})", rng)
-    lap("serve")
-    earlier = [n for n in KERNELS if n not in SERVE_KERNELS]
-    times = phase_kernel_times([
-        lambda: dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
-                                      use_kernels=True),
-        lambda: dix.search_batch_full(wide, topk=TOPK, hit_cap=HIT_CAP,
-                                      use_kernels=True),
-        lambda: dix.search_batch(queries, topk=PAGE_TOPK, use_kernels=True),
-    ], earlier)
-    # the five kernels of the serving path, on calls of its top-k-mode
-    # pass (both mixes, the escalated rows included)
-    times.update(phase_kernel_times(
-        [lambda: _profile_batch().serve_pass(dix, queries + wide, False)],
-        SERVE_KERNELS, most=64, where="the top-k-mode serving pass"))
-    # the variant slot kernels and the W = 1 kernel on the serving pass the
-    # batcher sends (sort_topk=True): printed beside their fused-batch
-    # times above
-    phase_kernel_times(
-        [lambda: _profile_batch().serve_pass(dix, queries + wide, True)],
-        ("variants_and_locate_full", "union_merge_locate_full",
-         "single_locate_full", "union_locate_full"), most=64,
-        where="the serving pass")
-    lap("kernel times")
-    phase_oracle(dix, queries, out, rng, "standard mix")
-    phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
-    phase_page_oracle(dix, queries, pout, rng)
-    phase_vocabulary(args.seed, rng)
-    lap("oracle and vocabulary")
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    # phase_disk's files; phase_surface reads its folder too
+    disk_tmp = Path(tempfile.mkdtemp(prefix="phase_disk_",
+                                     dir=root / "build"))
+    try:
+        dlaunches = phase_disk(args.corpus_mb, args.seed, f"{card} ({smi})",
+                               built, disk_tmp)
+        del built
+        lap("disk")
+        queries = _queries(dix, N_QUERIES)
+        wide = _wide_queries(dix, N_QUERIES, N_ALTERNATIONS)
+        out, launches = phase_main(dix, queries, f"{card} ({smi})",
+                                   "standard mix", STANDARD_KERNELS)
+        wout, wlaunches = phase_main(dix, wide, f"{card} ({smi})",
+                                     "wide mix + alternations", WIDE_KERNELS)
+        pout, planches = phase_page(dix, queries, f"{card} ({smi})")
+        lap("main and page")
+        prlaunches, probe_times = phase_probes(dix, f"{card} ({smi})")
+        lap("probes")
+        slaunches = phase_serve(
+            dix, queries + wide,
+            {f: np.concatenate([out[f], wout[f]]) for f in out},
+            f"{card} ({smi})", rng)
+        lap("serve")
+        earlier = [n for n in KERNELS if n not in SERVE_KERNELS]
+        times = phase_kernel_times([
+            lambda: dix.search_batch_full(queries, topk=TOPK,
+                                          hit_cap=HIT_CAP, use_kernels=True),
+            lambda: dix.search_batch_full(wide, topk=TOPK, hit_cap=HIT_CAP,
+                                          use_kernels=True),
+            lambda: dix.search_batch(queries, topk=PAGE_TOPK,
+                                     use_kernels=True),
+        ], earlier)
+        # the five kernels of the serving path, on calls of its top-k-mode
+        # pass (both mixes, the escalated rows included)
+        times.update(phase_kernel_times(
+            [lambda: _profile_batch().serve_pass(dix, queries + wide, False)],
+            SERVE_KERNELS, most=64, where="the top-k-mode serving pass"))
+        # the variant slot kernels and the W = 1 kernel on the serving pass
+        # the batcher sends (sort_topk=True): printed beside their
+        # fused-batch times above
+        phase_kernel_times(
+            [lambda: _profile_batch().serve_pass(dix, queries + wide, True)],
+            ("variants_and_locate_full", "union_merge_locate_full",
+             "single_locate_full", "union_locate_full"), most=64,
+            where="the serving pass")
+        lap("kernel times")
+        phase_oracle(dix, queries, out, rng, "standard mix")
+        phase_oracle(dix, wide, wout, rng, "wide mix + alternations")
+        phase_page_oracle(dix, queries, pout, rng)
+        vocabulary = phase_vocabulary(args.seed, rng)
+        lap("oracle and vocabulary")
+        surf_launches = phase_surface(proto, index, dix, queries, vocabulary,
+                                      disk_tmp / "idx", f"{card} ({smi})")
+        del proto, vocabulary
+        lap("surface")
+    finally:
+        shutil.rmtree(disk_tmp, ignore_errors=True)
     # BATCHER_KERNELS are the ones the requests reach at the default size
     blaunches, stream, hosts = phase_batcher(
         index, dix, f"{card} ({smi})",
@@ -3190,16 +3638,19 @@ def main() -> None:
     lap("distributed")
     mlaunches = phase_mesh(args.mesh_mb, args.seed, f"{card} ({smi})", rng)
     lap("mesh")
-    say("phases (s): " + ", ".join(
-        f"{name} {t - prev:.1f}"
+    commit, before = BEFORE
+    say(f"phases (s; {commit}'s beside): " + ", ".join(
+        f"{name} {t - prev:.1f} ({before.get(name, 'new')})"
         for (name, t), (_, prev) in zip(marks[1:], marks))
-        + f"; in all {marks[-1][1] - marks[0][1]:.1f}")
+        + f"; in all {marks[-1][1] - marks[0][1]:.1f} "
+        f"({before['in all']})")
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=(launches[name] + wlaunches[name] + planches[name]
                        + slaunches[name] + blaunches[name]
                        + mblaunches[name] + mlaunches[name]
-                       + dlaunches[name] + prlaunches[name]),
+                       + dlaunches[name] + prlaunches[name]
+                       + surf_launches[name]),
              **dict(times[name],
                     max_abs_err=max(err[name], times[name]["max_abs_err"])))
         for name, (src, replaces, _) in KERNELS.items()] + [

@@ -24,7 +24,7 @@ def tier_of(min_need: int, hit_cap: int) -> int:
 
 
 def full_buckets(terms: np.ndarray, rs: np.ndarray, counts: np.ndarray,
-                 hit_cap: int, device="cpu"):
+                 hit_cap: int, device):
     """Group the mix's rows (terms, rs int32 [N, 2], -1 past a row's
     words) into (posting cap, W, hit tier) buckets in bucket order
     (benchmarks/common.py:221, without its asymmetric caps and wide

@@ -1,7 +1,8 @@
 """Posting-list algebra: the proximity-AND and OR-merge of ascending
 coordinate arrays and PostingSeq, the host engine's operand (copies of
-docodo_tpu/core/postings.py :35-200, ref Docodo.NET/IndexSequence.cs
-:205-322), without the varint wire format: the port has no storage.
+docodo_tpu/core/postings.py :35-210, ref Docodo.NET/IndexSequence.cs
+:205-322), with the varint wire format of the .index file over
+core/varint.
 
 AND (`*`, proximity with grouping window): the window is max(|R1|,
 |R2|), ordered (R < 0) iff both operands are; the merged coordinates cut
@@ -18,6 +19,8 @@ emitted once (per distinct value max(count_a, count_b) copies).
 from __future__ import annotations
 
 import numpy as np
+
+from docodo_tpu_torch.core import varint
 
 __all__ = ["PostingSeq", "group_and", "or_merge"]
 
@@ -149,8 +152,24 @@ class PostingSeq:
         coords, r = or_merge(self.coords, other.coords, self.R, other.R)
         return PostingSeq(coords, r)
 
+    @property
+    def order(self) -> bool:
+        """Whether the sequence is exact / ordered (R < 0)."""
+        return self.R < 0
+
+    def shift(self, delta: int) -> "PostingSeq":
+        """Every coordinate moved by `delta`, in place; returns self (ref
+        IndexSequence.cs:191-202)."""
+        if delta == 0 or self.coords.size == 0:
+            return self
+        self.coords = self.coords + np.uint64(delta)
+        return self
+
     def __len__(self) -> int:
         return int(self.coords.size)
+
+    def __iter__(self):
+        return iter(self.coords.tolist())
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, PostingSeq)
@@ -159,3 +178,17 @@ class PostingSeq:
 
     def __repr__(self) -> str:
         return f"PostingSeq(n={self.coords.size}, R={self.R})"
+
+    # the .index wire format: core/varint's 15-bit delta codec
+    def encode(self) -> np.ndarray:
+        return varint.encode(self.coords)
+
+    @classmethod
+    def from_encoded(cls, stream: np.ndarray, R: int = 0) -> "PostingSeq":
+        return cls(varint.decode(stream), R)
+
+    @property
+    def encoded_len(self) -> int:
+        """The u16 words of encode() (the reference's
+        IndexSequence.Count)."""
+        return varint.encoded_len(self.coords)

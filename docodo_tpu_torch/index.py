@@ -1008,6 +1008,15 @@ class Index:
     def max_coord(self) -> int:
         return self.arr.max_coord if self.arr is not None else 0
 
+    def __getitem__(self, term: str) -> PostingSeq:
+        """The posting list of an index key (index.py:158): a PostingSeq
+        of its coordinates, read from disk per lookup in lazy mode.
+        KeyError for a key the index lacks."""
+        coords = self.arr.get(term) if self.arr is not None else None
+        if coords is None:
+            raise KeyError(term)
+        return PostingSeq(coords)
+
     @property
     def is_creating(self) -> bool:
         return self.status != "Idle"

@@ -1,8 +1,9 @@
 """Snowball stemmers (English/Porter2, Russian, German, French): the
 pure-Python stemmers of docodo_tpu/lang/stemmers.py, copied for the port's
-own host build, and the bulk English and Russian stemmers of its native
-library (stem_en_bulk, stem_ru_bulk: one C call for many words, each
-result equal to the per-word Python stemmer's).
+own host build, the per-word English stemmer of its native library
+(stem_en takes it for the words it covers) and its bulk English and
+Russian stemmers (stem_en_bulk, stem_ru_bulk: one C call for many words,
+each result equal to the per-word Python stemmer's).
 
 Pure-Python implementations of the published Snowball algorithms, matching
 the stemmer family the reference links via the Iveonik.Stemmers NuGet
@@ -17,6 +18,9 @@ stemmers in a lock, ref Index.cs:158-173).
 """
 
 from __future__ import annotations
+
+import ctypes
+import threading
 
 __all__ = ["stem_en", "stem_ru", "stem_de", "stem_fr", "stem_en_bulk",
            "stem_ru_bulk", "KNOWN_STEMMERS", "BULK_STEMMERS"]
@@ -78,8 +82,35 @@ def _en_short_syllable_at_end(word):
     return False
 
 
+_tls = threading.local()
+
+
+def _native_stem_en(word: str):
+    """The native library's Porter2 (docodo_stem_en) for a word it
+    covers, ASCII of at most 60 characters; None for any other word. A
+    thread keeps one output buffer."""
+    try:
+        raw = word.encode("ascii")
+    except UnicodeEncodeError:
+        return None
+    from docodo_tpu_torch.native import get_lib
+
+    buf = getattr(_tls, "buf", None)
+    if buf is None:
+        buf = _tls.buf = ctypes.create_string_buffer(96)
+    n = get_lib().docodo_stem_en(raw, len(raw), buf)
+    if n < 0:
+        return None
+    return buf.raw[:n].decode("ascii")
+
+
 def stem_en(word: str) -> str:
-    """Porter2 / Snowball English stemmer."""
+    """Porter2 / Snowball English stemmer: the native one where it covers
+    the word (ASCII, at most 60 characters), else the Python one; both
+    give the same stem."""
+    ns = _native_stem_en(word)
+    if ns is not None:
+        return ns
     return _stem_en_py(word)
 
 

@@ -49,6 +49,9 @@ class WordCoder:
                           for _lang, fn, rng in stemmers.KNOWN_STEMMERS]
         self._cache: dict = {}
 
+    def clear_cache(self) -> None:
+        self._cache.clear()
+
     def codes(self, word: str) -> Tuple[str, ...]:
         """Index keys for a (lowercase) word; () for a stop word."""
         cached = self._cache.get(word)

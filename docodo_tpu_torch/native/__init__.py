@@ -63,6 +63,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.docodo_interner_export_range.restype = c.c_int64
     lib.docodo_interner_export_range.argtypes = [
         c.c_void_p, c.c_int64, c.c_int64, c.c_void_p, c.c_void_p]
+    lib.docodo_interner_get.restype = c.c_int32
+    lib.docodo_interner_get.argtypes = [c.c_void_p, c.c_int64, c.c_void_p,
+                                        c.c_int32]
+    lib.docodo_tokenize_intern_packed.restype = c.c_int64
+    lib.docodo_tokenize_intern_packed.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p,
+        c.c_int32, c.c_int32, c.c_void_p, c.c_int64]
+    lib.docodo_stem_en.restype = c.c_int64
+    lib.docodo_stem_en.argtypes = [c.c_char_p, c.c_int64, c.c_char_p]
     lib.docodo_tokenize_intern.restype = c.c_int64
     lib.docodo_tokenize_intern.argtypes = [
         c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p,

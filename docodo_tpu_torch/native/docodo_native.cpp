@@ -7,8 +7,10 @@
 //   * tokenize+intern: one pass over UTF-16 code units — case-fold,
 //     letter/digit classification, token segmentation (\p{L}+|\p{N}+,
 //     length 3..32 like ref Index.cs:97,113) and term-id interning into
-//     an open-addressing hash map with a string arena;
-//   * the English (Porter2) and Russian (Snowball) stemmers, in bulk;
+//     an open-addressing hash map with a string arena; the same pass
+//     emitting the device build's packed token rows;
+//   * the English (Porter2) stemmer a word at a time and in bulk, the
+//     Russian (Snowball) one in bulk;
 //   * the 15-bit varint codec of the .index file and its record walk.
 //
 // Exposed as a C ABI for ctypes; fold/class tables are built in Python
@@ -118,6 +120,18 @@ int64_t docodo_interner_count(void* p) {
     return (int64_t)((Interner*)p)->offs.size();
 }
 
+// Copy term `i` (UTF-16 units) into out (cap units); returns its
+// length (more than cap: call again with a larger buffer), or -1 for an
+// id out of range.
+int32_t docodo_interner_get(void* p, int64_t i, uint16_t* out, int32_t cap) {
+    Interner* in = (Interner*)p;
+    if (i < 0 || (size_t)i >= in->offs.size()) return -1;
+    int32_t len = in->lens[i];
+    int32_t n = len < cap ? len : cap;
+    std::memcpy(out, &in->arena[in->offs[i]], n * 2);
+    return len;
+}
+
 // Range export for incremental consumers: units + lengths of terms
 // [lo, hi). The arena is append-only in id order, so the slice is
 // contiguous. Returns the unit count copied (or required, out=null).
@@ -171,6 +185,53 @@ int64_t docodo_tokenize_intern(
         out_ids[count] = in->intern(buf, len);
         out_starts[count] = (int32_t)start;
         count++;
+    }
+    return count;
+}
+
+// One-pass tokenize + intern + pack: the device build's packed token
+// stream (ops/device_index.pack_tokens) straight from the scan, one
+// uint32 a token (12-bit coordinate delta | 20-bit term id); a gap of
+// 4095 units or more first emits escape rows (delta 4095, term
+// sentinel 2^20 - 1) that advance the coordinate cursor without a
+// posting. Returns the row count, or -1 once the vocabulary reaches the
+// sentinel id (the caller raises: the ids no longer fit a row).
+int64_t docodo_tokenize_intern_packed(
+    void* interner, const uint16_t* units, int64_t n,
+    const uint16_t* fold, const uint8_t* cls,
+    int32_t min_len, int32_t max_len,
+    uint32_t* out, int64_t max_rows) {
+    Interner* in = (Interner*)interner;
+    const uint32_t SENT = (1u << 20) - 1;
+    const int64_t DMAX = (1 << 12) - 1;
+    int64_t count = 0;
+    uint16_t buf[64];
+    int64_t i = 0, prev = 0;
+    while (i < n && count < max_rows) {
+        uint8_t c = cls[units[i]];
+        if (c == 0) {
+            i++;
+            continue;
+        }
+        int64_t start = i;
+        int32_t len = 0;
+        while (i < n && cls[units[i]] == c) {
+            if (len < 64) buf[len] = fold[units[i]];
+            len++;
+            i++;
+        }
+        if (min_len && (len < min_len || len > max_len)) continue;
+        if (len > 64) continue;
+        int32_t id = in->intern(buf, len);
+        if ((uint32_t)id >= SENT) return -1;
+        int64_t d = start - prev;
+        while (d >= DMAX && count < max_rows) {
+            out[count++] = ((uint32_t)DMAX << 20) | SENT;
+            d -= DMAX;
+        }
+        if (count >= max_rows) break;
+        out[count++] = ((uint32_t)d << 20) | (uint32_t)id;
+        prev = start;
     }
     return count;
 }
@@ -417,6 +478,12 @@ static int64_t stem_en_one(const char* in, int64_t len, char* out) {
     for (int j = 0; j < n; j++)
         out[j] = w[j] == 'Y' ? 'y' : w[j];
     return n;
+}
+
+// One word: the stem's length in out (64 bytes suffice), or -1 for a
+// word this path does not cover (non-ASCII, longer than 60).
+int64_t docodo_stem_en(const char* in, int64_t len, char* out) {
+    return stem_en_one(in, len, out);
 }
 
 // Bulk stem: words concatenated in `blob` with per-word `lens`;

@@ -1,16 +1,24 @@
 """Tokenize and intern through the native host library: the port's copy of
-docodo_tpu/native/pipeline.py (NativeInterner, tokenize_intern_native,
-parallel_tokenize_intern), without its varint codec, its packed
-tokenizer or its pure-Python interner (the pure-Python build is
-index.build_index(native=False)).
+docodo_tpu/native/pipeline.py (NativeInterner, the pure-Python
+_PyInterner, make_interner, tokenize_intern_native, tokenize_intern,
+tokenize_intern_packed, parallel_tokenize_intern, and varint_encode /
+varint_decode, which are core/varint's native codec under the JAX
+package's names).
 
 `tokenize_intern_native` is the host front of the index build: one C++
 pass over the raw text produces (term ids, starts) and grows an
-incremental term dictionary.
+incremental term dictionary. `tokenize_intern_packed` is the same pass
+emitting the device build's packed rows (ops/device_index.pack_tokens's
+layout) from the C loop.
 
-    it = NativeInterner()
-    ids, starts = tokenize_intern_native(text, it)  # int32 ids, UTF-16 starts
+    it = make_interner()                            # NativeInterner
+    ids, starts = tokenize_intern(text, it)         # int32 ids, UTF-16 starts
+    packed = tokenize_intern_packed(more_text, it)  # uint32 rows
     words = it.terms()                              # id -> term
+
+The pure-Python interner is taken only when the caller asks for it
+(`make_interner(native=False)`); the native library raises if it cannot
+be built, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from docodo_tpu_torch.core import varint
 from docodo_tpu_torch.lang import tokenizer
 from docodo_tpu_torch.native import get_lib
 
@@ -72,6 +81,19 @@ class NativeInterner:
     def __len__(self) -> int:
         return int(self._lib.docodo_interner_count(self._ptr))
 
+    def term_at(self, idx: int) -> str:
+        """The term of dense id `idx` (IndexError past the dictionary)."""
+        buf = np.empty(64, dtype=np.uint16)  # MAX_WORD_LENGTH is 32
+        n = int(self._lib.docodo_interner_get(self._ptr, idx, _addr(buf),
+                                              buf.size))
+        if n < 0:
+            raise IndexError(idx)
+        if n > buf.size:
+            buf = np.empty(n, dtype=np.uint16)
+            self._lib.docodo_interner_get(self._ptr, idx, _addr(buf),
+                                          buf.size)
+        return buf[:n].tobytes().decode("utf-16-le")
+
     def terms_range(self, lo: int, hi: int) -> List[str]:
         """Terms [lo, hi) in one export call: incremental consumers pull
         only the ids minted since their last call. A term holds no
@@ -117,6 +139,80 @@ def tokenize_intern_native(
         interner._ptr, _addr(units), n, _addr(fold), _addr(cls),
         min_len, max_len, _addr(out_ids), _addr(out_starts), cap)
     return out_ids[:cnt].copy(), out_starts[:cnt].copy()
+
+
+class _PyInterner:
+    """The term dictionary in a Python dict, with NativeInterner's surface
+    (the pure-Python path, taken only on request)."""
+
+    def __init__(self):
+        self._map: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def terms_range(self, lo: int, hi: int) -> List[str]:
+        """Terms [lo, hi): the dict's insertion order is the id order."""
+        return list(self._map)[lo:hi]
+
+    def terms(self) -> List[str]:
+        return list(self._map)
+
+    def close(self) -> None:
+        pass
+
+
+def make_interner(native: bool = True):
+    """A NativeInterner, or with native=False the pure-Python one."""
+    return NativeInterner() if native else _PyInterner()
+
+
+def tokenize_intern(text: str, interner, min_len: int = 3,
+                    max_len: int = 32) -> Tuple[np.ndarray, np.ndarray]:
+    """Tokenize+intern through either interner make_interner gives:
+    (term ids int32[N], starts int32[N]), the same arrays from both."""
+    if isinstance(interner, NativeInterner):
+        return tokenize_intern_native(text, interner, min_len, max_len)
+    words, starts = tokenizer.tokenize(text)
+    ids = np.empty(len(words), dtype=np.int32)
+    keep = np.zeros(len(words), dtype=bool)
+    m = interner._map
+    for i, w in enumerate(words):
+        if min_len and not min_len <= len(w) <= max_len:
+            continue
+        ids[i] = m.setdefault(w, len(m))
+        keep[i] = True
+    return ids[keep], starts[keep].astype(np.int32)
+
+
+def tokenize_intern_packed(text: str, interner, min_len: int = 3,
+                           max_len: int = 32) -> np.ndarray:
+    """One pass of tokenize+intern emitting the packed token rows of the
+    device build (uint32: 12-bit coordinate delta | 20-bit term id,
+    escape rows for gaps of 4095 units or more; ops/device_index
+    .pack_tokens's layout) from the C loop, with no packing pass over
+    the arrays. Raises ValueError once the vocabulary reaches the
+    2^20 - 1 sentinel id, as pack_tokens does. A _PyInterner's stream is
+    pack_tokens of tokenize_intern."""
+    from docodo_tpu_torch.ops.device_index import pack_tokens
+
+    if not isinstance(interner, NativeInterner):
+        return pack_tokens(*tokenize_intern(text, interner, min_len,
+                                            max_len))
+    fold, cls = _tables()
+    units = np.frombuffer(text.encode("utf-16-le"), dtype="<u2")
+    n = units.size
+    # tokens: at most n // min_len; escape rows: a gap's units / 4095
+    cap = (n if min_len < 2 else n // min_len + 1) + n // 4095 + 2
+    out = np.empty(cap, dtype=np.uint32)
+    cnt = interner._lib.docodo_tokenize_intern_packed(
+        interner._ptr, _addr(units), n, _addr(fold), _addr(cls),
+        min_len, max_len, _addr(out), cap)
+    if cnt < 0:
+        raise ValueError(f"the vocabulary reached {len(interner)} terms: "
+                         f"term ids must stay below 2^20 - 1 to fit a "
+                         f"packed row")
+    return out[:cnt].copy()
 
 
 def parallel_tokenize_intern(texts, workers: int = 0, min_len: int = 3,
@@ -172,3 +268,15 @@ def parallel_tokenize_intern(texts, workers: int = 0, min_len: int = 3,
             doc_ids[i] = remap[ids]
             doc_starts[i] = starts
     return doc_ids, doc_starts, terms
+
+
+def varint_encode(coords: np.ndarray) -> np.ndarray:
+    """Ascending coordinates -> their 15-bit varint u16 stream
+    (core/varint.encode, the native codec)."""
+    return varint.encode(coords)
+
+
+def varint_decode(words: np.ndarray) -> np.ndarray:
+    """A 15-bit varint u16 stream -> its uint64 coordinates
+    (core/varint.decode)."""
+    return varint.decode(words)

@@ -26,7 +26,15 @@ plain route below (query_step_full).
 The page-level path returns each query's top-k pages only (pages, ranks,
 counts). A bucket of W = 1 (cap <= 128) or W = 2 (cap <= 512) words goes
 through a page-level kernel, which ranks every run and picks the top k
-itself; every other bucket takes the torch route (query_step).
+itself; every other bucket takes the torch route (query_step), and rows
+of variant ORs take batched_query_step_variants.
+
+The chained forms of both dispatchers (multi_bucket_query_full_chained,
+multi_bucket_query_step_chained) take a 0-d tensor that enters the term
+ids as zero and return a checksum of their outputs, so that reps chained
+through it need one readback. The build's packed token stream
+(pack_tokens, split_packed, pack_tokens_split) builds on the device by
+build_postings_packed, a part at a time.
 """
 
 from __future__ import annotations
@@ -244,6 +252,54 @@ def pack_tokens(ids: np.ndarray, starts: np.ndarray) -> np.ndarray:
     out = np.full(int(token_pos[-1]) + 1, PACK_ESCAPE_ROW, dtype=np.uint32)
     out[token_pos] = (rem << np.uint32(PACK_TERM_BITS)) | ids.astype(
         np.uint32)
+    return out
+
+
+def split_packed(packed: np.ndarray, max_rows: int) -> List[np.ndarray]:
+    """A packed stream cut into parts of at most max_rows rows (numpy;
+    device_index.py:334). A later part keeps absolute coordinates: it
+    starts with escape rows that advance the cursor to the last
+    coordinate of the rows cut before it (the sum of their delta
+    fields), so every part builds on its own."""
+    out = []
+    while packed.size > max_rows:
+        part = packed[:max_rows]
+        out.append(part)
+        base = int((part >> np.uint32(PACK_TERM_BITS))
+                   .astype(np.int64).sum())
+        n_esc, rem = divmod(base, PACK_DELTA_MAX)
+        if n_esc + 1 >= max_rows:
+            raise ValueError(f"max_rows {max_rows} cannot hold the escape "
+                             f"prefix of {n_esc + 1} rows")
+        prefix = np.full(n_esc + (1 if rem else 0), PACK_ESCAPE_ROW,
+                         dtype=np.uint32)
+        if rem:
+            prefix[-1] = np.uint32((rem << PACK_TERM_BITS) | PACK_SENTINEL)
+        packed = np.concatenate([prefix, packed[max_rows:]])
+    out.append(packed)
+    return out
+
+
+def pack_tokens_split(ids: np.ndarray, starts: np.ndarray,
+                      max_rows: int) -> List[np.ndarray]:
+    """pack_tokens cut at tokens into parts of at most max_rows rows
+    (numpy; device_index.py:360). Each part packs absolute starts (its
+    first delta escapes across the text before it), so parts build on
+    their own."""
+    out = []
+    while ids.size:
+        deltas = np.diff(starts.astype(np.int64), prepend=np.int64(0))
+        token_pos = (np.arange(ids.size, dtype=np.int64)
+                     + np.cumsum(deltas // PACK_DELTA_MAX))
+        if token_pos[-1] < max_rows:
+            out.append(pack_tokens(ids, starts))
+            break
+        k = int(np.searchsorted(token_pos, max_rows, side="left"))
+        if k == 0:
+            raise ValueError(f"max_rows {max_rows} cannot hold the first "
+                             f"token's escape rows")
+        out.append(pack_tokens(ids[:k], starts[:k]))
+        ids, starts = ids[k:], starts[k:]
     return out
 
 
@@ -518,6 +574,19 @@ def batched_query_step(term_offsets, coords, bounds, page_doc, terms, rs,
     ranks f32[B, topk], counts int32[B, topk])."""
     return query_step(term_offsets, coords, bounds, page_doc, terms, rs,
                       cap, topk, small)
+
+
+def batched_query_step_variants(term_offsets, coords, bounds, page_doc,
+                                terms, rs, cap: int, topk: int, small=None):
+    """The page-level step of rows whose words are ORs of variants
+    (device_index.py:647): terms [B, W, V] (-1 padded both ways), rs
+    [B, W], the AND fold of each word's variant OR on the torch route,
+    then each row's top-k pages. Returns (pages int32[B, topk], ranks
+    f32[B, topk], counts int32[B, topk]); page_doc is unused, as
+    there."""
+    vals, keep, _ = eval_and_query_variants(coords, term_offsets, terms, rs,
+                                            cap, small)
+    return locate_topk_masked(vals, keep, bounds, topk)
 
 
 class LocateFull(NamedTuple):
@@ -904,6 +973,37 @@ def multi_bucket_query_full(term_offsets, coords, bounds, page_doc,
     return outs
 
 
+def _chained(terms_list, chain):
+    """Each bucket's terms with `chain` (a 0-d float32 tensor) mixed in as
+    zero: a call reading them waits for the call that made `chain`."""
+    zero = (chain * 0).to(torch.int32)
+    return [t + zero for t in terms_list]
+
+
+def multi_bucket_query_full_chained(term_offsets, coords, bounds, page_doc,
+                                    is_header, terms_list, rs_list, chain,
+                                    caps, topk: int, hit_caps,
+                                    with_docs: bool = True,
+                                    use_kernels: bool = False, small=None,
+                                    page_of=None):
+    """multi_bucket_query_full with a dependency chain (device_index.py
+    :1505): `chain`, a 0-d float32 tensor on the index's device, enters
+    the term ids as zero, and the call returns (outs, s) with s the sum
+    of every bucket's ranks plus the sum of its n_hits (float32). Reps
+    chained through s run in order, and one readback of the last s
+    waits for all of them. On the card the stream orders the calls
+    already; the chain keeps the data dependency and the checksum."""
+    outs = multi_bucket_query_full(
+        term_offsets, coords, bounds, page_doc, is_header,
+        _chained(terms_list, chain), rs_list, caps, topk, hit_caps,
+        with_docs=with_docs, use_kernels=use_kernels, small=small,
+        page_of=page_of)
+    s = chain.new_zeros(())
+    for o in outs:
+        s = s + o.ranks.sum() + o.n_hits.to(torch.float32).sum()
+    return outs, s
+
+
 def _kernel_bucket(term_offsets, coords, bounds, tq, rq, cap: int,
                    topk: int, small=None, page_of=None):
     """One page-level (cap, W <= 2) bucket through the page-level kernels
@@ -945,6 +1045,23 @@ def multi_bucket_query_step(term_offsets, coords, bounds, page_doc,
             outs.append(query_step(term_offsets, coords, bounds, page_doc,
                                    tq, rq, cap, topk, small))
     return tuple(outs)
+
+
+def multi_bucket_query_step_chained(term_offsets, coords, bounds, page_doc,
+                                    terms_list, rs_list, chain, caps,
+                                    topk: int, use_kernels: bool = False,
+                                    small=None, page_of=None):
+    """multi_bucket_query_step with the dependency chain of
+    multi_bucket_query_full_chained (device_index.py:1841): returns
+    (outs, s), s the sum of every bucket's ranks."""
+    outs = multi_bucket_query_step(
+        term_offsets, coords, bounds, page_doc, _chained(terms_list, chain),
+        rs_list, caps, topk, use_kernels=use_kernels, small=small,
+        page_of=page_of)
+    s = chain.new_zeros(())
+    for _, ranks, _ in outs:
+        s = s + ranks.sum()
+    return outs, s
 
 
 # ---------------------------------------------------------------------------
@@ -1064,6 +1181,11 @@ class DeviceIndex:
         for st in self.small or ():
             ts += [st.row_map, st.tab]
         return sum(x.numel() * x.element_size() for x in ts)
+
+    def header_mask(self) -> torch.Tensor:
+        """The staged header-page ("0") mask, bool[P] on the index's
+        device (device_index.py:1930)."""
+        return self.is_header
 
     def term_id(self, term: str) -> int:
         return self._tmap.get(term, -1)

@@ -14,6 +14,7 @@ scatter. The outputs and their tie-break orders are the contract.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INF32 = 2**31 - 1
@@ -291,3 +292,116 @@ def locate_compact(vals, keep, page, kpad: int, hpad: int):
     pg_c, rk_c, cnt, n_pages = page_runs(vals, keep, page, kpad)
     hits, n_hits = compact_hits(vals, keep, hpad)
     return pg_c, rk_c, cnt.to(torch.float32), n_pages, n_hits, hits
+
+
+# ---------------------------------------------------------------------------
+# the set operations on their own (seqops.py:65, :149, :411-441, :445):
+# the JAX package's device_and / device_or take one row and batch_and /
+# batch_or vmap them; here the batch forms are the core and the one-row
+# forms wrap it
+# ---------------------------------------------------------------------------
+
+def pad_to(coords, cap: int):
+    """An ascending list as a padded int32 row of `cap` lanes (numpy,
+    INF32 past its first cap values) and its count, np.int32."""
+    coords = np.asarray(coords, dtype=np.int64)
+    n = min(coords.size, cap)
+    out = np.full(cap, INF32, dtype=np.int32)
+    out[:n] = coords[:n]
+    return out, np.int32(n)
+
+
+def compact_mask(vals, mask, out_cap: int):
+    """The masked values of ascending streams [..., p] in the first
+    `out_cap` lanes, ascending, INF32 after them (a stable partition:
+    masking and sorting keeps the order)."""
+    out = torch.sort(torch.where(mask, vals, INF32), dim=-1).values
+    out = out[..., :out_cap]
+    if out_cap > out.shape[-1]:
+        out = torch.cat([out, out.new_full(
+            (*out.shape[:-1], out_cap - out.shape[-1]), INF32)], dim=-1)
+    return out
+
+
+def _compact_to(vals, keep, out_cap):
+    """compact, cut to the out_cap lowest kept values when out_cap is
+    narrower than the stream (seqops._compact)."""
+    out, n = compact(vals, keep)
+    if out_cap is not None and out_cap < out.shape[1]:
+        out, n = out[:, :out_cap], n.clamp_max(out_cap)
+    return out, n
+
+
+def batch_and(a, na, ra, b, nb, rb, out_cap=None):
+    """Proximity-AND with group emission (both operands' coordinates) of
+    rows a [B, p1], b [B, p2] with counts na / nb and windows ra / rb
+    [B]. Returns (coords int32[B, out_cap or p1 + p2] INF32-padded,
+    n int32[B], r int32[B])."""
+    vals, keep, r = and_masked(a, na, ra, b, nb, rb)
+    out, n = _compact_to(vals, keep, out_cap)
+    return out, n, r
+
+
+def batch_or(a, na, ra, b, nb, rb, out_cap=None):
+    """OR-merge of rows with cross-operand duplicates kept once; as
+    batch_and otherwise."""
+    vals, keep = or_masked(a, na, b, nb)
+    out, n = _compact_to(vals, keep, out_cap)
+    return out, n, combine_r(ra, rb)
+
+
+def _one_row(fn, a, na, ra, b, nb, rb, out_cap):
+    def col(x):
+        return torch.as_tensor(x, dtype=torch.int32,
+                               device=a.device).reshape(1)
+
+    out, n, r = fn(a[None], col(na), col(ra), b[None], col(nb), col(rb),
+                   out_cap)
+    return out[0], n[0], r[0]
+
+
+def device_and(a, na, ra, b, nb, rb, out_cap=None):
+    """batch_and of one row: a [p1], b [p2], the counts and windows
+    scalars. Returns (coords [out_cap or p1 + p2], n, r), n and r 0-d."""
+    return _one_row(batch_and, a, na, ra, b, nb, rb, out_cap)
+
+
+def device_or(a, na, ra, b, nb, rb, out_cap=None):
+    """batch_or of one row; as device_and."""
+    return _one_row(batch_or, a, na, ra, b, nb, rb, out_cap)
+
+
+def device_locate_rank(coords, n, bounds, page_doc, max_pages: int):
+    """One coordinate stream [P] of n hits -> per-hit page statistics.
+    A hit's page is searchsorted(bounds, coord, 'right') (capped at the
+    last page), its position the coordinate less the page's start; a
+    page run's rank is 1 + sum(30 // max(5, gap)) + ln(count) over its
+    hits (ref Search.cs:99-111), summed over the first max_pages runs.
+    page_doc is unused, as in the JAX package.
+
+    Returns (page int32[P], pos int32[P], first bool[P], page_rank
+    f32[P]); page_rank is nonzero only at a run's first hit."""
+    p = coords.shape[0]
+    dev = coords.device
+    valid = torch.arange(p, device=dev) < n
+    page = torch.searchsorted(bounds, coords, right=True).to(torch.int32)
+    page = page.clamp_max(bounds.shape[0] - 1)
+    base = torch.where(page > 0, bounds[(page - 1).clamp_min(0).long()], 0)
+    pos = torch.where(valid, coords - base, 0)
+    first = (page != _shift_right(page[None], -1)[0]) & valid
+    run_id = torch.cumsum(first.to(torch.int32), 0) - 1
+    gap = coords - _shift_right(coords[None], 0)[0]
+    bonus = torch.where(valid & ~first, 30 // gap.clamp_min(5), 0)
+    # runs past max_pages (and the slots before the first run) add to no
+    # run, as segment_sum drops them
+    ok = (run_id >= 0) & (run_id < max_pages)
+    rid = torch.where(ok, run_id, 0).long()
+    zeros = torch.zeros(max_pages, dtype=torch.float32, device=dev)
+    run_bonus = zeros.index_add(0, rid, torch.where(ok, bonus, 0).float())
+    run_count = zeros.index_add(0, rid, (valid & ok).float())
+    run_rank = torch.where(
+        run_count > 0,
+        1.0 + run_bonus + torch.log(run_count.clamp_min(1.0)), 0.0)
+    page_rank = torch.where(
+        first, run_rank[run_id.clamp(0, max_pages - 1).long()], 0.0)
+    return page, pos, first, page_rank

@@ -299,3 +299,27 @@ def test_profiling_matches_jax():
     assert [r for r in profiling.report() if r[0] == "p"][0][2] == 2
     profiling.reset()
     assert profiling.report() == [] and profiling.format_report() == ""
+
+
+def test_device_trace_and_annotate(tmp_path, monkeypatch):
+    """device_trace writes a Chrome trace holding the annotate spans under
+    out_dir, and, like the JAX package's without DOCODO_PROFILE_DIR,
+    does nothing without one; annotate lets an exception through."""
+    import json
+
+    import torch
+
+    monkeypatch.delenv("DOCODO_PROFILE_DIR", raising=False)
+    for mod, kw in ((profiling, {}), (jax_profiling, {})):
+        with mod.device_trace("none", **kw):
+            with mod.annotate("span"):
+                pass
+    assert not list(tmp_path.iterdir())
+    with profiling.device_trace("batch", str(tmp_path / "traces")):
+        with profiling.annotate("batch.full"):
+            torch.arange(10).sum()
+    events = json.loads((tmp_path / "traces" / "batch.json").read_text())
+    assert any(e.get("name") == "batch.full" for e in events["traceEvents"])
+    with pytest.raises(ValueError):
+        with profiling.annotate("fails"):
+            raise ValueError("through")

@@ -1598,3 +1598,128 @@ def test_probe_locate_no_rows_launches_nothing(cuda_device):
                           torch.ones(3, dtype=torch.int32, device=cuda_device))
     assert pk._cuda.PROBE_LOCATE.launches == before
     assert got[0].shape == (0, 128) and got[3].shape == (0,)
+
+
+def _chained_index(device):
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+    from docodo_tpu_torch.synthetic import build_index, zipf_documents
+
+    ind = build_index(zipf_documents(2_000_000, seed=3), device="cpu")
+    return DeviceIndex.from_index(ind, device=device)
+
+
+@pytest.mark.cuda
+def test_chained_calls_on_card_equal_unchained(cuda_device, monkeypatch):
+    """Three reps of the standard mix's buckets through
+    multi_bucket_query_full_chained on the kernel route, chained through
+    their checksums and read back once: every field equal to the
+    unchained call's, every checksum equal to the sums over its outputs,
+    the kernels launched; likewise the page-level step."""
+    from docodo_tpu_torch.mix import mix_queries, standard_mix
+    from docodo_tpu_torch.ops import _cuda
+    from docodo_tpu_torch.ops import device_index as di
+
+    dix = _chained_index(cuda_device)
+    terms, rs = standard_mix(np.diff(dix.offsets_np), dix.terms, 2000)
+    queries = mix_queries(terms, rs, dix.terms)
+    seen = {}
+    for name in ("multi_bucket_query_full", "multi_bucket_query_step"):
+        def record(*a, _inner=getattr(di, name), _name=name, **k):
+            seen[_name] = (a, k)
+            return _inner(*a, **k)
+        monkeypatch.setattr(di, name, record)
+    dix.search_batch_full(queries, topk=64, hit_cap=1024, use_kernels=True)
+    dix.search_batch(queries, topk=16, use_kernels=True)
+    monkeypatch.undo()
+    for name, fields in (("multi_bucket_query_full",
+                          ("pages", "ranks", "counts", "n_pages", "docs",
+                           "doc_ranks", "hits", "n_hits")),
+                         ("multi_bucket_query_step", (0, 1, 2))):
+        a, k = seen[name]
+        split = 5 if name.endswith("full") else 4
+        plain = getattr(di, name)(*a, **k)
+        want = torch.zeros((), device=cuda_device)
+        for o in plain:
+            want = (want + o.ranks.sum() + o.n_hits.float().sum()
+                    if name.endswith("full") else want + o[1].sum())
+        for kern in _cuda.KERNELS.values():
+            kern.launches = 0
+        chain = torch.zeros((), device=cuda_device)
+        reps = []
+        for _ in range(3):
+            outs, chain = getattr(di, name + "_chained")(
+                *a[:split + 2], chain, *a[split + 2:], **k)
+            reps.append((outs, chain))
+        assert float(chain) == float(want) > 0
+        assert sum(kern.launches for kern in _cuda.KERNELS.values()) > 0
+        for outs, s in reps:
+            assert float(s) == float(want)
+            for g, w in zip(outs, plain):
+                for f in fields:
+                    x = g[f] if isinstance(f, int) else getattr(g, f)
+                    y = w[f] if isinstance(f, int) else getattr(w, f)
+                    assert x.is_cuda and torch.equal(x, y), (name, f)
+
+
+@pytest.mark.cuda
+def test_set_ops_on_card_equal_cpu(cuda_device):
+    """device_and / device_or / batch_and / batch_or / device_locate_rank
+    and batched_query_step_variants on the card against the same calls
+    on the CPU, on seeded posting lists: ints exact, ranks within 1 ulp."""
+    from docodo_tpu_torch.ops import device_index as di
+    from docodo_tpu_torch.ops import seqops
+
+    rng = np.random.default_rng(23)
+    bsz, cap = 64, 512
+    base = np.cumsum(rng.integers(1, 40, size=(bsz, 2 * cap)), axis=1)
+    pick = lambda: np.sort(np.argsort(rng.random((bsz, 2 * cap)), axis=1)
+                           [:, :cap], axis=1)
+    a = np.take_along_axis(base, pick(), axis=1).astype(np.int32)
+    b = np.take_along_axis(base, pick(), axis=1).astype(np.int32)
+    na = rng.integers(0, cap + 1, bsz).astype(np.int32)
+    nb = rng.integers(0, cap + 1, bsz).astype(np.int32)
+    ra = np.where(np.arange(bsz) % 2 == 0, 25, -25).astype(np.int32)
+    rb = np.full(bsz, 20, dtype=np.int32)
+    cpu = [torch.from_numpy(x) for x in (a, na, ra, b, nb, rb)]
+    card = [x.to(cuda_device) for x in cpu]
+    for op in (seqops.batch_and, seqops.batch_or):
+        for out_cap in (None, 300):
+            for g, w in zip(op(*card, out_cap=out_cap),
+                            op(*cpu, out_cap=out_cap)):
+                assert g.is_cuda and torch.equal(g.cpu(), w)
+    for op in (seqops.device_and, seqops.device_or):
+        for q in range(0, bsz, 9):
+            args = [x[q] for x in card]
+            for g, w in zip(op(*args), op(*[x[q] for x in cpu])):
+                assert torch.equal(g.cpu(), w)
+    bounds = torch.from_numpy(np.cumsum(rng.integers(50, 900, 400))
+                              .astype(np.int32))
+    page_doc = torch.arange(400, dtype=torch.int32) // 4
+    out, n, _ = seqops.batch_and(*cpu)
+    for q in range(0, bsz, 7):
+        got = seqops.device_locate_rank(out[q].to(cuda_device), n[q],
+                                        bounds.to(cuda_device),
+                                        page_doc.to(cuda_device), 256)
+        want = seqops.device_locate_rank(out[q], n[q], bounds, page_doc, 256)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g.cpu(), w)
+        assert _ulps(got[3].cpu(), want[3]) <= 1
+
+    dix = _chained_index("cpu")
+    ddx = _chained_index(cuda_device)
+    counts = np.diff(dix.offsets_np)
+    pool = np.flatnonzero((counts > 64) & (counts <= 128))
+    terms = rng.choice(pool, size=(256, 2, 3)).astype(np.int32)
+    terms[::3, :, 2] = -1
+    rs = np.where(rng.random((256, 2)) < 0.3, -9, 262).astype(np.int32)
+    t, r = torch.from_numpy(terms), torch.from_numpy(rs)
+    want = di.batched_query_step_variants(
+        dix.term_offsets, dix.coords, dix.bounds, dix.page_doc, t, r, 128,
+        16, dix.small)
+    got = di.batched_query_step_variants(
+        ddx.term_offsets, ddx.coords, ddx.bounds, ddx.page_doc,
+        t.to(cuda_device), r.to(cuda_device), 128, 16, ddx.small)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert _ulps(got[1].cpu(), want[1]) <= 1
+    assert (want[2] > 0).any()

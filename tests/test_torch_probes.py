@@ -283,7 +283,7 @@ def test_full_buckets_matches_the_original():
     ind = build_index(zipf_documents(2_000_000, seed=0), device="cpu")
     counts = np.diff(ind.arr.offsets)
     terms, rs = standard_mix(counts, ind.arr.terms, 10_000)
-    got = bc.full_buckets(terms, rs, counts, 1024)
+    got = bc.full_buckets(terms, rs, counts, 1024, device="cpu")
     want = jax_bc.full_buckets(terms, rs, counts, 1024)
     assert got[2] == want[2] and got[3] == want[3]
     for g, w in zip(got[0] + got[1], want[0] + want[1]):

@@ -188,9 +188,11 @@ def test_port_imports_no_jax():
     HTTP server, the sharded layout (parallel/: a ShardedDeviceIndex
     on two CPU shards), the console app and the data sources, an index
     written to disk and loaded back, a build of two threads that
-    spills, the standalone builder, SearchOptions and the probes
-    (benchmarks/) run without loading jax, the JAX package or the
-    benchmarks."""
+    spills, the standalone builder, SearchOptions, the probes
+    (benchmarks/), the packed tokenizer and split parts, the chained
+    calls, the page-level variant step, the set operations, Index[term],
+    stem_en and the device traces run without loading jax, the JAX
+    package or the benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -314,6 +316,52 @@ def test_port_imports_no_jax():
             np.random.default_rng(0), 16, 64, 60_000, "cpu"),
             dix.bounds, dix.device)
         assert profile_cap64.stages
+        import torch
+        from docodo_tpu_torch.native import pipeline
+        from docodo_tpu_torch.ops import device_index as tdi, seqops
+        it = pipeline.make_interner()
+        rows = pipeline.tokenize_intern_packed("alpha beta  gamma", it)
+        assert it.term_at(1) == "beta" and rows.size == 3
+        assert np.array_equal(rows, tdi.pack_tokens(
+            *pipeline.tokenize_intern("alpha beta  gamma",
+                                      pipeline.make_interner(native=False))))
+        assert sum(p.size for p in tdi.split_packed(rows, 2)) >= 3
+        assert len(tdi.pack_tokens_split(np.arange(3, dtype=np.int32),
+                                         np.array([0, 6, 12]), 2)) == 2
+        assert pipeline.varint_decode(pipeline.varint_encode(
+            np.arange(3))).tolist() == [0, 1, 2]
+        from docodo_tpu_torch.lang.stemmers import stem_en
+        assert stem_en("running") == "run"
+        t, r, cap = dix.compile_queries([[(dix.terms[10], 260)]])
+        args = (dix.term_offsets, dix.coords, dix.bounds, dix.page_doc)
+        (step,), s = tdi.multi_bucket_query_step_chained(
+            *args, [torch.as_tensor(t)], [torch.as_tensor(r)],
+            torch.zeros(()), [cap], 16, use_kernels=True, small=dix.small,
+            page_of=dix.page_of)
+        assert float(s) == float(step[1].sum()) > 0
+        (full,), s = tdi.multi_bucket_query_full_chained(
+            *args, dix.header_mask(), [torch.as_tensor(t)],
+            [torch.as_tensor(r)], torch.zeros(()), [cap], 64, [512],
+            use_kernels=True, small=dix.small, page_of=dix.page_of)
+        assert float(s) > 0 and int(full.n_hits[0]) > 0
+        pv = tdi.batched_query_step_variants(
+            *args, torch.as_tensor(t)[:, :, None], torch.as_tensor(r), cap,
+            16, dix.small)
+        assert torch.equal(pv[0], step[0])
+        a = torch.tensor([3, 9, 40], dtype=torch.int32)
+        assert seqops.device_and(a, 3, 5, a + 2, 3, 5)[1] == 6
+        assert seqops.batch_or(a[None], torch.tensor([3]), torch.tensor([1]),
+                               a[None], torch.tensor([3]),
+                               torch.tensor([1]))[1].tolist() == [3]
+        pc, pn = seqops.pad_to([5, 8, 120], 8)
+        assert seqops.device_locate_rank(torch.from_numpy(pc), pn,
+                                         dix.bounds, dix.page_doc,
+                                         8)[2].any()
+        assert idx["pickwick"].encoded_len == 1
+        assert list(idx["pickwick"]) == idx["pickwick"].coords.tolist()
+        idx.word_coder.clear_cache()
+        with profiling.device_trace("t"), profiling.annotate("t"):
+            pass
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "docodo_tpu", "benchmarks")]
         assert not loaded, loaded

@@ -93,6 +93,22 @@ def test_load_stop_words_matches(stop_file):
     assert got == jax_load_stop_words(stop_file) == set(STOP_WORDS)
 
 
+def test_word_coder_clear_cache_matches():
+    """clear_cache empties the codes cache as the JAX package's does: a
+    stop word added after a word was coded takes effect only then."""
+    mine = WordCoder(vocs=[Vocab(RU_VOC)], stop_words=set())
+    theirs = JaxWordCoder(vocs=[JaxVocab(str(RU_VOC))], stop_words=set())
+    words = list(ENGLISH) + ru_forms(Vocab(RU_VOC))[:40]
+    for coder in (mine, theirs):
+        before = [coder.codes(w) for w in words]
+        coder.stop_words.add(words[0])
+        assert coder.codes(words[0]) == before[0] != ()
+        coder.clear_cache()
+        assert coder._cache == {}
+        assert coder.codes(words[0]) == ()
+    assert [mine.codes(w) for w in words] == [theirs.codes(w) for w in words]
+
+
 @pytest.mark.parametrize("setup", ["ru", "ru+en", "none+ru", "stop only"])
 def test_word_coder_matches(setup):
     """The vocabulary branch of WordCoder: group keys, the last-lookup

@@ -15,6 +15,7 @@ tail) and False (the top-k-mode kernels).
     python3 tools/profile_batch.py [--leg full|page|serve]
                                    [--mix standard|wide]
                                    [--corpus-mb 64] [--seed 0] [--out FILE]
+                                   [--trace-dir DIR]
 
 Prints, per route:
   - the whole batch and its phases over RUNS warm runs, the routes
@@ -33,7 +34,8 @@ little slower than unsplit. The last line is one JSON object with all of
 it, also written to --out. The serve leg prints per route the pass and
 its per-wave medians instead (the whole deferred call, the part of it
 inside the buckets' launches, finish), buckets and kernel launches per
-wave, the escalated pass, and the profiler's figures. Imports no jax.
+wave, the escalated pass, and the profiler's figures. --trace-dir writes
+one more batch a route as a Chrome trace there. Imports no jax.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from docodo_tpu_torch.mix import (  # noqa: E402
 )
 from docodo_tpu_torch.ops import device_index as tdi  # noqa: E402
 from docodo_tpu_torch.synthetic import build_index, zipf_documents  # noqa: E402
+from docodo_tpu_torch.utils import profiling  # noqa: E402
 
 TOPK = 64
 HIT_CAP = 1024
@@ -352,10 +355,14 @@ def page_bucket_times(dix, queries, use_kernels: bool) -> list:
 
 
 def profiled_batch(dix, queries, use_kernels: bool, leg: str,
-                   top: int = 8) -> dict:
+                   top: int = 8, trace_dir=None, label: str = "") -> dict:
     """One batch under torch.profiler: summed device time of every
     kernel and copy against the profiled wall. Only device-side events
-    count: a host op carries the device time of what it launched."""
+    count: a host op carries the device time of what it launched. With
+    trace_dir, one more batch is traced (profiling.device_trace) into
+    the Chrome trace `<trace_dir>/<label>.json`, the batch a span of its
+    own (`batch.<leg>`; the measured batch has no span, since the
+    profiler counts a span's device time as an item of its own)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -363,6 +370,9 @@ def profiled_batch(dix, queries, use_kernels: bool, leg: str,
         run_batch(dix, queries, use_kernels, leg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    with profiling.device_trace(label, trace_dir):
+        with profiling.annotate(f"batch.{leg}"):
+            run_batch(dix, queries, use_kernels, leg)
 
     def dev_us(e):
         return float(getattr(e, "self_device_time_total", None)
@@ -400,6 +410,8 @@ def main() -> None:
     ap.add_argument("--corpus-mb", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--trace-dir", default=None,
+                    help="write a Chrome trace of one batch a route here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_batch: no CUDA device")
@@ -425,7 +437,7 @@ def main() -> None:
               "corpus_mb": args.corpus_mb,
               "seed": args.seed, "runs": RUNS, "routes": {}}
     if leg == "serve":
-        serve_report(dix, queries, report, smi)
+        serve_report(dix, queries, report, smi, args.trace_dir)
         return finish_report(report, args.out)
     for use in ROUTES.values():  # warm both routes
         run_batch(dix, queries, use, leg)
@@ -439,7 +451,9 @@ def main() -> None:
         timer = page_bucket_times if leg == "page" else bucket_times
         rep = {"phases_ms": summarize(phased[name]),
                "buckets": timer(dix, queries, use),
-               "profile": profiled_batch(dix, queries, use, leg)}
+               "profile": profiled_batch(
+                   dix, queries, use, leg, trace_dir=args.trace_dir,
+                   label=f"{leg}_{args.mix}_{name}")}
         report["routes"][name] = rep
         print(f"== {name} route ({smi})")
         for key, v in rep["phases_ms"].items():
@@ -468,7 +482,8 @@ def finish_report(report: dict, out) -> None:
     print(line)
 
 
-def serve_report(dix, queries, report: dict, smi: str) -> None:
+def serve_report(dix, queries, report: dict, smi: str,
+                 trace_dir=None) -> None:
     """The serve leg: RUNS passes per sort_topk mode, alternating, and
     one profiled pass each."""
     for st in SERVE_ROUTES.values():  # warm both modes
@@ -502,7 +517,9 @@ def serve_report(dix, queries, report: dict, smi: str) -> None:
                "still_truncated": still_truncated(last["esc_out"]),
                "bucket_shapes": shape_counts(last["stats"]),
                "esc_bucket_shapes": shape_counts(last["esc_stats"]),
-               "profile": profiled_batch(dix, queries, st, "serve")}
+               "profile": profiled_batch(
+                   dix, queries, st, "serve", trace_dir=trace_dir,
+                   label=f"serve_{name.replace(' ', '_')}")}
         report["routes"][name] = rep
         print(f"== serving path, {name} (sort_topk={st}) ({smi})")
         for key in ("waves", "buckets", "launches", "plain_buckets",
