@@ -740,8 +740,10 @@ def _build_docs(source_name: str, docs, builder: "IndexBuilder", coord: int,
                 if len(page.text) == 0:
                     continue
                 if page.id == "0":
-                    flush()
-                    coord = _index_header_page(builder, page.text, coord)
+                    with profiling.phase("build.header"):
+                        flush()
+                        coord = _index_header_page(builder, page.text,
+                                                   coord)
                 elif builder.interner is not None:
                     if not body:
                         body_at = coord

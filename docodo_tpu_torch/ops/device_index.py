@@ -39,9 +39,10 @@ build_postings_packed, a part at a time.
 
 from __future__ import annotations
 
+import itertools
 import threading
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,6 +61,7 @@ from docodo_tpu_torch.ops.seqops import (
     page_runs,
     rank_in_sorted,
 )
+from docodo_tpu_torch.utils import profiling
 
 # the JAX package's small-table widths and budget (device_index.py:76,
 # 149); its DOCODO_SMALL_TAB* overrides are not read here
@@ -706,12 +708,15 @@ def _fetcher(coords, term_offsets, small, page_of, cap: int, carried: bool):
 
     def fetch(terms):
         flat = terms.reshape(-1)
-        if carried:
-            vals, pgs, ln = gather_term_paged(coords, page_of, term_offsets,
-                                              flat, cap, small)
-        else:
-            vals, ln = gather_term(coords, term_offsets, flat, cap, small)
-            pgs = None
+        with profiling.span("route.fetch"):
+            if carried:
+                vals, pgs, ln = gather_term_paged(coords, page_of,
+                                                  term_offsets, flat, cap,
+                                                  small)
+            else:
+                vals, ln = gather_term(coords, term_offsets, flat, cap,
+                                       small)
+                pgs = None
         shape = tuple(terms.shape)
         return (vals.reshape(shape + (cap,)),
                 None if pgs is None else pgs.reshape(shape + (cap,)),
@@ -733,8 +738,9 @@ def _pack(outs, tail: bool, ranked: bool = True):
         return PreFull(*outs)
     pages, ranks, counts, n_pages, n_hits, hits = outs
     if not ranked:
-        pages, ranks, counts, _ = qk.streams_topk_tail(
-            pages, ranks, counts, n_pages, pages.shape[1])
+        with profiling.span("tail.topk"):
+            pages, ranks, counts, _ = qk.streams_topk_tail(
+                pages, ranks, counts, n_pages, pages.shape[1])
     return LocateFull(pages=pages, ranks=ranks, counts=counts,
                       n_pages=n_pages, docs=None, doc_ranks=None, hits=hits,
                       n_hits=n_hits)
@@ -764,12 +770,15 @@ def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
             return None
         a, apg, na = fetch(tq[:, 0])
         if w == 1:
-            return _pack(qk.union_locate_full(a, na, bounds, a_pg=apg, **kw),
-                         tail)
+            with profiling.span("route.locate"):
+                outs = qk.union_locate_full(a, na, bounds, a_pg=apg, **kw)
+            return _pack(outs, tail)
         b, bpg, nb = fetch(tq[:, 1])
-        return _pack(qk.variants_and_locate_full(
-            a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
-            tq[:, 1, 0] < 0, bounds, a_pg=apg, b_pg=bpg, **kw), tail)
+        with profiling.span("route.locate"):
+            outs = qk.variants_and_locate_full(
+                a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
+                tq[:, 1, 0] < 0, bounds, a_pg=apg, b_pg=bpg, **kw)
+        return _pack(outs, tail)
     if tq.dim() == 3:
         tq = tq[:, :, 0]
     single = w == 1
@@ -779,17 +788,20 @@ def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
         return None
     a, apg, na = fetch(tq[:, 0])
     kw["a_pg"] = apg
-    if single and cap > qk.MAX_PALLAS_CAP:
-        outs = qk.union_locate_full(
-            a[:, None, :], na[:, None], bounds,
-            **dict(kw, a_pg=None if apg is None else apg[:, None, :]))
-    elif single:
-        outs = qk.single_locate_full(a, na, bounds, **kw)
-    else:
+    b = bpg = nb = None
+    if not single:
         b, bpg, nb = fetch(tq[:, 1])
-        outs = qk.sorted_and_locate_full(
-            a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
-            bounds, b_pg=bpg, **kw)
+    with profiling.span("route.locate"):
+        if single and cap > qk.MAX_PALLAS_CAP:
+            outs = qk.union_locate_full(
+                a[:, None, :], na[:, None], bounds,
+                **dict(kw, a_pg=None if apg is None else apg[:, None, :]))
+        elif single:
+            outs = qk.single_locate_full(a, na, bounds, **kw)
+        else:
+            outs = qk.sorted_and_locate_full(
+                a, na, rq[:, 0].contiguous(), b, nb, rq[:, 1].contiguous(),
+                bounds, b_pg=bpg, **kw)
     return _pack(outs, tail)
 
 
@@ -843,42 +855,60 @@ def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
     if v > 1:
         a, apg, na = fetch(tq[:, 0])
         if w == 1:
-            vals, tag, pg = qk.merge_tagged(a, na, None, None, apg)
-            ones = torch.ones_like(na[:, 0])
-            hv = qk.variants_keep(vals, tag, ones, ones, ones)
+            with profiling.span("route.merge"):
+                vals, tag, pg = qk.merge_tagged(a, na, None, None, apg)
+            with profiling.span("route.keep"):
+                ones = torch.ones_like(na[:, 0])
+                hv = qk.variants_keep(vals, tag, ones, ones, ones)
         else:
             b, bpg, nb = fetch(tq[:, 1])
-            vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
-            hv = qk.variants_keep(vals, tag, rq[:, 0].contiguous(),
-                                  rq[:, 1].contiguous(), tq[:, 1, 0] < 0)
-        return _pack(qk.locate_runs(hv, bounds, pg=pg, **kw), tail, False)
+            with profiling.span("route.merge"):
+                vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
+            with profiling.span("route.keep"):
+                hv = qk.variants_keep(vals, tag, rq[:, 0].contiguous(),
+                                      rq[:, 1].contiguous(), tq[:, 1, 0] < 0)
+        with profiling.span("route.locate"):
+            outs = qk.locate_runs(hv, bounds, pg=pg, **kw)
+        return _pack(outs, tail, False)
     if tq.dim() == 3:
         tq = tq[:, :, 0]
     a, apg, na = fetch(tq[:, 0])
     if w == 1:
-        return _pack(qk.locate_runs(a, bounds, pg=apg, **kw), tail, False)
+        with profiling.span("route.locate"):
+            outs = qk.locate_runs(a, bounds, pg=apg, **kw)
+        return _pack(outs, tail, False)
     ra = rq[:, 0].contiguous()
     if w == 2 and carried and 2 * cap <= qk.FUSED_AND_MAX:
         b, bpg, nb = fetch(tq[:, 1])
         rb = rq[:, 1].contiguous()
         if sort_topk:
-            return _pack(qk.merge_and_locate_topk(a, na, ra, b, nb, rb, apg,
-                                                  bpg, **kw), tail, False)
-        hv, page_s, rank_s, cnt_s = qk.merge_and_locate(a, na, ra, b, nb, rb,
-                                                        apg, bpg)
-        hits, n_hits = compact_hits(hv, hv < INF32, hit_cap)
-        pages, ranks, counts, n_pages = qk.locate_streams_topk(
-            page_s, rank_s, cnt_s, topk)
+            with profiling.span("route.fused"):
+                outs = qk.merge_and_locate_topk(a, na, ra, b, nb, rb, apg,
+                                                bpg, **kw)
+            return _pack(outs, tail, False)
+        with profiling.span("route.fused"):
+            hv, page_s, rank_s, cnt_s = qk.merge_and_locate(
+                a, na, ra, b, nb, rb, apg, bpg)
+        with profiling.span("route.keep"):
+            hits, n_hits = compact_hits(hv, hv < INF32, hit_cap)
+        with profiling.span("route.locate"):
+            pages, ranks, counts, n_pages = qk.locate_streams_topk(
+                page_s, rank_s, cnt_s, topk)
         return _pack((pages, ranks, counts, n_pages, n_hits, hits), tail)
     for q in range(1, w):
         b, bpg, nb = fetch(tq[:, q])
         rb = rq[:, q].contiguous()
-        vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
+        with profiling.span("route.merge"):
+            vals, tag, pg = qk.merge_tagged(a, na, b, nb, apg, bpg)
         if q < w - 1:
-            a, apg, na = qk.and_keep_compact(vals, tag, ra, rb, pg)
+            with profiling.span("route.keep"):
+                a, apg, na = qk.and_keep_compact(vals, tag, ra, rb, pg)
             ra = combine_r(ra, rb)
-    hv = qk.and_keep(vals, tag, ra, rb)
-    return _pack(qk.locate_runs(hv, bounds, pg=pg, **kw), tail, False)
+    with profiling.span("route.keep"):
+        hv = qk.and_keep(vals, tag, ra, rb)
+    with profiling.span("route.locate"):
+        outs = qk.locate_runs(hv, bounds, pg=pg, **kw)
+    return _pack(outs, tail, False)
 
 
 def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
@@ -904,13 +934,16 @@ def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
             if out is None:
                 continue
             if tail and with_docs:
-                docs, doc_ranks = doc_group_topk(out.pages, out.ranks,
-                                                 page_doc, is_header)
+                with profiling.span("tail.docs"):
+                    docs, doc_ranks = doc_group_topk(out.pages, out.ranks,
+                                                     page_doc, is_header)
                 out = out._replace(docs=docs, doc_ranks=doc_ranks)
             return out
-    return query_step_full(term_offsets, coords, bounds, page_doc,
-                           is_header, tq, rq, cap=cap, topk=topk,
-                           hit_cap=hit_cap, with_docs=with_docs, small=small)
+    with profiling.span("route.plain"):
+        return query_step_full(term_offsets, coords, bounds, page_doc,
+                               is_header, tq, rq, cap=cap, topk=topk,
+                               hit_cap=hit_cap, with_docs=with_docs,
+                               small=small)
 
 
 def batched_query_full(term_offsets, coords, bounds, page_doc, is_header,
@@ -951,15 +984,17 @@ def multi_bucket_query_full(term_offsets, coords, bounds, page_doc,
     idxs = [i for i, o in enumerate(outs) if isinstance(o, PreFull)]
     if idxs:
         pre = [outs[i] for i in idxs]
-        pages, ranks, counts, _ = qk.streams_topk_tail(
-            torch.cat([p.pg_c for p in pre]),
-            torch.cat([p.rk_c for p in pre]),
-            torch.cat([p.ct_c for p in pre]),
-            torch.cat([p.n_pages for p in pre]), topk)
+        with profiling.span("tail.topk"):
+            pages, ranks, counts, _ = qk.streams_topk_tail(
+                torch.cat([p.pg_c for p in pre]),
+                torch.cat([p.rk_c for p in pre]),
+                torch.cat([p.ct_c for p in pre]),
+                torch.cat([p.n_pages for p in pre]), topk)
         docs = doc_ranks = None
         if with_docs:
-            docs, doc_ranks = doc_group_topk(pages, ranks, page_doc,
-                                             is_header)
+            with profiling.span("tail.docs"):
+                docs, doc_ranks = doc_group_topk(pages, ranks, page_doc,
+                                                 is_header)
         off = 0
         for i, p in zip(idxs, pre):
             sl = slice(off, off + p.pg_c.shape[0])
@@ -1095,6 +1130,9 @@ class DeviceIndex:
     # a batcher's collector and completion threads both fill the cache
     _cgq_lock: threading.Lock = field(default_factory=threading.Lock,
                                       repr=False)
+    # search_batch_full's sequence numbers, which its spans carry
+    _batch_seq: Iterator[int] = field(default_factory=itertools.count,
+                                      repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -1122,7 +1160,8 @@ class DeviceIndex:
         header_np = np.fromiter((pid == "0" for pid in pt.page_ids),
                                 dtype=bool, count=len(pt.page_ids))
         coords64 = arr.coords.astype(np.int64)
-        pages_np = build_page_of(bounds_np, coords64)
+        with profiling.phase("stage.page_of"):
+            pages_np = build_page_of(bounds_np, coords64)
         arrays = {
             "term_offsets": offsets_np.astype(np.int32),
             "coords": coords64.astype(np.int32),
@@ -1131,11 +1170,15 @@ class DeviceIndex:
             "is_header": header_np,
             "page_of": pages_np,
         }
-        small = build_small_tables(offsets_np, coords64, pages_np=pages_np)
-        for i, st in enumerate(small or ()):
-            arrays.update(_small_state(i, st))
-        return cls.from_state(arrays, list(arr.terms), list(pt.page_ids),
-                              list(pt.doc_names), device=device)
+        with profiling.phase("stage.small_tables"):
+            small = build_small_tables(offsets_np, coords64,
+                                       pages_np=pages_np)
+            for i, st in enumerate(small or ()):
+                arrays.update(_small_state(i, st))
+        with profiling.phase("stage.copies"):
+            return cls.from_state(arrays, list(arr.terms),
+                                  list(pt.page_ids), list(pt.doc_names),
+                                  device=device)
 
     @classmethod
     def from_state(cls, arrays, terms, page_ids, doc_names,
@@ -1285,6 +1328,11 @@ class DeviceIndex:
         """One group query [(codes, r), ...] -> (id rows, rs, w, v, cap
         need, min_need), or None when some group has no known term
         (device_index.py:2106). Cached per query."""
+        return self._compile_cached(query)[0]
+
+    def _compile_cached(self, query):
+        """compile_group_query's result and how the cache served it: 0 a
+        hit, 1 a miss, 2 a miss the cache, at its cap, could not keep."""
         try:
             key = tuple(
                 (codes if isinstance(codes, str) else tuple(codes), r)
@@ -1293,15 +1341,16 @@ class DeviceIndex:
         except TypeError:
             key = None
         if key is None:
-            return self._compile_group_query_uncached(query)
+            return self._compile_group_query_uncached(query), 1
         with self._cgq_lock:
             if key in self._cgq_cache:
-                return self._cgq_cache[key]
+                return self._cgq_cache[key], 0
         out = self._compile_group_query_uncached(query)
         with self._cgq_lock:
             if len(self._cgq_cache) < 200_000:
                 self._cgq_cache[key] = out
-        return out
+                return out, 1
+        return out, 2
 
     def _compile_group_query_uncached(self, query):
         rows, rvals = [], []
@@ -1382,124 +1431,161 @@ class DeviceIndex:
             raise ValueError("sort_topk=False needs the per-bucket path: "
                              "fused=False or clamp_budgets=True")
         b = len(queries)
-        out = {
-            "pages": np.full((b, topk), -1, dtype=np.int32),
-            "ranks": np.zeros((b, topk), dtype=np.float32),
-            "counts": np.zeros((b, topk), dtype=np.int32),
-            "n_pages": np.zeros(b, dtype=np.int32),
-            "n_hits": np.zeros(b, dtype=np.int32),
-            "hits": np.full((b, hit_cap), INF32, dtype=np.int32),
-        }
-        if want_docs:
-            out["docs"] = np.full((b, topk), -1, dtype=np.int32)
-            out["doc_ranks"] = np.zeros((b, topk), dtype=np.float32)
-        if clamp_budgets:
-            out["topk_eff"] = np.full(b, topk, dtype=np.int64)
-            out["hit_cap_eff"] = np.full(b, hit_cap, dtype=np.int64)
-
-        round_cap = _cap_rounder(cap, cap_ladder)
-        # hit-stream readback tiers: a query whose smallest operand
-        # bounds its result small reads back a small buffer; overflow
-        # still flags through n_hits. Fused path only: per bucket, each
-        # extra tier is another launch
-        hit_tiers = sorted({min(hit_cap, t) for t in (128, 512, hit_cap)}
-                           ) if fused else [hit_cap]
-
-        def hit_tier(min_need: int) -> int:
-            want = 4 * min_need + 16
-            for t in hit_tiers:
-                if want <= t:
-                    return t
-            return hit_cap
-
-        compiled = []
-        buckets = {}
-        for i, q in enumerate(queries):
-            cg = self.compile_group_query(q)
-            compiled.append(cg)
-            if cg is None:
-                continue
-            _rows, _rvals, w, v, need, min_need = cg
-            buckets.setdefault(
-                (round_cap(need), w, _bucket(v, lo=1), hit_tier(min_need)),
-                []).append(i)
-
-        terms_list, rs_list, caps_list, hcaps_list, idx_list = (
-            [], [], [], [], [])
-        topks_list = []
-        dev = self.device
-        for (qcap, w, vb, hb), idxs in sorted(buckets.items(),
-                                               key=_bucket_sort_key):
-            topk_b = topk
+        seq = next(self._batch_seq)
+        with profiling.span("query.dispatch", seq):
+            out = {
+                "pages": np.full((b, topk), -1, dtype=np.int32),
+                "ranks": np.zeros((b, topk), dtype=np.float32),
+                "counts": np.zeros((b, topk), dtype=np.int32),
+                "n_pages": np.zeros(b, dtype=np.int32),
+                "n_hits": np.zeros(b, dtype=np.int32),
+                "hits": np.full((b, hit_cap), INF32, dtype=np.int32),
+            }
+            if want_docs:
+                out["docs"] = np.full((b, topk), -1, dtype=np.int32)
+                out["doc_ranks"] = np.zeros((b, topk), dtype=np.float32)
             if clamp_budgets:
-                topk_b = min(topk, qcap)
-                hb = min(hit_cap, qcap * max(2, 2 * vb))
-                out["topk_eff"][idxs] = topk_b
-                out["hit_cap_eff"][idxs] = hb
-            topks_list.append(topk_b)
-            brows = _bucket(len(idxs), lo=8) if fused else _bucket4(len(idxs))
-            terms = np.full((brows, w, vb), -1, dtype=np.int32)
-            rs = np.ones((brows, w), dtype=np.int32)
-            for row, i in enumerate(idxs):
-                rows_i, rvals_i = compiled[i][0], compiled[i][1]
-                for j, (ids, r) in enumerate(zip(rows_i, rvals_i)):
-                    terms[row, j, : len(ids)] = ids
-                    rs[row, j] = r
-            if vb == 1:
-                terms = terms[:, :, 0]
-            terms_list.append(torch.as_tensor(terms, device=dev))
-            rs_list.append(torch.as_tensor(rs, device=dev))
-            caps_list.append(qcap)
-            hcaps_list.append(hb)
-            idx_list.append(idxs)
-        if not idx_list:
-            return (lambda: out) if deferred else out
-        # an explicit cap may cut long lists, which the small tables
-        # cannot serve (no row for a count past the cap), and then no
-        # page stream is carried either
-        small = self.small if cap is None else None
-        page_of = self.page_of if cap is None else None
-        if not per_bucket:
-            outs = multi_bucket_query_full(
-                self.term_offsets, self.coords, self.bounds, self.page_doc,
-                self.is_header, terms_list, rs_list, caps_list, topk,
-                hcaps_list, with_docs=want_docs, use_kernels=use_kernels,
-                small=small, page_of=page_of)
-        else:
-            outs = [
-                batched_query_full(
-                    self.term_offsets, self.coords, self.bounds,
-                    self.page_doc, self.is_header, tq, rq, cap=qcap, topk=tk,
-                    hit_cap=hb, with_docs=want_docs,
-                    use_kernels=use_kernels, small=small, page_of=page_of,
-                    sort_topk=sort_topk)
-                for tq, rq, qcap, hb, tk in zip(
-                    terms_list, rs_list, caps_list, hcaps_list, topks_list)]
-        fields = ["pages", "ranks", "counts", "n_pages", "n_hits", "hits"]
-        if want_docs:
-            fields += ["docs", "doc_ranks"]
-        host, ready = _to_host({f: [getattr(o, f) for o in outs]
-                                for f in fields})
+                out["topk_eff"] = np.full(b, topk, dtype=np.int64)
+                out["hit_cap_eff"] = np.full(b, hit_cap, dtype=np.int64)
+
+            round_cap = _cap_rounder(cap, cap_ladder)
+            # hit-stream readback tiers: a query whose smallest operand
+            # bounds its result small reads back a small buffer; overflow
+            # still flags through n_hits. Fused path only: per bucket,
+            # each extra tier is another launch
+            hit_tiers = sorted({min(hit_cap, t) for t in (128, 512, hit_cap)}
+                               ) if fused else [hit_cap]
+
+            def hit_tier(min_need: int) -> int:
+                want = 4 * min_need + 16
+                for t in hit_tiers:
+                    if want <= t:
+                        return t
+                return hit_cap
+
+            compiled = []
+            buckets = {}
+            misses = full = 0
+            with profiling.span("query.compile", seq):
+                for i, q in enumerate(queries):
+                    cg, how = self._compile_cached(q)
+                    compiled.append(cg)
+                    if how:
+                        misses += 1
+                        full += how == 2
+                    if cg is None:
+                        continue
+                    _rows, _rvals, w, v, need, min_need = cg
+                    buckets.setdefault(
+                        (round_cap(need), w, _bucket(v, lo=1),
+                         hit_tier(min_need)), []).append(i)
+
+            terms_list, rs_list, caps_list, hcaps_list, idx_list = (
+                [], [], [], [], [])
+            topks_list = []
+            dev = self.device
+            for (qcap, w, vb, hb), idxs in sorted(buckets.items(),
+                                                   key=_bucket_sort_key):
+                with profiling.span("query.pack", seq):
+                    topk_b = topk
+                    if clamp_budgets:
+                        topk_b = min(topk, qcap)
+                        hb = min(hit_cap, qcap * max(2, 2 * vb))
+                        out["topk_eff"][idxs] = topk_b
+                        out["hit_cap_eff"][idxs] = hb
+                    topks_list.append(topk_b)
+                    brows = (_bucket(len(idxs), lo=8) if fused
+                             else _bucket4(len(idxs)))
+                    terms = np.full((brows, w, vb), -1, dtype=np.int32)
+                    rs = np.ones((brows, w), dtype=np.int32)
+                    for row, i in enumerate(idxs):
+                        rows_i, rvals_i = compiled[i][0], compiled[i][1]
+                        for j, (ids, r) in enumerate(zip(rows_i, rvals_i)):
+                            terms[row, j, : len(ids)] = ids
+                            rs[row, j] = r
+                    if vb == 1:
+                        terms = terms[:, :, 0]
+                # each copy from pageable memory waits for the stream
+                with profiling.span("query.upload", seq):
+                    terms_list.append(torch.as_tensor(terms, device=dev))
+                    rs_list.append(torch.as_tensor(rs, device=dev))
+                caps_list.append(qcap)
+                hcaps_list.append(hb)
+                idx_list.append(idxs)
+            if not idx_list:
+                _count_batch(b, misses, full, 0, 0)
+                return (lambda: out) if deferred else out
+            # an explicit cap may cut long lists, which the small tables
+            # cannot serve (no row for a count past the cap), and then no
+            # page stream is carried either
+            small = self.small if cap is None else None
+            page_of = self.page_of if cap is None else None
+            with profiling.span("query.launch", seq):
+                if not per_bucket:
+                    outs = multi_bucket_query_full(
+                        self.term_offsets, self.coords, self.bounds,
+                        self.page_doc, self.is_header, terms_list, rs_list,
+                        caps_list, topk, hcaps_list, with_docs=want_docs,
+                        use_kernels=use_kernels, small=small,
+                        page_of=page_of)
+                else:
+                    outs = [
+                        batched_query_full(
+                            self.term_offsets, self.coords, self.bounds,
+                            self.page_doc, self.is_header, tq, rq, cap=qcap,
+                            topk=tk, hit_cap=hb, with_docs=want_docs,
+                            use_kernels=use_kernels, small=small,
+                            page_of=page_of, sort_topk=sort_topk)
+                        for tq, rq, qcap, hb, tk in zip(
+                            terms_list, rs_list, caps_list, hcaps_list,
+                            topks_list)]
+            fields = ["pages", "ranks", "counts", "n_pages", "n_hits", "hits"]
+            if want_docs:
+                fields += ["docs", "doc_ranks"]
+            with profiling.span("query.readback", seq):
+                host, ready = _to_host({f: [getattr(o, f) for o in outs]
+                                        for f in fields})
+            _count_batch(b, misses, full, len(idx_list),
+                         sum(a.nbytes for parts in host.values()
+                             for a in parts))
 
         def finish():
-            if ready is not None:
-                ready.synchronize()
-            for k, (idxs, hb, tk) in enumerate(zip(idx_list, hcaps_list,
-                                                   topks_list)):
-                n = len(idxs)
-                for f in ("pages", "ranks", "counts", "docs", "doc_ranks"):
-                    if f in host:
-                        out[f][idxs, :tk] = host[f][k][:n]
-                out["n_pages"][idxs] = host["n_pages"][k][:n]
-                nh = host["n_hits"][k][:n]
-                # a query overflowing its tier must flag truncation
-                out["n_hits"][idxs] = (np.where(nh > hb,
-                                                np.int32(hit_cap + 1), nh)
-                                       if hb < hit_cap else nh)
-                out["hits"][idxs, :hb] = host["hits"][k][:n]
+            with profiling.span("query.finish", seq):
+                with profiling.span("query.finish.wait", seq):
+                    if ready is not None:
+                        ready.synchronize()
+                with profiling.span("query.finish.scatter", seq):
+                    for k, (idxs, hb, tk) in enumerate(zip(
+                            idx_list, hcaps_list, topks_list)):
+                        n = len(idxs)
+                        for f in ("pages", "ranks", "counts", "docs",
+                                  "doc_ranks"):
+                            if f in host:
+                                out[f][idxs, :tk] = host[f][k][:n]
+                        out["n_pages"][idxs] = host["n_pages"][k][:n]
+                        nh = host["n_hits"][k][:n]
+                        # a query overflowing its tier must flag truncation
+                        out["n_hits"][idxs] = (
+                            np.where(nh > hb, np.int32(hit_cap + 1), nh)
+                            if hb < hit_cap else nh)
+                        out["hits"][idxs, :hb] = host["hits"][k][:n]
             return out
 
         return finish if deferred else finish()
+
+
+def _count_batch(queries: int, misses: int, full: int, buckets: int,
+                 readback_bytes: int) -> None:
+    """search_batch_full's counters, added once a call: its queries, the
+    compile cache's misses (and those it was too full to keep), its
+    buckets, their uploads (terms and rs each) and the bytes read back."""
+    profiling.count("query.batches")
+    profiling.count("query.queries", queries)
+    profiling.count("query.compile_miss", misses)
+    profiling.count("query.compile_uncached_full", full)
+    profiling.count("query.buckets", buckets)
+    profiling.count("query.uploads", 2 * buckets)
+    profiling.count("readback.bytes", readback_bytes)
 
 
 def _to_host(fields: dict):

@@ -297,8 +297,13 @@ def test_profiling_matches_jax():
         with profiling.phase("p"):
             pass
     assert [r for r in profiling.report() if r[0] == "p"][0][2] == 2
+    profiling.count("query.batches")
+    profiling.count("query.queries", 4096)
+    assert profiling.counters() == {"query.batches": 1,
+                                    "query.queries": 4096}
     profiling.reset()
     assert profiling.report() == [] and profiling.format_report() == ""
+    assert profiling.counters() == {}
 
 
 def test_device_trace_and_annotate(tmp_path, monkeypatch):
