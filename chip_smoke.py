@@ -90,6 +90,7 @@ LOCATE_FULL = "docodo_tpu_torch/csrc/locate_full.cu"
 PROBES = "docodo_tpu_torch/csrc/probes.cu"
 CHUNKED = "docodo_tpu_torch/csrc/chunked.cu"
 VARIANTS = "docodo_tpu_torch/csrc/variants.cu"
+FETCH = "docodo_tpu_torch/csrc/fetch.cu"
 PQ = "docodo_tpu/ops/pallas_query.py"
 RU_VOC = Path(__file__).resolve().parent / "Dict" / "ru.voc"
 # name -> (source, TPU kernel replaced, [(kernel core, plain core), ...]);
@@ -139,6 +140,10 @@ KERNELS = {
     "merge_and_locate": (LOCATE_FULL, f"{PQ}:2601",
                          [("_merge_and_locate_streams_kernel",
                            "_merge_and_locate_streams_plain")]),
+    # no Pallas kernel: the JAX package's XLA gather (gather_term, and
+    # gather_term_paged at :499)
+    "fetch_postings": (FETCH, "docodo_tpu/ops/device_index.py:397",
+                       [("_fetch_kernel", "_fetch_plain")]),
 }
 # the probe kernels of the JAX package's benchmarks/ (PERF.md rows 18-19):
 # name -> (source, TPU kernel replaced); phase_probes launches and times
@@ -170,9 +175,11 @@ SURFACE_CAP = 2048
 SURFACE_TERMS = 1000
 STANDARD_KERNELS = ("sorted_and_locate_full", "single_locate_full",
                     "union_locate_full", "merge_and_locate_topk",
-                    "merge_tagged", "and_keep", "locate_runs")
+                    "merge_tagged", "and_keep", "locate_runs",
+                    "fetch_postings")
 WIDE_KERNELS = ("variants_and_locate_full", "union_merge_locate_full",
-                "variants_keep", "merge_tagged", "and_keep", "locate_runs")
+                "variants_keep", "merge_tagged", "and_keep", "locate_runs",
+                "fetch_postings")
 PAGE_KERNELS = ("and_locate_topk", "single_locate_topk")
 TOPK_MODE_KERNELS = ("sorted_and_locate_full_topk",
                      "variants_and_locate_full_topk",
@@ -203,7 +210,7 @@ BATCHER_CONFIGS = ((True, True), (False, True), (True, False),
 # past the slot kernels' admission; all go through the chunked and
 # fused kernels
 BATCHER_KERNELS = ("merge_and_locate_topk", "merge_tagged", "and_keep",
-                   "locate_runs", "variants_keep")
+                   "locate_runs", "variants_keep", "fetch_postings")
 # the sharded cell (phase_mesh): a corpus of four serving shards of
 # ~64 MB (PERF.md section 4), served by ShardedDeviceIndex beside one
 # card's DeviceIndex of the same index
@@ -317,7 +324,7 @@ def same_result(name: str, got, want, what: str) -> float:
                 and (got[2] is None or torch.equal(got[2][live],
                                                    want[2][live])),
                 f"{what} differs")
-    elif len(got) == 3:  # and_keep's compacted fold operand
+    elif len(got) == 3:  # and_keep's compacted fold operand, a fetch
         require(all((g is None and w is None)
                     or (g is not None and w is not None and torch.equal(g, w))
                     for g, w in zip(got, want)), f"{what} differs")
@@ -1001,6 +1008,41 @@ def phase_parity(rng) -> dict:
               f"V 1 cap {cap} with repeated lanes",
               (x["a"][:, None], x["na"][:, None], x["bounds"]), cap,
               dict(a_pg=x["a_pg"][:, None]))
+
+    # the posting fetch at caps up to the 1 GB cells' 2^21: lists empty,
+    # shorter than, as long as and past the cap, at starts on every
+    # residue mod 4; -1 terms; [B] and strided [B, V] terms; a base off
+    # 16 bytes; with and without pages. A generator of its own
+    frng = np.random.default_rng(rng.bit_generator.seed_seq.spawn(2)[1])
+    for cap, rows in ((64, 4096), (4096, 1024), (1 << 16, 64),
+                      (1 << 21, 8)):
+        counts = np.concatenate([[0, 1, 3, cap // 2 + 1, cap - 1, cap,
+                                  cap + 1, 2 * cap + 3],
+                                 frng.integers(0, cap + 2, 8)])
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        coords = np.cumsum(frng.integers(1, 40, int(offsets[-1])))
+        buf = torch.empty(coords.size + 1, dtype=torch.int32, device=dev)
+        co = buf[1:]
+        co.copy_(torch.from_numpy(coords.astype(np.int32)))
+        pg = co // 997
+        off = torch.from_numpy(offsets).to(dev)
+        ids = frng.integers(-1, counts.size, (rows, 2, 4))
+        ids[0, 0, 0], ids[0, 1] = 6, (-1, 0, 5, 3)  # past, none, full, part
+        ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        for terms in (ids[:, 0, 0], ids[:, 1]):
+            for page_of in (None, pg):
+                got = qk._fetch_kernel(co, off, terms, cap, page_of)
+                torch.cuda.synchronize()
+                want = qk._fetch_plain(co, off, terms, cap, page_of)
+                same_result("fetch_postings", got, want,
+                            f"fetch_postings cap {cap} terms "
+                            f"{tuple(terms.shape)}")
+        ln = got[2]
+        require(bool((ln == cap).any() and (ln == 0).any()
+                     and ((ln > 0) & (ln < cap)).any()),
+                f"fetch_postings cap {cap}: no full, empty or part row")
+        say(f"parity: fetch_postings cap {cap} terms [{rows}] and strided "
+            f"[{rows}, 4], pages or not: equal")
     return err
 
 
@@ -1702,10 +1744,11 @@ def phase_page(dix, queries, card: str):
         f"kernel route {secs * 1e3:.1f} ms warm ({len(queries) / secs:.0f} "
         f"QPS) on {card}; each bucket alone, synchronised: {per_route}; "
         f"launches {({n: launches[n] for n in PAGE_KERNELS})}")
-    for name in PAGE_KERNELS:
+    for name in PAGE_KERNELS + ("fetch_postings",):
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the page-level path")
-    require(all(launches[n] == 0 for n in launches if n not in PAGE_KERNELS),
+    require(all(launches[n] == 0 for n in launches
+                if n not in PAGE_KERNELS + ("fetch_postings",)),
             "a full-result kernel launched on the page-level path")
     run(False)
     torch.cuda.synchronize()
@@ -1814,6 +1857,15 @@ def _bytes_moved(name: str, args) -> int:
     from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32
 
+    if name == "fetch_postings":
+        # each row's term and two offsets read and its length written,
+        # each real posting (and page) read once, each lane written
+        coords, offsets, terms, cap, page_of = args
+        flat = terms.reshape(-1)
+        safe = flat.clamp_min(0).long()
+        n = torch.where(flat >= 0, offsets[safe + 1] - offsets[safe], 0)
+        per = 4 if page_of is None else 8
+        return per * (_valid(n, cap) + flat.numel() * cap) + 16 * flat.numel()
     if name == "merge_and_locate":  # four full-width streams out
         a, _, na, _, b, _, nb, _ = args
         rows, cap = a.shape
@@ -1891,6 +1943,8 @@ def _ops(name: str, args, outs=None) -> int:
     from docodo_tpu_torch.ops.query_kernels import as_variant_blocks
     from docodo_tpu_torch.ops.seqops import INF32
 
+    if name == "fetch_postings":  # a copy: no operation on the data
+        return 0
     if name in TOPK_MODE_KERNELS:
         base = {"sorted_and_locate_full_topk": "sorted_and_locate_full",
                 "single_locate_full_topk": "single_locate_full",
@@ -2010,7 +2064,10 @@ def phase_kernel_times(batches, names, most: int = 0,
             say(f"device time: {name} {kdev:.4f} ms, library "
                 f"{profiled_ms(lib):.4f} ms, on the same {n_calls} calls "
                 "(torch.profiler)")
-        shapes = sorted({tuple(a[0].shape) for _, _, cs in runs for a in cs})
+        # a fetch's shape is its terms' and cap, not the whole CSR's
+        shapes = sorted({tuple(a[2].shape) + (a[3],)
+                         if name == "fetch_postings" else tuple(a[0].shape)
+                         for _, _, cs in runs for a in cs})
         n_made = sum(made[core] for core, _ in cores)
         say(f"kernel time: {name}: {n_calls} "
             f"{'' if n_calls == n_made else f'of the {n_made} '}calls of "
@@ -2090,8 +2147,13 @@ W1_CAPS = tuple((f"cap {cap}", lambda a, cap=cap: a[0].shape[1] == cap)
                 for cap in (64, 128, 256, 512, 1024))
 
 # the TPU kernels a port covers in parts: its calls split by width or V
-# (PERF.md's rows 8 / 9, 11 / 12 and 3 / 5)
+# (PERF.md's rows 8 / 9, 11 / 12 and 3 / 5); the fetch's calls by cap,
+# up to and past the small tables' widest band
 SPLITS = {
+    "fetch_postings": (
+        ("cap <= 4096", lambda a: a[3] <= 4096),
+        ("4096 < cap <= 32768", lambda a: 4096 < a[3] <= 32768),
+        ("cap > 32768", lambda a: a[3] > 32768)),
     "and_keep": (("n = 2048", lambda a: a[0].shape[1] == 2048),
                  ("n = 4096", lambda a: a[0].shape[1] == 4096),
                  ("n <= 4096", lambda a: a[0].shape[1] <= 4096),

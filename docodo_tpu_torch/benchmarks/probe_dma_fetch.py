@@ -3,13 +3,15 @@ a row into shared memory, completed on an mbarrier) beat PyTorch's row
 gather? The counterpart of benchmarks/probe_dma_fetch.py on the card.
 
 At the TPU probe's shape (R = 16384 rows of n = 2048 int32, B = 10,000
-row ids drawn with seed 5, q = 32 rows in flight a block at most), five
+row ids drawn with seed 5, q = 32 rows in flight a block at most), six
 legs, each held equal to tab[ids]:
 
   index_select   torch.index_select(tab, 0, ids), the library's gather
   tab[ids]       advanced indexing
-  gather_term    the port's posting fetch (ops/device_index.py) of the
+  gather_term    the plain posting fetch (ops/device_index.py) of the
                  same rows as lists of n postings
+  fetch_postings the port's posting fetch (ops/query_kernels.py, one
+                 docodo_fetch_postings launch) of the same lists
   kernel copy    docodo_row_gather, mode copy (also at q = 64 and 128)
   kernel sum128  docodo_row_gather, each row summed over its 128-lane
                  chunks, held equal to that formula (also at q = 64 and
@@ -32,6 +34,7 @@ import torch
 from docodo_tpu_torch.benchmarks import common as bc
 from docodo_tpu_torch.ops import _cuda
 from docodo_tpu_torch.ops import probe_kernels as pk
+from docodo_tpu_torch.ops import query_kernels as qk
 from docodo_tpu_torch.ops.device_index import gather_term
 
 R, N, B, Q = 16384, 2048, 10_000, 32
@@ -61,7 +64,7 @@ def _check(name: str, got, ref) -> float:
 
 def run(device="cuda", *, r: int = R, n: int = N, b: int = B,
         q: int = Q, seed: int = 5) -> dict:
-    """The five legs on `device` (CUDA unless "cpu", where the plain
+    """The six legs on `device` (CUDA unless "cpu", where the plain
     versions run and nothing is timed) at a table of r rows of n lanes
     and b ids. row_gather itself, in both modes at every q, is held
     against its plain version (its largest difference is the result's
@@ -104,6 +107,8 @@ def run(device="cuda", *, r: int = R, n: int = N, b: int = B,
         "tab[ids]": (lambda: tab[ids64], "copy", None),
         "gather_term": (lambda: gather_term(flat, offsets, ids, n)[0],
                         "copy", None),
+        "fetch_postings": (lambda: qk.fetch_postings(flat, offsets, ids,
+                                                     n)[0], "copy", None),
     }
     for m in pk.GATHER_MODES:
         for qq in qs:

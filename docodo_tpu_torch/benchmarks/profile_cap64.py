@@ -45,8 +45,8 @@ def stages(dix, tq, rq):
     """The stage prefixes of the bucket's route, each a callable that
     returns its outputs."""
     carried = di._tab_serves(dix.small, CAP)
-    fetch = di._fetcher(dix.coords, dix.term_offsets, dix.small, dix.page_of,
-                        CAP, carried)
+    fetch = di._fetcher(dix.coords, dix.term_offsets, dix.page_of, CAP,
+                        carried)
     ra, rb = rq[:, 0].contiguous(), rq[:, 1].contiguous()
 
     def gather():

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "locate_full.cu", CSRC / "chunked.cu",
-           CSRC / "variants.cu", CSRC / "probes.cu")
+           CSRC / "variants.cu", CSRC / "probes.cu", CSRC / "fetch.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "slot_row.cuh",
            CSRC / "w1_kernel.cuh", CSRC / "tile_scan.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "docodo_tpu_torch"
@@ -282,6 +282,7 @@ MERGE_AND_LOCATE_STREAMS = Kernel("docodo_merge_and_locate",
                                   "pppppppp" + "ii" + "pppp")
 PROBE_LOCATE = Kernel("docodo_probe_locate", "ppppp" + "iiiii" + "pppppp")
 ROW_GATHER = Kernel("docodo_row_gather", "pp" + "iiii" + "p")
+FETCH = Kernel("docodo_fetch_postings", "pppp" + "iiiii" + "ppp")
 KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "single_locate_full": SINGLE,
            "union_locate_full": UNION,
@@ -300,4 +301,5 @@ KERNELS = {"sorted_and_locate_full": SORTED_AND,
            "single_locate_full_topk": SINGLE_TOPK,
            "merge_and_locate": MERGE_AND_LOCATE_STREAMS,
            "probe_locate": PROBE_LOCATE,
-           "row_gather": ROW_GATHER}
+           "row_gather": ROW_GATHER,
+           "fetch_postings": FETCH}

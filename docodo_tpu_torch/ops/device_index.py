@@ -55,6 +55,9 @@ from docodo_tpu_torch.ops.seqops import (
     combine_r,
     compact,
     compact_hits,
+    fetch_tables,
+    gather_term,
+    gather_term_paged,
     locate_compact,
     or_masked,
     or_variants_sorted,
@@ -322,101 +325,12 @@ def build_postings_packed(packed: torch.Tensor, num_terms: int):
 # posting fetch
 # ---------------------------------------------------------------------------
 
-def _fetch_tables(small, cap: int):
-    """The tables that together hold every term with count <= cap, or
-    None (device_index.py:455)."""
-    if small is None:
-        return None
-    cums = [st for st in small if not st.band]
-    for st in cums:
-        if st.w == cap and st.tab.shape[0] > 0:
-            return (st,)
-    if not cums or cap <= max(st.w for st in cums):
-        return None
-    base = max(cums, key=lambda st: st.w)
-    if base.tab.shape[0] == 0:
-        return None
-    tabs = [base]
-    w = base.w * 2
-    bands = {st.w: st for st in small if st.band}
-    while w <= cap:
-        st = bands.get(w)
-        if st is None:
-            return None
-        if st.tab.shape[0] > 0:
-            tabs.append(st)
-        w *= 2
-    return tuple(tabs)
-
-
 def _tab_serves(small, cap: int) -> bool:
     """Whether combined (coords || pages) tables fully serve this cap
     (device_index.py:487)."""
-    tabs = _fetch_tables(small, cap)
+    tabs = fetch_tables(small, cap)
     return tabs is not None and all(
         st.tab.shape[1] == 2 * st.w for st in tabs)
-
-
-def _term_span(term_offsets, terms, cap: int):
-    safe = terms.clamp_min(0).long()
-    start = term_offsets[safe]
-    ln = term_offsets[safe + 1] - start
-    ln = torch.where(terms >= 0, ln, 0).clamp_max(cap).to(torch.int32)
-    return safe, start, ln
-
-
-def _table_rows(tabs, safe, cap: int, halves: int):
-    """Row-gather every term's table row(s), padded to cap: a list of
-    `halves` [B, cap] tensors (coords, then pages)."""
-    bsz = safe.shape[0]
-    dev = safe.device
-    outs = [torch.full((bsz, cap), INF32, dtype=torch.int32, device=dev)
-            for _ in range(halves)]
-    for st in tabs:
-        row = st.row_map[safe]
-        both = st.tab[row.clamp_min(0).long()]
-        has = (row >= 0)[:, None]
-        for h in range(halves):
-            g = both[:, h * st.w: (h + 1) * st.w]
-            if st.w < cap:
-                g = torch.cat([g, g.new_full((bsz, cap - st.w), INF32)],
-                              dim=1)
-            outs[h] = torch.where(has, g, outs[h])
-    return outs
-
-
-def gather_term(coords, term_offsets, terms, cap: int, small=None):
-    """Fetch each term's postings into [B, cap] (device_index.py:397):
-    term < 0 gives an empty row, longer lists keep their first cap
-    coords. `small` may be passed only when every real term has count
-    <= cap. Returns (vals int32[B, cap] INF32-padded, n int32[B])."""
-    safe, start, ln = _term_span(term_offsets, terms, cap)
-    lane = torch.arange(cap, device=coords.device)[None, :]
-    tabs = _fetch_tables(small, cap)
-    if tabs is not None:
-        (vals,) = _table_rows(tabs, safe, cap, 1)
-    else:
-        idx = (start[:, None].long() + lane).clamp_max(coords.shape[0] - 1)
-        vals = coords[idx]
-    return torch.where(lane < ln[:, None], vals, INF32), ln
-
-
-def gather_term_paged(coords, page_of, term_offsets, terms, cap: int,
-                      small=None):
-    """gather_term plus each posting's page (device_index.py:499): both
-    halves of a combined small table come from one row gather.
-    Returns (vals, pages, n); padding lanes carry INF32 in both."""
-    safe, start, ln = _term_span(term_offsets, terms, cap)
-    lane = torch.arange(cap, device=coords.device)[None, :]
-    tabs = _fetch_tables(small, cap)
-    if tabs is not None and all(st.tab.shape[1] == 2 * st.w for st in tabs):
-        vals, pgs = _table_rows(tabs, safe, cap, 2)
-    else:
-        idx = (start[:, None].long() + lane).clamp_max(coords.shape[0] - 1)
-        vals, pgs = coords[idx], page_of[idx]
-    live = lane < ln[:, None]
-    return (torch.where(live, vals, INF32), torch.where(live, pgs, INF32),
-            ln)
 
 
 # ---------------------------------------------------------------------------
@@ -701,22 +615,17 @@ def query_step_full(term_offsets, coords, bounds, page_doc, is_header,
 # kernel routing and the multi-bucket dispatcher
 # ---------------------------------------------------------------------------
 
-def _fetcher(coords, term_offsets, small, page_of, cap: int, carried: bool):
-    """The posting fetch of a kernel bucket: terms [B] -> (vals [B, cap],
-    pages or None, n [B]), or terms [B, V] -> ([B, V, cap], pages or
-    None, [B, V]). Pages ride the fetch when the bucket is carried."""
+def _fetcher(coords, term_offsets, page_of, cap: int, carried: bool):
+    """The posting fetch of a kernel bucket (query_kernels.fetch_postings,
+    one launch on the card): terms [B] -> (vals [B, cap], pages or None,
+    n [B]), or terms [B, V] -> ([B, V, cap], pages or None, [B, V]).
+    Pages ride the fetch when the bucket is carried."""
 
     def fetch(terms):
-        flat = terms.reshape(-1)
         with profiling.span("route.fetch"):
-            if carried:
-                vals, pgs, ln = gather_term_paged(coords, page_of,
-                                                  term_offsets, flat, cap,
-                                                  small)
-            else:
-                vals, ln = gather_term(coords, term_offsets, flat, cap,
-                                       small)
-                pgs = None
+            vals, pgs, ln = qk.fetch_postings(
+                coords, term_offsets, terms, cap,
+                page_of=page_of if carried else None)
         shape = tuple(terms.shape)
         return (vals.reshape(shape + (cap,)),
                 None if pgs is None else pgs.reshape(shape + (cap,)),
@@ -763,7 +672,7 @@ def _kernel_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
     if w > 2:
         return None
     carried = page_of is not None and _tab_serves(small, cap)
-    fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
+    fetch = _fetcher(coords, term_offsets, page_of, cap, carried)
     kw = dict(topk=topk, hit_cap=hit_cap, tail=tail, sort_topk=sort_topk)
     if v > 1:
         if w * v * cap > qk.MAX_STREAM_WIDTH:
@@ -850,7 +759,7 @@ def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
     if (w > 2 and v > 1) or tq.shape[0] < CHUNK_MIN_B:
         return None
     carried = page_of is not None and _tab_serves(small, cap)
-    fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
+    fetch = _fetcher(coords, term_offsets, page_of, cap, carried)
     kw = dict(topk=topk, hit_cap=hit_cap)
     if v > 1:
         a, apg, na = fetch(tq[:, 0])
@@ -1048,7 +957,7 @@ def _kernel_bucket(term_offsets, coords, bounds, tq, rq, cap: int,
     pages the kernel looks them up in bounds, where the JAX package
     looks them up before its kernel when it has page_of."""
     carried = page_of is not None and _tab_serves(small, cap)
-    fetch = _fetcher(coords, term_offsets, small, page_of, cap, carried)
+    fetch = _fetcher(coords, term_offsets, page_of, cap, carried)
     a, apg, na = fetch(tq[:, 0])
     if tq.shape[1] == 1:
         return qk.batched_single_locate(a, na, bounds, topk=topk, a_pg=apg)

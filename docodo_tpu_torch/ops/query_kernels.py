@@ -2,8 +2,13 @@
 
 One wrapper per hand-written CUDA kernel (csrc/locate_full.cu,
 csrc/variants.cu, csrc/chunked.cu, the W = 1 kernel of
-csrc/w1_kernel.cuh), each with its plain PyTorch version beside it. The
-full-result kernels:
+csrc/w1_kernel.cuh, csrc/fetch.cu), each with its plain PyTorch version
+beside it. Every kernel bucket's operands come from
+
+  fetch_postings          each term's postings (and pages) padded to the
+                          bucket's cap (device_index.py:397, :499)
+
+The full-result kernels:
 
   sorted_and_locate_full  W = 2, cap <= 512   (pallas_query.py:1164)
   single_locate_full      W = 1, cap <= 128   (pallas_query.py:1243)
@@ -69,6 +74,8 @@ from docodo_tpu_torch.ops.seqops import (
     combine_r,
     compact_hits,
     fold_dups,
+    gather_term,
+    gather_term_paged,
     locate_compact,
     page_runs,
     run_starts,
@@ -79,6 +86,7 @@ from docodo_tpu_torch.ops.seqops import (
     variant_blocks,
     variants_keep_mask,
 )
+from docodo_tpu_torch.utils import profiling
 
 # kernel admission, as in the JAX package (pallas_query.py:61, 780, 786,
 # 1067)
@@ -165,6 +173,63 @@ def _on_device(kernel, plain, *args):
     if dev.type == "cpu":
         return plain(*args)
     raise ValueError(f"no kernel for device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# the posting fetch
+# ---------------------------------------------------------------------------
+
+def _fetch_plain(coords, term_offsets, terms, cap, page_of):
+    """Plain version of docodo_fetch_postings: seqops.gather_term, or
+    gather_term_paged with page_of, over the flat terms."""
+    flat = terms.reshape(-1)
+    profiling.count("fetch.plain_rows", flat.shape[0])
+    if page_of is None:
+        vals, ln = gather_term(coords, term_offsets, flat, cap)
+        return vals, None, ln
+    return gather_term_paged(coords, page_of, term_offsets, flat, cap)
+
+
+def _fetch_kernel(coords, term_offsets, terms, cap, page_of):
+    """docodo_fetch_postings over terms as they lie (their strides go to
+    the kernel, nothing is copied)."""
+    if terms.dim() not in (1, 2):
+        raise ValueError(f"terms must be [B] or [B, V], got "
+                         f"{tuple(terms.shape)}")
+    if terms.dtype != torch.int32:
+        terms = terms.to(torch.int32)
+    if terms.device != coords.device:
+        raise ValueError(f"terms lie on {terms.device}, the postings on "
+                         f"{coords.device}")
+    for t, name in ((coords, "coords"), (term_offsets, "term_offsets"),
+                    (page_of, "page_of")):
+        if t is not None:
+            _cuda.check(t, name, torch.int32, (t.shape[0],))
+    v = terms.shape[1] if terms.dim() == 2 else 1
+    rows = terms.shape[0] * v
+    dev = coords.device
+    vals = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    pgs = None if page_of is None else torch.empty_like(vals)
+    ln = torch.empty((rows,), dtype=torch.int32, device=dev)
+    _cuda.FETCH.launch(dev, coords, page_of, term_offsets, terms, rows, v,
+                       terms.stride(0), terms.stride(-1), cap, vals, pgs, ln)
+    profiling.count("fetch.kernel_rows", rows)
+    return vals, pgs, ln
+
+
+def fetch_postings(coords, term_offsets, terms, cap: int, *, page_of=None):
+    """Each term's postings padded to `cap`, in one launch on the card:
+    for terms [B] or [B, V] (rows = B V in row-major order), vals int32
+    [rows, cap] holds the first min(count, cap) of the term's coords then
+    INF32, ln int32 [rows] that length (term < 0: an empty row), and with
+    page_of, pgs [rows, cap] the same span of page_of, INF32 padded (else
+    None). Returns (vals, pgs, ln), bit for bit gather_term's /
+    gather_term_paged's. Both read the CSR at every cap: under the small
+    tables' contract (every real term's count <= cap) their rows hold the
+    same spans. The counters fetch.kernel_rows / fetch.plain_rows add the
+    rows each version fetched."""
+    return _on_device(_fetch_kernel, _fetch_plain, coords, term_offsets,
+                      terms, cap, page_of)
 
 
 # ---------------------------------------------------------------------------

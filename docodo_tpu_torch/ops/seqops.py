@@ -405,3 +405,96 @@ def device_locate_rank(coords, n, bounds, page_doc, max_pages: int):
     page_rank = torch.where(
         first, run_rank[run_id.clamp(0, max_pages - 1).long()], 0.0)
     return page, pos, first, page_rank
+
+
+# ---------------------------------------------------------------------------
+# the posting fetch, plain (the JAX package's ops/device_index.py)
+# ---------------------------------------------------------------------------
+
+def fetch_tables(small, cap: int):
+    """The tables that together hold every term with count <= cap, or
+    None (device_index.py:455)."""
+    if small is None:
+        return None
+    cums = [st for st in small if not st.band]
+    for st in cums:
+        if st.w == cap and st.tab.shape[0] > 0:
+            return (st,)
+    if not cums or cap <= max(st.w for st in cums):
+        return None
+    base = max(cums, key=lambda st: st.w)
+    if base.tab.shape[0] == 0:
+        return None
+    tabs = [base]
+    w = base.w * 2
+    bands = {st.w: st for st in small if st.band}
+    while w <= cap:
+        st = bands.get(w)
+        if st is None:
+            return None
+        if st.tab.shape[0] > 0:
+            tabs.append(st)
+        w *= 2
+    return tuple(tabs)
+
+
+def _term_span(term_offsets, terms, cap: int):
+    safe = terms.clamp_min(0).long()
+    start = term_offsets[safe]
+    ln = term_offsets[safe + 1] - start
+    ln = torch.where(terms >= 0, ln, 0).clamp_max(cap).to(torch.int32)
+    return safe, start, ln
+
+
+def _table_rows(tabs, safe, cap: int, halves: int):
+    """Row-gather every term's table row(s), padded to cap: a list of
+    `halves` [B, cap] tensors (coords, then pages)."""
+    bsz = safe.shape[0]
+    dev = safe.device
+    outs = [torch.full((bsz, cap), INF32, dtype=torch.int32, device=dev)
+            for _ in range(halves)]
+    for st in tabs:
+        row = st.row_map[safe]
+        both = st.tab[row.clamp_min(0).long()]
+        has = (row >= 0)[:, None]
+        for h in range(halves):
+            g = both[:, h * st.w: (h + 1) * st.w]
+            if st.w < cap:
+                g = torch.cat([g, g.new_full((bsz, cap - st.w), INF32)],
+                              dim=1)
+            outs[h] = torch.where(has, g, outs[h])
+    return outs
+
+
+def gather_term(coords, term_offsets, terms, cap: int, small=None):
+    """Fetch each term's postings into [B, cap] (device_index.py:397):
+    term < 0 gives an empty row, longer lists keep their first cap
+    coords. `small` may be passed only when every real term has count
+    <= cap. Returns (vals int32[B, cap] INF32-padded, n int32[B])."""
+    safe, start, ln = _term_span(term_offsets, terms, cap)
+    lane = torch.arange(cap, device=coords.device)[None, :]
+    tabs = fetch_tables(small, cap)
+    if tabs is not None:
+        (vals,) = _table_rows(tabs, safe, cap, 1)
+    else:
+        idx = (start[:, None].long() + lane).clamp_max(coords.shape[0] - 1)
+        vals = coords[idx]
+    return torch.where(lane < ln[:, None], vals, INF32), ln
+
+
+def gather_term_paged(coords, page_of, term_offsets, terms, cap: int,
+                      small=None):
+    """gather_term plus each posting's page (device_index.py:499): both
+    halves of a combined small table come from one row gather.
+    Returns (vals, pages, n); padding lanes carry INF32 in both."""
+    safe, start, ln = _term_span(term_offsets, terms, cap)
+    lane = torch.arange(cap, device=coords.device)[None, :]
+    tabs = fetch_tables(small, cap)
+    if tabs is not None and all(st.tab.shape[1] == 2 * st.w for st in tabs):
+        vals, pgs = _table_rows(tabs, safe, cap, 2)
+    else:
+        idx = (start[:, None].long() + lane).clamp_max(coords.shape[0] - 1)
+        vals, pgs = coords[idx], page_of[idx]
+    live = lane < ln[:, None]
+    return (torch.where(live, vals, INF32), torch.where(live, pgs, INF32),
+            ln)

@@ -321,8 +321,9 @@ def test_probe_locate_runs_on_the_cpu(small_dix):
 def test_probe_dma_fetch_runs_on_the_cpu():
     res = probe_dma_fetch.run("cpu", r=512, n=256, b=100)
     legs = [v for v in res.values() if isinstance(v, dict)]
-    # index_select, tab[ids], gather_term, both modes at q 32 / 64 / 128
-    assert len(legs) == 9 and all(leg["ms"] is None for leg in legs)
+    # index_select, tab[ids], gather_term, fetch_postings, both modes at
+    # q 32 / 64 / 128
+    assert len(legs) == 10 and all(leg["ms"] is None for leg in legs)
     assert res["kernel copy q=32"]["bound_by"] == "bytes"
     assert res["kernel sum128 q=128"]["bound_ms"] < res[
         "kernel copy q=128"]["bound_ms"]

@@ -90,7 +90,8 @@ KERNEL_NAMES = {"sorted_and_locate_full": "sorted_and_locate_full_kernel",
                     "sorted_and_locate_full_kernel<docodo::PageTopkTail"),
                 "single_locate_topk": W1 + "SingleKeep, docodo::PageTopkTail",
                 "merge_and_locate": "merge_and_locate_kernel",
-                "single_locate_full_topk": W1 + "SingleKeep, docodo::TopkTail"}
+                "single_locate_full_topk": W1 + "SingleKeep, docodo::TopkTail",
+                "fetch_postings": "fetch_postings_kernel"}
 # the other slot kernels are one template each, instantiated for both
 # tails (the W = 2 one also for the page-level tail, and for four stream
 # widths after the tail)
