@@ -11,14 +11,24 @@ or None. None of these is named in code: a new cell, mix, configuration
 or metric is a new file.
 
 Set-up: the corpus from the seed, the port's build (build_index, the
-CSR sorted on the card), its staging (DeviceIndex.from_index), the pool
-of query batches, and a few warm-up batches through the timed loop. The
-window: a closed loop of one application that keeps two batches in
-flight, each search_batch_full(deferred=True) call made before the
-previous batch's finish(); it closes after the first finish past
+CSR sorted on the card), its staging (DeviceIndex.from_index, or with the
+configuration's `layout` the port's sharded index over the layout's
+cards), the pool of query batches, and a few warm-up batches through the
+timed loop. The window: a closed loop of one application that keeps two
+batches in flight, each search_batch_full(deferred=True) call made before
+the previous batch's finish(); it closes after the first finish past
 `seconds`. Then the program's state is freed and the reference answers a
 sample of the window's rows, drawn from the seed with the longest rows
 in it; every field must agree exactly.
+
+A configuration may hold "layout": {"shards": S, "cards": C}, S >= C >= 1:
+the index staged as S document shards, shard i on card i % C
+(parallel/sharding.make_mesh; on the CPU every shard on the CPU). One
+shard holds every document, so a layout of one shard stages the one
+DeviceIndex on its card. Without the key the run is one DeviceIndex on
+the default card. Every card of the layout is synchronised, and its peak
+reset and read, at the window's edges; the memory readings are the
+fullest card's, the trace's as trace.read gives them over the cards.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import sys
 import time
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +52,8 @@ ROOT = os.path.dirname(HERE)
 # JAX itself (names compared whole: docodo_tpu_torch is the port)
 FORBIDDEN = ("jax", "jaxlib", "flax", "docodo_tpu", "benchmarks")
 GIB = float(1 << 30)
+# every integer answer's pad (its dtype's maximum) compares as PAD
+PAD = np.iinfo(np.int64).min
 # every cell's call: search_batch_full(topk=TOPK, hit_cap=HIT_CAP)
 TOPK = 64
 HIT_CAP = 1024
@@ -76,19 +88,37 @@ class Cell:
     per_layer: List[dict]
 
 
+def layout(cfg: dict) -> Optional[Tuple[int, int]]:
+    """A configuration's (shards, cards), or None without a layout."""
+    lay = cfg.get("layout")
+    if lay is None:
+        return None
+    shards, cards = int(lay["shards"]), int(lay["cards"])
+    if not shards >= cards >= 1:
+        raise ValueError(f"layout {lay}: needs shards >= cards >= 1")
+    return shards, cards
+
+
 def cell(name: str) -> Cell:
-    """A cell of BENCHMARK.json with its files, found by name."""
+    """A cell of BENCHMARK.json with its files, found by name. A cell
+    whose chips differ from its configuration's cards (1 without a
+    layout) is refused."""
     bench = _load(os.path.join(ROOT, "BENCHMARK.json"))
     work = [w for w in bench["workloads"] if w["name"] == name]
     if not work:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     w = work[0]
     conf = [c for c in bench["configs"] if c["name"] == w["config"]][0]
+    config = _load(os.path.join(ROOT, conf["file"]))
+    cards = (layout(config) or (1, 1))[1]
+    if int(w["chips"]) != cards:
+        raise SystemExit(f"{name} asks for {w['chips']} chips, but its "
+                         f"configuration {w['config']!r} is laid out over "
+                         f"{cards} cards")
 
     def mine(metrics):
         return [m for m in metrics if name in m.get("workloads", [name])]
-    return Cell(name=name, chips=int(w["chips"]),
-                config=_load(os.path.join(ROOT, conf["file"])),
+    return Cell(name=name, chips=int(w["chips"]), config=config,
                 mix=_load(os.path.join(HERE, "mixes", f"{w['traffic']}.json")),
                 params=_load(os.path.join(HERE, "cells", f"{name}.json")),
                 end_to_end=mine(bench["end_to_end"]),
@@ -149,10 +179,11 @@ def _frozen():
         gc.freeze()
 
 
-def _sync(dev) -> None:
+def _sync(*devs) -> None:
     import torch
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for dev in devs:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 @contextmanager
@@ -165,10 +196,11 @@ def _span(name: str, on: bool):
         yield
 
 
-def _smi(dev) -> str:
-    """The card's name, power limit and, as the window closes, its clocks,
-    temperature and power draw, as nvidia-smi reads them."""
-    if dev.type != "cuda":
+def _smi(cards) -> str:
+    """Each card's name, power limit and, as the window closes, its
+    clocks, temperature and power draw, as nvidia-smi reads them, one
+    card after the other ("; ")."""
+    if cards[0].type != "cuda":
         return "cpu"
     try:
         out = subprocess.run(
@@ -176,7 +208,8 @@ def _smi(dev) -> str:
              "clocks.mem,temperature.gpu,power.draw",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=30)
-        return out.stdout.strip().splitlines()[dev.index or 0]
+        lines = out.stdout.strip().splitlines()
+        return "; ".join(lines[d.index or 0] for d in cards)
     except (OSError, subprocess.SubprocessError, IndexError):
         return "nvidia-smi not read"
 
@@ -197,7 +230,7 @@ class Index:
 
     corp: object
     dix: object
-    dev: object
+    cards: tuple       # every card the index is staged on
     n_pages: int
     postings: int
     build_s: float
@@ -206,19 +239,48 @@ class Index:
     counts: np.ndarray
     notes: dict
 
+    @property
+    def dev(self):
+        """The first card."""
+        return self.cards[0]
+
+
+def _cards(lay: Optional[Tuple[int, int]], dev) -> tuple:
+    """The cards a run stages on: `dev` without a layout, else the
+    layout's cards (the CPU once on the CPU)."""
+    import torch
+    if lay is None or dev.type != "cuda":
+        return (dev,)
+    return tuple(torch.device("cuda", i) for i in range(lay[1]))
+
+
+def _stage(ind, lay: Optional[Tuple[int, int]], cards: tuple):
+    """The port's staged index of `ind`: one DeviceIndex on the card
+    without a layout or with one shard, else the sharded index over the
+    layout's mesh, shard i on card i % C."""
+    from docodo_tpu_torch.ops.device_index import DeviceIndex
+    if lay is None or lay[0] == 1:
+        return DeviceIndex.from_index(ind, device=cards[0])
+    from docodo_tpu_torch import ShardedDeviceIndex
+    from docodo_tpu_torch.parallel.sharding import make_mesh
+    mesh = make_mesh(lay[0], [cards[i % len(cards)] for i in range(lay[0])])
+    return ShardedDeviceIndex.from_index(ind, mesh)
+
 
 def set_up(cfg: dict, seed: int, device: str) -> Index:
     """The corpus of `cfg` from `seed`, the port's build of it and its
-    staging on `device`."""
+    staging on `device`, or with a layout on its cards."""
     import torch
 
     from docodo_tpu_torch.index import IndexPage, ListDataSource, build_index
-    from docodo_tpu_torch.ops.device_index import DeviceIndex
     from docodo_tpu_torch.utils import profiling
     from perfbench import corpus as gen
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    lay = layout(cfg)
+    cards = _cards(lay, dev)
+    dev = cards[0]
     t = time.perf_counter()
     with _frozen():
         corp = gen.generate(cfg, seed, IndexPage)
@@ -230,12 +292,19 @@ def set_up(cfg: dict, seed: int, device: str) -> Index:
     build_s = time.perf_counter() - t
     phases = {k: v for k, v, _ in profiling.report()}
     corp.documents = None
-    mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
+    if lay is not None:
+        # the build's device tensors freed before the shards are staged
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    mem0 = [torch.cuda.memory_allocated(c) if cuda else 0 for c in cards]
     t = time.perf_counter()
-    dix = DeviceIndex.from_index(ind, device=device)
-    _sync(dev)
+    dix = _stage(ind, lay, cards)
+    _sync(*cards)
     stage_s = time.perf_counter() - t
-    index_bytes = (torch.cuda.memory_allocated(dev) - mem0) if cuda else 0
+    by_card = [(torch.cuda.memory_allocated(c) - m) if cuda else 0
+               for c, m in zip(cards, mem0)]
+    index_bytes = max(by_card)
     n_pages = len(ind.pages.page_ids)
     postings = int(ind.arr.coords.size)
     del ind
@@ -246,7 +315,15 @@ def set_up(cfg: dict, seed: int, device: str) -> Index:
              "documents": int(corp.page_doc[-1]) + 1, "pages": n_pages,
              "postings": postings, "chars": corp.chars,
              "index_gib": index_bytes / GIB}
-    return Index(corp=corp, dix=dix, dev=dev, n_pages=n_pages,
+    if lay is not None:
+        notes.update(
+            layout={"shards": lay[0], "cards": lay[1]},
+            index_gib_by_card=[b / GIB for b in by_card],
+            mesh_phases_s={k: v for k, v, _ in profiling.report()
+                           if k.startswith("mesh.")})
+        if lay[0] > 1:
+            notes["shard_gib"] = [b / GIB for b in dix.device_bytes()]
+    return Index(corp=corp, dix=dix, cards=cards, n_pages=n_pages,
                  postings=postings, build_s=build_s, stage_s=stage_s,
                  index_bytes=index_bytes, counts=corp.counts(), notes=notes)
 
@@ -290,8 +367,9 @@ class Window:
     batches: List[Batch]
     kept: Dict[tuple, dict]
     seconds: float
-    peak_bytes: int
-    setup_peak_bytes: int
+    peak_bytes: int              # the fullest card's
+    setup_peak_bytes: int        # the fullest card's
+    peak_bytes_by_card: List[int]
     launches: Dict[str, int]
     trace: object
     wrapped: bool
@@ -327,10 +405,12 @@ def measure(ix: Index, tf: Traffic, seconds: float, trace: bool,
         prev = fin
     if prev is not None:
         prev()
-    _sync(dev)
-    setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    _sync(*ix.cards)
+    setup_peak = max(torch.cuda.max_memory_allocated(c) if cuda else 0
+                     for c in ix.cards)
     if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+        for c in ix.cards:
+            torch.cuda.reset_peak_memory_stats(c)
     kernels = [k for k in vars(_cuda).values() if isinstance(k, _cuda.Kernel)]
     launches0 = {k.symbol: k.launches for k in kernels}
     if on_start is not None:
@@ -362,17 +442,38 @@ def measure(ix: Index, tf: Traffic, seconds: float, trace: bool,
                 break
         _finish(prev, trace, kept, tf.keep_rows, n_pool, done)
         t1 = time.perf_counter()
-        _sync(dev)
-    card = _smi(dev)
+        _sync(*ix.cards)
+    card = _smi(ix.cards)
     del fin, prev
+    peaks = [torch.cuda.max_memory_allocated(c) if cuda else 0
+             for c in ix.cards]
     return Window(
-        batches=done, kept=kept, seconds=t1 - t0,
-        peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else 0,
-        setup_peak_bytes=setup_peak,
+        batches=done, kept=kept, seconds=t1 - t0, peak_bytes=max(peaks),
+        setup_peak_bytes=setup_peak, peak_bytes_by_card=peaks,
         launches={k.symbol: k.launches - launches0[k.symbol]
                   for k in kernels if k.launches > launches0[k.symbol]},
-        trace=tracing.read(prof) if trace else None,
+        trace=tracing.read(prof, card_indices(ix.cards)) if trace else None,
         wrapped=pos - warm > n_pool, card=card)
+
+
+def card_indices(cards) -> List[int]:
+    """The device indices of the cards, as the profiler's trace numbers
+    them (none on the CPU)."""
+    import torch
+    if cards[0].type != "cuda":
+        return []
+    return [torch.cuda.current_device() if c.index is None else c.index
+            for c in cards]
+
+
+def require_window_call(dix) -> None:
+    """Stop the run, with no result, where the staged index has no
+    search_batch_full, the call every window makes."""
+    if not hasattr(dix, "search_batch_full"):
+        raise SystemExit(
+            f"{type(dix).__name__} has no search_batch_full(deferred=True),"
+            f" the call the window makes: this layout stages but cannot be"
+            f" measured; no result")
 
 
 def check(ix: Index, tf: Traffic, win: Window, seed: int,
@@ -446,6 +547,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     note({"setup": dict(ix.notes, pool_s=tf.seconds,
                         pool_batches=len(tf.pool.batches),
                         batch=int(par["batch"]))})
+    require_window_call(ix.dix)
     setup = {}
     win = measure(ix, tf, seconds, trace, on_start=lambda: setup.update(
         s=time.perf_counter() - t_start))
@@ -453,6 +555,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     note({"window": {"seconds": win.seconds, "batches": len(win.batches),
                      "queries": sum(b.rows for b in win.batches),
                      "pool_wrapped": win.wrapped, "card": win.card,
+                     "peak_gib_by_card": [b / GIB
+                                          for b in win.peak_bytes_by_card],
                      "kernel_launches": win.launches}})
     ix.dix = None
     gc.collect()
@@ -470,7 +574,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         raise RuntimeError(f"forbidden modules loaded: {bad}")
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-                   "count": spec.chips if cuda else 1,
+                   "count": len(ix.cards) if cuda else 1,
                    "memory_peak_bytes": int(max(win.setup_peak_bytes,
                                                 win.peak_bytes))}
     result = {"correct": bool(n_differ == 0 and chk["rows"] >= 1),
@@ -479,6 +583,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if trace:
         device_info["busy_s"] = win.trace.busy_s
         device_info["window_s"] = win.trace.window_s
+        device_info["busy_s_by_card"] = win.trace.busy_s_by_card
         result["breakdown"] = tracing.breakdown(win.trace)
     result["checks"] = {"rows_differing": {"value": n_differ, "limit": 0}}
     if control:
@@ -528,10 +633,20 @@ def _finish(prev, trace: bool, kept: dict, keep_rows, n_pool: int,
         done.append(cur)
 
 
+def _unpadded(a: np.ndarray) -> np.ndarray:
+    """An integer answer as int64, its pad (its dtype's maximum: INT32_MAX
+    for int32 hits, the maximum of uint64 or int64 global coordinates)
+    mapped to PAD."""
+    return np.where(a == np.iinfo(a.dtype).max, PAD, a.astype(np.int64))
+
+
 def _field_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Rows of a field that differ (bitwise for floats)."""
+    """Rows of a field that differ (bitwise for floats; integers with
+    each side's pad mapped to one sentinel)."""
     if a.dtype.kind == "f":
         a, b = a.view(np.int32), b.astype(a.dtype).view(np.int32)
+    else:
+        a, b = _unpadded(a), _unpadded(b)
     diff = a != b
     return diff.reshape(diff.shape[0], -1).any(axis=1)
 

@@ -1,5 +1,6 @@
 """The share of the traced window in which no device operation ran, in
-percent. None without a traced device."""
+percent; over several cards the mean of each card's share (trace.read's
+busy seconds are the cards' mean). None without a traced device."""
 
 
 def read(run):

@@ -1,6 +1,6 @@
 """The allocator's peak over the window (torch.cuda.max_memory_allocated
 after reset_peak_memory_stats at its start), staged index included, in
-GiB. None off the card."""
+GiB; over several cards the fullest card's. None off the card."""
 
 
 def read(run):

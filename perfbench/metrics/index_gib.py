@@ -1,5 +1,6 @@
-"""The staged index's device memory: memory_allocated() after
-DeviceIndex.from_index less before, in GiB. None off the card."""
+"""The staged index's device memory: memory_allocated() after staging
+less before, in GiB; over several cards the fullest card's. None off the
+card."""
 
 
 def read(run):

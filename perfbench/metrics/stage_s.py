@@ -1,5 +1,6 @@
-"""Seconds of DeviceIndex.from_index in set-up, ending in a synchronise,
-host clock."""
+"""Seconds of the staging in set-up (DeviceIndex.from_index, or with a
+layout the sharded index's from_index over its cards), ending in a
+synchronise of every card, host clock."""
 
 
 def read(run):

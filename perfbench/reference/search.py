@@ -8,10 +8,12 @@ A row's answer (the API's contract, docodo_tpu_torch/ops/device_index.py
 as of revision 75513271):
 
 * kept: the fold of the row (fold.py), ascending;
-* n_hits: its length, and hits its first `tier` coordinates, INT32_MAX
-  after them, where a row whose smallest word (its variants' postings
-  summed) bounds its result small reads back a tier of 128 or 512 and
-  flags an overflow as n_hits = hit_cap + 1;
+* n_hits: its length, and hits its first `tier` coordinates as int64,
+  the dtype's maximum (HIT_PAD) after them, so that a coordinate past
+  2^31 keeps its value (the check maps each side's pad to one
+  sentinel); a row whose smallest word (its variants' postings summed)
+  bounds its result small reads back a tier of 128 or 512 and flags an
+  overflow as n_hits = hit_cap + 1;
 * a page run: consecutive kept coordinates on one page (the page of c:
   the number of page ends <= c, at most the last page); n_pages the runs;
   of the first `topk` runs in coordinate order, each run's count and
@@ -43,6 +45,7 @@ import torch
 from perfbench.reference.fold import fold_row
 
 INT32_MAX = 2**31 - 1
+HIT_PAD = np.iinfo(np.int64).max
 THREADS = 8
 FIELDS = ("pages", "ranks", "counts", "n_pages", "n_hits", "hits", "docs",
           "doc_ranks")
@@ -91,7 +94,7 @@ def fold_rows(rows, rs, postings: Postings, page_end: np.ndarray,
     out = {
         "n_pages": np.zeros(b, dtype=np.int32),
         "n_hits": np.zeros(b, dtype=np.int32),
-        "hits": np.full((b, hit_cap), INT32_MAX, dtype=np.int32),
+        "hits": np.full((b, hit_cap), HIT_PAD, dtype=np.int64),
         "bon": np.zeros((b, topk), dtype=np.int64),
         "cnt": np.zeros((b, topk), dtype=np.int64),
         "pg": np.full((b, topk), -1, dtype=np.int64),

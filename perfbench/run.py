@@ -14,7 +14,9 @@ phases, the window's batches and kernel launches, the check.
 
 It needs a CUDA card: without one, or with fewer cards than the cell
 asks for, it exits with code 2 and prints no result. It also fails, and
-prints no result, if JAX, the JAX package or its benchmarks were loaded.
+prints no result, if JAX, the JAX package or its benchmarks were loaded,
+or if the configuration's layout stages an index that has no
+search_batch_full (it stops after the set-up line, naming the class).
 Every build of the port stays under the checkout's build/ directory.
 """
 

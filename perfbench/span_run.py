@@ -17,14 +17,17 @@ per-layer metrics, device and breakdown), with besides:
   self seconds, calls and longest call;
 - `notes`: the program's counters as window deltas, the collector's
   collections by generation, the allocator's device allocations, frees
-  and retries and the pinned host allocator's statistics at the window's
-  edges, the staging phases (stage.*), spans.shares (the idle seconds
+  and retries (summed over the layout's cards) and the pinned host
+  allocator's statistics at the window's edges, the staging phases
+  (stage.*; with a layout, the set-up note has mesh.*), spans.shares
+  (the idle seconds
   in bench.dispatch that program spans name, the device seconds they
   launched), and whether trace.read, its breakdown and every per-layer
   metric read the same after spans.read.
 
-Earlier lines as run.py's. It needs a CUDA card and exits with code 2
-without one.
+Earlier lines as run.py's. A configuration's layout reads as in run.py:
+busy and idle seconds a card's mean over the cards, `busy_s_by_card`
+beside them. It needs a CUDA card and exits with code 2 without one.
 """
 
 from __future__ import annotations
@@ -57,9 +60,9 @@ def keeping_profile(kept: list):
 
     real = trace.read
 
-    def read(prof):
+    def read(prof, *args):
         kept.append(prof)
-        return real(prof)
+        return real(prof, *args)
 
     trace.read = read
     try:
@@ -68,18 +71,21 @@ def keeping_profile(kept: list):
         trace.read = real
 
 
-def readings(dev) -> dict:
-    """The runtime's counts that a window's deltas are taken of."""
+def readings(cards) -> dict:
+    """The runtime's counts that a window's deltas are taken of (the
+    device allocator's summed over `cards`)."""
     import torch
 
     from docodo_tpu_torch.utils import profiling
 
     out = {"counters": profiling.counters(),
            "gc_collections": [g["collections"] for g in gc.get_stats()]}
-    if dev.type == "cuda":
-        ms = torch.cuda.memory_stats(dev)
-        out["device_allocator"] = {k: ms.get(k, 0) for k in (
-            "num_device_alloc", "num_device_free", "num_alloc_retries")}
+    if cards[0].type == "cuda":
+        stats = [torch.cuda.memory_stats(c) for c in cards]
+        out["device_allocator"] = {k: sum(ms.get(k, 0) for ms in stats)
+                                   for k in ("num_device_alloc",
+                                             "num_device_free",
+                                             "num_alloc_retries")}
         host = getattr(torch.cuda, "host_memory_stats", None)
         if host is not None:
             hs = host()
@@ -113,11 +119,12 @@ def run(name: str, seed: int, seconds: float, device: str = "cuda",
     tf = harness.draw(ix, spec.mix, par, seed)
     print(json.dumps({"setup": dict(ix.notes, pool_s=tf.seconds,
                                     stage_phases_s=stage)}), flush=True)
+    harness.require_window_call(ix.dix)
     edge = {}
 
     def on_start():
         edge["setup_s"] = time.perf_counter() - T_START
-        edge["start"] = readings(ix.dev)
+        edge["start"] = readings(ix.cards)
         profiling.tracing(True)
 
     kept: list = []
@@ -126,13 +133,14 @@ def run(name: str, seed: int, seconds: float, device: str = "cuda",
             win = harness.measure(ix, tf, seconds, True, on_start=on_start)
     finally:
         profiling.tracing(False)
-    edge["end"] = readings(ix.dev)
+    edge["end"] = readings(ix.cards)
     prof = kept[-1]
     wr = harness.window_run(ix, tf, win, edge["setup_s"])
     metrics = harness.read_metrics(spec.per_layer, wr)
     bd = trace.breakdown(win.trace)
-    sp = spans.read(prof)
-    again = trace.read(prof)
+    cards = harness.card_indices(ix.cards)
+    sp = spans.read(prof, cards)
+    again = trace.read(prof, cards)
     unchanged = (again == win.trace and trace.breakdown(again) == bd
                  and harness.read_metrics(spec.per_layer, wr) == metrics)
     del prof, kept
@@ -145,8 +153,10 @@ def run(name: str, seed: int, seconds: float, device: str = "cuda",
         "correct": bool(n_differ == 0 and chk["rows"] >= 1),
         "attempted": sum(b.rows for b in win.batches), "failed": 0,
         "metrics": metrics,
-        "device": {"kind": win.card, "busy_s": win.trace.busy_s,
-                   "window_s": win.trace.window_s},
+        "device": {"kind": win.card, "count": len(ix.cards),
+                   "busy_s": win.trace.busy_s,
+                   "window_s": win.trace.window_s,
+                   "busy_s_by_card": win.trace.busy_s_by_card},
         "breakdown": bd,
         "span_metrics": dict(spans.metrics(sp), host_s={
             k: list(v) for k, v in sorted(sp.host.items(),

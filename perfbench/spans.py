@@ -14,7 +14,9 @@ from the same torch.profiler events as trace.read, over the same window
   span is `unattributed`.
 - Device idle seconds by program span: trace.read's gaps, split over the
   innermost span the harness's thread was in meanwhile; gap time in no
-  program span keeps its harness span's label (`outside` if none).
+  program span keeps its harness span's label (`outside` if none). Over
+  several cards, as in trace.read, each card's gaps are its own and the
+  idle and busy seconds are the mean of the cards'.
 - Blocking runtime calls by span: count and seconds of every
   cuda*Synchronize, cudaMalloc, cudaFree, cudaHostAlloc and plain
   cudaMemcpy, by the innermost span of their thread.
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -68,8 +70,9 @@ class Spans:
     idle: Dict[str, float]         # idle seconds by the host's span
     waits: Dict[Tuple[str, str], Tuple[int, float]]  # (span, call): n, s
     device_s: float                # every device operation's seconds
-    busy_s: float                  # their union (trace.read's busy_s)
+    busy_s: float                  # a card's union, mean (trace.read's)
     batches: int                   # query.dispatch spans in the window
+    cards: int = 1                 # cards that busy_s is the mean over
 
 
 class _Innermost:
@@ -121,9 +124,9 @@ def _device(e) -> bool:
     return not str(e.device_type()).endswith("CPU")
 
 
-def read(prof) -> Spans:
+def read(prof, cards: Sequence[int] = ()) -> Spans:
     """The program spans' readings of a torch.profiler.profile over a
-    harness window."""
+    harness window; `cards` as trace.read takes them."""
     events = prof.profiler.kineto_results.events()
     bench, prog, ops, calls = [], [], [], {}
     op_thread: Dict[int, int] = {}
@@ -138,7 +141,8 @@ def read(prof) -> Spans:
             elif is_program(name):
                 prog.append(row)
         elif _device(e):
-            ops.append((e.start_ns(), e.end_ns(), e.correlation_id()))
+            ops.append((e.start_ns(), e.end_ns(), e.device_index(),
+                        e.correlation_id()))
         elif is_runtime(name):
             calls[e.correlation_id()] = (e.start_ns(), e.end_ns(), name,
                                          e.start_thread_id(),
@@ -186,11 +190,11 @@ def read(prof) -> Spans:
     device: Dict[str, float] = defaultdict(float)
     iv = []
     pending: Dict[int, List[Tuple[int, float]]] = defaultdict(list)
-    for s, t, corr in ops:
+    for s, t, card, corr in ops:
         s, t = max(s, t0), min(t, t1)
         if t <= s:
             continue
-        iv.append((s, t))
+        iv.append((s, t, card))
         call = calls.get(corr)
         if call is None:
             device[UNATTRIBUTED] += (t - s) * 1e-9
@@ -203,18 +207,22 @@ def read(prof) -> Spans:
         for label, (_, sec) in zip(labels, rows):
             device[label if label is not None and is_program(label)
                    else UNATTRIBUTED] += sec
-    iv_arr = np.asarray(iv, dtype=np.int64).reshape(-1, 2)
-    busy = trace._union(iv_arr)
-    busy_s = float((busy[:, 1] - busy[:, 0]).sum()) * 1e-9
+    iv_arr = np.asarray([r[:2] for r in iv], dtype=np.int64).reshape(-1, 2)
 
-    # idle gaps by the harness thread's innermost span
+    # each card's idle gaps by the harness thread's innermost span
     main = inner[bench[0][3]]
-    edges = np.concatenate([[t0], busy.reshape(-1), [t1]])
-    gaps = edges.reshape(-1, 2)
     idle: Dict[str, float] = defaultdict(float)
-    for s, t in gaps[gaps[:, 1] > gaps[:, 0]].tolist():
-        for label, ns in main.split(s, t).items():
-            idle[label if label is not None else "outside"] += ns * 1e-9
+    busy_s = 0.0
+    groups = trace.by_card(iv, cards)
+    for at in groups.values():
+        busy = trace._union(iv_arr[at])
+        busy_s += trace._seconds(busy)
+        edges = np.concatenate([[t0], busy.reshape(-1), [t1]])
+        gaps = edges.reshape(-1, 2)
+        for s, t in gaps[gaps[:, 1] > gaps[:, 0]].tolist():
+            for label, ns in main.split(s, t).items():
+                idle[label if label is not None else "outside"] += ns * 1e-9
+    n = len(groups)
 
     # blocking runtime calls by span
     waits: Dict[Tuple[str, str], List[float]] = defaultdict(
@@ -228,10 +236,11 @@ def read(prof) -> Spans:
         w = waits[(label or "outside", name)]
         w[0] += 1
         w[1] += (t - s) * 1e-9
-    return Spans(host=host, device=dict(device), idle=dict(idle),
+    return Spans(host=host, device=dict(device),
+                 idle={k: v / n for k, v in idle.items()},
                  waits={k: (int(v[0]), v[1]) for k, v in waits.items()},
-                 device_s=float(sum(t - s for s, t in iv)) * 1e-9,
-                 busy_s=busy_s, batches=batches)
+                 device_s=float(sum(r[1] - r[0] for r in iv)) * 1e-9,
+                 busy_s=busy_s / n, batches=batches, cards=n)
 
 
 def breakdown(sp: Spans) -> dict:
@@ -267,7 +276,8 @@ def metrics(sp: Optional[Spans]) -> Dict[str, Optional[float]]:
     upload_ms, launch_ms, gc_ms (mean ms a batch in query.compile,
     query.upload, query.launch and host.gc) and fetch_busy_pct (device
     seconds launched under route.fetch over the window's busy seconds,
-    in percent). Every value is None without a trace or a batch."""
+    summed over the cards, in percent). Every value is None without a
+    trace or a batch."""
     out: Dict[str, Optional[float]] = dict.fromkeys(
         ("compile_ms", "upload_ms", "launch_ms", "gc_ms", "fetch_busy_pct"))
     if sp is None or not sp.batches:
@@ -279,5 +289,6 @@ def metrics(sp: Optional[Spans]) -> Dict[str, Optional[float]]:
         out[key] = 1e3 * total / sp.batches
     if sp.busy_s > 0:
         out["fetch_busy_pct"] = 100.0 * sp.device.get("route.fetch",
-                                                      0.0) / sp.busy_s
+                                                      0.0) / (sp.busy_s
+                                                              * sp.cards)
     return out

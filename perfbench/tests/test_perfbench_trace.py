@@ -8,9 +8,9 @@ from perfbench import harness, trace, work
 
 
 class Ev:
-    def __init__(self, name, dev, s, t, annotation=False):
+    def __init__(self, name, dev, s, t, annotation=False, card=0):
         self._n, self._d, self._s, self._t = name, dev, s, t
-        self._a = annotation
+        self._a, self._card = annotation, card
 
     def name(self):
         return self._n
@@ -23,6 +23,9 @@ class Ev:
 
     def end_ns(self):
         return self._t
+
+    def device_index(self):
+        return self._card
 
     def is_user_annotation(self):
         return self._a
