@@ -218,11 +218,17 @@ MESH_MB = 256
 MESH_SHARDS = 4
 MESH_SAMPLED = 512   # rows a mix materialized and held against the host
 MESH_HTTP = 16
+# the kernels one shard of the sharded full-result path runs on the
+# standard mix (device_index.bucket_pre: the chunked route)
+MESH_FULL_KERNELS = ("merge_tagged", "and_keep", "locate_runs",
+                     "fetch_postings")
 # phase_distributed: two processes of two shards each over the 64 MB
 # index; standard and wide rows of its buckets, page-level rows
 DIST_HOSTS = 2
 DIST_QUERIES = (1_000, 200)
 DIST_PAGE_ROWS = 512
+# locate_runs' kept range when it keeps every value: (0, seqops.INF32)
+KEEP_ALL = (0, 2**31 - 1)
 # the kernels that give a row many blocks (tiles of _cuda.tile_lanes())
 TILED = ("and_keep", "variants_keep", "locate_runs")
 PAGE_CAPS = {"and_locate_topk": (64, 128, 256, 512),
@@ -517,6 +523,19 @@ def _w1_inputs(rng, rows: int, cap: int, dev, dups: bool):
     return dict(a=a.contiguous(), na=na, bounds=bounds, a_pg=pg)
 
 
+def _keep_ranges(hv) -> tuple:
+    """The kept ranges of a first, a middle and a last document shard
+    over the values of hv (its lower and upper quartile): (0, hi),
+    (lo, hi), (lo, INF32), what locate_runs' keep= takes."""
+    from docodo_tpu_torch.ops.seqops import INF32
+
+    v = hv[hv < INF32].sort().values
+    if v.numel() < 4:
+        return ()
+    lo, hi = int(v[v.numel() // 4]), int(v[3 * v.numel() // 4])
+    return (0, hi), (lo, hi), (lo, INF32)
+
+
 def _tile_edges(vals, tag, ra, rb, variants: bool):
     """Of a merged stream [B, n]: the runs of equal coordinates that
     cross an edge of the tiled kernels' tiles, and the ordered cuts (a
@@ -641,21 +660,30 @@ def phase_parity(rng) -> dict:
             if n < 8192:
                 continue
             for carried in (True, False):
+                for keep in (None,) + _keep_ranges(hv):
+                    check("locate_runs",
+                          f"locate_runs n {n} B {rows} "
+                          f"{'carried' if carried else 'shared'} pages"
+                          + ("" if keep is None else f" keep {keep}"),
+                          "locate_runs", "locate_runs_plain", hv,
+                          x["bounds"], topk=TOPK, hit_cap=HIT_CAP,
+                          pg=pg if carried else None, keep=keep)
+    # the W = 1 form: a posting block, INF32 after its length, at the
+    # widest cap of the parity shapes and at the four-card books cell's
+    # (its longest lists: ~1e6 postings a shard)
+    for cap in (262144, 1 << 20):
+        x = _parity_inputs(rng, 8, cap, dev, full_first=True)
+        lane = torch.arange(cap, device=dev)[None, :]
+        block = torch.where(lane < x["na"][:, None], x["a"], INF32)
+        for carried in (True, False):
+            for keep in (None,) + _keep_ranges(block):
                 check("locate_runs",
-                      f"locate_runs n {n} B {rows} "
-                      f"{'carried' if carried else 'shared'} pages",
-                      "locate_runs", "locate_runs_plain", hv, x["bounds"],
-                      topk=TOPK, hit_cap=HIT_CAP,
-                      pg=pg if carried else None)
-    # the W = 1 form: a posting block, INF32 after its length
-    x = _parity_inputs(rng, 8, 262144, dev, full_first=True)
-    lane = torch.arange(262144, device=dev)[None, :]
-    block = torch.where(lane < x["na"][:, None], x["a"], INF32)
-    for carried in (True, False):
-        check("locate_runs", f"locate_runs on a posting block n 262144 B 8 "
-              f"{'carried' if carried else 'shared'} pages", "locate_runs",
-              "locate_runs_plain", block, x["bounds"], topk=TOPK,
-              hit_cap=HIT_CAP, pg=x["a_pg"] if carried else None)
+                      f"locate_runs on a posting block n {cap} B 8 "
+                      f"{'carried' if carried else 'shared'} pages"
+                      + ("" if keep is None else f" keep {keep}"),
+                      "locate_runs", "locate_runs_plain", block,
+                      x["bounds"], topk=TOPK, hit_cap=HIT_CAP,
+                      pg=x["a_pg"] if carried else None, keep=keep)
 
     # the variant slot kernels at each stream width they are compiled for
     # (n 128-1024: 8 / 4 / 2 / 1 rows a block, the last block part-filled
@@ -1924,9 +1952,10 @@ def _bytes_moved(name: str, args) -> int:
             return per * valid + (per - 4) * vals.numel() + 12 * rows
         return 8 * valid + 4 * vals.numel() + 12 * rows
     # locate_runs: the whole stream (dropped lanes are read to find the
-    # kept ones), and the kept lanes' pages or the bounds once
-    hv, pg, bounds, kpad, hpad = args
-    kept = int((hv < INF32).sum())
+    # kept ones), and the pages of the lanes in its kept range or the
+    # bounds once
+    hv, pg, bounds, kpad, hpad, (lo, hi) = args
+    kept = int(((hv < INF32) & (hv >= lo) & (hv < hi)).sum())
     pages = 4 * kept if pg is not None else 4 * bounds.numel()
     return 4 * hv.numel() + pages + hv.shape[0] * (12 * kpad + 4 * hpad + 8)
 
@@ -2158,6 +2187,10 @@ SPLITS = {
                  ("n = 4096", lambda a: a[0].shape[1] == 4096),
                  ("n <= 4096", lambda a: a[0].shape[1] <= 4096),
                  ("n > 4096", lambda a: a[0].shape[1] > 4096)),
+    # a document shard's calls keep a range of values (parallel/serving
+    # FullShard); one index's keep every value
+    "locate_runs": (("every value kept", lambda a: a[5] == KEEP_ALL),
+                    ("a kept range", lambda a: a[5] != KEEP_ALL)),
     "variants_keep": (("n <= 4096", lambda a: a[0].shape[1] <= 4096),
                       ("n > 4096", lambda a: a[0].shape[1] > 4096)),
     "union_merge_locate_full": (("V = 2", lambda a: a[0].shape[1] == 2),
@@ -2753,21 +2786,28 @@ def phase_mesh(mb: float, seed: int, card: str, rng):
     t3 = time.perf_counter()
     profiling.reset()
     mesh = make_mesh(MESH_SHARDS)
-    sdi = ShardedDeviceIndex.from_index(ind, mesh)
+    sdi = ShardedDeviceIndex.from_index(ind, mesh)  # search_batch_full's
     for dev in set(mesh):
         torch.cuda.synchronize(dev)
     t4 = time.perf_counter()
+    sdi.stage("served")  # search_batch's shards
+    for dev in set(mesh):
+        torch.cuda.synchronize(dev)
+    t5 = time.perf_counter()
     split = {name: secs for name, secs, _ in profiling.report()}
     say(f"mesh index: {mb:g} MB seed {seed}: {len(docs)} docs, "
         f"{dix.bounds.numel()} pages, {dix.coords.numel()} postings; corpus "
         f"{t1 - t0:.1f} s, Index.create() {t2 - t1:.2f} s, one card's "
         f"DeviceIndex {t3 - t2:.2f} s ({dix.device_bytes() / 1e6:.1f} MB); "
-        f"ShardedDeviceIndex over {[str(d) for d in mesh]} "
-        f"{t4 - t3:.2f} s: host re-shard {split['mesh.reshard']:.2f} s, "
-        f"copies and sorts {split['mesh.build']:.2f} s, page_of and small "
-        f"tables {split['mesh.tables']:.2f} s; MB a shard "
+        f"ShardedDeviceIndex over {[str(d) for d in mesh]}: from_index "
+        f"{t4 - t3:.2f} s (documents to shards {split['mesh.assign']:.2f} "
+        f"s, the full-result shards and halos {split['mesh.halo']:.2f} s), "
+        f"stage(\"served\") {t5 - t4:.2f} s (host re-shard "
+        f"{split['mesh.reshard']:.2f} s, copies and sorts "
+        f"{split['mesh.build']:.2f} s, page_of and small tables "
+        f"{split['mesh.tables']:.2f} s); MB a shard "
         f"{[round(b / 1e6, 1) for b in sdi.device_bytes()]}, docs a shard "
-        f"{[len(a) for a in sdi.corpus.doc_assign]}, "
+        f"{[len(a) for a in sdi.assign]}, "
         f"{sdi.boundaries.size} boundaries")
     pt = ind.pages
     page_index = {(pt.doc_names[d], pid): p for p, (d, pid) in
@@ -2777,8 +2817,9 @@ def phase_mesh(mb: float, seed: int, card: str, rng):
               "chunked": "_chunked_bucket_full", "plain": "query_step_full"}
     saved = {name: getattr(tdi, fn) for name, fn in routes.items()}
     total = dict.fromkeys(_launches(), 0)
+    standard = _queries(dix, N_QUERIES)
     for label, queries, required in (
-            ("standard mix", _queries(dix, N_QUERIES), STANDARD_KERNELS),
+            ("standard mix", standard, STANDARD_KERNELS),
             ("wide mix + alternations",
              _wide_queries(dix, N_QUERIES, N_ALTERNATIONS), WIDE_KERNELS)):
         sdi.search_batch(queries[:512], topk=TOPK, hit_cap=HIT_CAP,
@@ -2865,7 +2906,110 @@ def phase_mesh(mb: float, seed: int, card: str, rng):
                 f"{served['plain']} {label} mesh buckets took the plain route")
         require(count["compared"] > 0, f"mesh, {label}: no row compared")
         total = {n: total[n] + c for n, c in launches.items()}
+    rows = standard + _straddling(sdi)
+    launches = _mesh_full(sdi, dix, rows, card)
+    total = {n: total[n] + c for n, c in launches.items()}
+    phase_kernel_times(
+        [lambda: sdi.search_batch_full(rows, topk=TOPK, hit_cap=HIT_CAP)],
+        MESH_FULL_KERNELS, where="the sharded full-result batch")
     return total
+
+
+def _straddling(sdi) -> list:
+    """Rows whose two words meet across each shard boundary: the words
+    of the last posting before it and of the first (or second) at or
+    past it, from the postings near each boundary that boundary_status
+    reads; proximity and ordered windows, both ways round."""
+    import bisect
+
+    rows = []
+    for near in sdi._near:
+        pairs = sorted((x, t) for t, xs in near.items() for x in xs)
+        at = bisect.bisect_left(pairs, (0, -1))
+        for i, j in ((at - 1, at), (at - 1, at + 1), (at - 2, at)):
+            if i < 0 or j >= len(pairs) or pairs[i][1] == pairs[j][1]:
+                continue
+            a, c = sdi.terms[pairs[i][1]], sdi.terms[pairs[j][1]]
+            r = pairs[j][0] - pairs[i][0] + 4
+            rows += [[(a, r), (c, r)], [(c, r), (a, r)],
+                     [(a, -r), (c, -r)], [(c, -r), (a, -r)]]
+    return rows
+
+
+def _mesh_full(sdi, dix, queries, card: str) -> dict:
+    """The sharded full-result path on the card: one
+    sdi.search_batch_full(deferred=True) of `queries` (each shard's
+    FullShard through bucket_pre: the chunked kernels, locate_runs with
+    the shard's kept range; the merge on the first card), launch counts
+    zeroed just before and read just after, held field for field against
+    one card's dix.search_batch_full (its hits as int64 coordinates).
+    Every kernel of MESH_FULL_KERNELS must launch, no bucket take the
+    plain route, and some row fold a window across a boundary on the
+    cards. Returns the launches."""
+    from docodo_tpu_torch.ops import device_index as tdi
+    from docodo_tpu_torch.ops.seqops import INF32
+    from docodo_tpu_torch.parallel.serving import HIT_PAD
+    from docodo_tpu_torch.utils import profiling
+
+    sdi.search_batch_full(queries[:512], topk=TOPK, hit_cap=HIT_CAP)  # warm
+    torch.cuda.synchronize()
+    chunked = tdi._chunked_bucket_full
+    plain = []
+
+    def counted(*a, **k):
+        out = chunked(*a, **k)
+        if out is None:
+            plain.append(tuple(a[3].shape[1:]))
+        return out
+
+    tdi._chunked_bucket_full = counted
+    _zero_launches()
+    profiling.reset()
+    try:
+        t0 = time.perf_counter()
+        got = sdi.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                    deferred=True)()
+        secs = time.perf_counter() - t0
+    finally:
+        tdi._chunked_bucket_full = chunked
+    launches = _launches()
+    count = profiling.counters()
+    t0 = time.perf_counter()
+    want = dix.search_batch_full(queries, topk=TOPK, hit_cap=HIT_CAP,
+                                 use_kernels=True)
+    one_s = time.perf_counter() - t0
+    want["hits"] = np.where(want["hits"] == INF32, HIT_PAD,
+                            want["hits"].astype(np.int64))
+    for f, w in want.items():
+        g = got[f]
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"mesh full: {f} is {g.dtype} {g.shape}, one card's "
+                f"{w.dtype} {w.shape}")
+        bad = np.flatnonzero((g != w).reshape(len(queries), -1).any(1))
+        require(bad.size == 0, f"mesh full: {f} differs from one card's "
+                f"in {bad.size} rows, first {bad[:5].tolist()}")
+    crossing = sum(cg is not None and cg[6] == 1 for cg, _ in
+                   map(sdi._compile_full, queries))
+    say(f"mesh full: {len(queries)} rows ({len(queries) - N_QUERIES} built "
+        f"to straddle the {sdi.boundaries.size} boundaries) on "
+        f"{MESH_SHARDS} shards through search_batch_full(deferred=True) "
+        f"{secs * 1e3:.1f} ms, one card's {one_s * 1e3:.1f} ms, on {card}; "
+        f"every field of every row equal to one card's (ranks bit for "
+        f"bit, hits as int64 coordinates), {crossing} rows with a "
+        f"window across a boundary; counters mesh.rows "
+        f"{count.get('mesh.rows', 0)}, mesh.boundary_rows "
+        f"{count.get('mesh.boundary_rows', 0)}, mesh.reserve_rows "
+        f"{count.get('mesh.reserve_rows', 0)}; plain buckets "
+        f"{sorted(set(plain))}; launches "
+        f"{({n: c for n, c in launches.items() if c})}")
+    for name in MESH_FULL_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched by the sharded full path")
+    require(not plain, f"sharded full-path buckets {sorted(set(plain))} "
+            "took the plain route")
+    require(count.get("mesh.boundary_rows", 0) > 0,
+            "no row folded a window across a shard boundary on the cards")
+    return launches
 
 
 def _distributed_leg(rank, world, nccl, doc_pages, assign, nloc, ploc,

@@ -854,7 +854,9 @@ __global__ void __launch_bounds__(kThreads) keep_resolve_kernel(
 // values ascending) of any width. Pages come from pg (carried) or, when pg
 // is null, from bounds (#bounds <= value, clamped to the last page).
 // Writes the first kpad runs in slot order, the first hpad kept values,
-// and the exact run and hit totals.
+// and the exact run and hit totals. Only the kept values in [keep_lo,
+// keep_hi) count (a document shard drops the postings it holds of its
+// neighbours); [0, INF32) keeps every one.
 //
 // A run's count and bonus are differences of two exclusive prefix sums:
 // at its first lane and at the next run's first lane (the row totals for
@@ -942,7 +944,8 @@ __device__ inline int warp_upper_bound(const int* s, int m, int v) {
 __global__ void __launch_bounds__(kThreads, 4) locate_runs_kernel(
     const int* __restrict__ hv, const int* __restrict__ pg,
     const int* __restrict__ bounds, int n_bounds, int n, int tiles, int kpad,
-    int hpad, bool vec, Outputs out, RunScratch scr) {
+    int hpad, bool vec, int keep_lo, int keep_hi, Outputs out,
+    RunScratch scr) {
   __shared__ RunSum s_warp[kThreads / 32];
   __shared__ RunSum s_pre;
   __shared__ int s_win[kWindow];
@@ -957,6 +960,11 @@ __global__ void __launch_bounds__(kThreads, 4) locate_runs_kernel(
 
   int v[kLanes], page[kLanes];
   load_lanes(hv + row * n, base, n, vec, kInf, v);
+  if (keep_lo > 0 || keep_hi < kInf) {
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k)
+      if (v[k] < keep_lo || v[k] >= keep_hi) v[k] = kInf;
+  }
   if (pg) {
     const int* p_row = pg + row * n;
 #pragma unroll
@@ -1231,7 +1239,8 @@ extern "C" int docodo_variants_keep(const int* vals, const int* tag,
 
 extern "C" int docodo_locate_runs(const int* hv, const int* pg,
                                   const int* bounds, int n_bounds, int rows,
-                                  int n, int kpad, int hpad, int* pg_c,
+                                  int n, int kpad, int hpad, int keep_lo,
+                                  int keep_hi, int* pg_c,
                                   float* rk_c, float* ct_c, int* n_pages,
                                   int* n_hits, int* hits, int* zeroed,
                                   int* work, void* stream) {
@@ -1244,7 +1253,7 @@ extern "C" int docodo_locate_runs(const int* hv, const int* pg,
     const bool vec = n % 4 == 0 && aligned16(hv) && aligned16(pg);
     locate_runs_kernel<<<dim3(tiles, rows), kThreads, 0,
                          (cudaStream_t)stream>>>(
-        hv, pg, bounds, n_bounds, n, tiles, kpad, hpad, vec,
+        hv, pg, bounds, n_bounds, n, tiles, kpad, hpad, vec, keep_lo, keep_hi,
         outputs(pg_c, rk_c, ct_c, n_pages, n_hits, hits), scr);
   }
   return (int)cudaGetLastError();

@@ -262,7 +262,7 @@ MERGE_AND_LOCATE = Kernel("docodo_merge_and_locate_topk", _FULL)
 MERGE_TAGGED = Kernel("docodo_merge_tagged", "pppppp" + "iiiii" + "pppp")
 AND_KEEP = Kernel("docodo_and_keep", "ppppp" + "ii" + "ppppp" + "pp")
 LOCATE_RUNS = Kernel("docodo_locate_runs",
-                     "ppp" + "i" + "iiii" + "pppppp" + "pp")
+                     "ppp" + "i" + "iiii" + "ii" + "pppppp" + "pp")
 VARIANTS_AND = Kernel("docodo_variants_and_locate_full",
                       "ppppppppp" + "iiiiii" + "pppppp")
 UNION_MERGE = Kernel("docodo_union_merge_locate_full",

@@ -721,7 +721,8 @@ CHUNK_MIN_B = 1
 
 def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
                          topk: int, hit_cap: int, small=None, page_of=None,
-                         tail: bool = False, sort_topk: bool = True):
+                         tail: bool = False, sort_topk: bool = True,
+                         keep=None):
     """One bucket past slot admission through the chunked kernels (the
     chunked branches of device_index._bucket_full, :1329-1398, as a TPU
     takes them) up to its PreFull, or with `tail` up to its LocateFull
@@ -754,13 +755,19 @@ def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
     flagged bpad, so the same kernel keeps the union's run starts. The
     JAX package takes uncarried W = 2 and every W = 1 variant bucket past
     slot admission, and the uncarried W >= 3 fold, on its XLA program
-    instead; the results are the same."""
+    instead; the results are the same.
+
+    keep: a coordinate range (lo, hi) the locate keeps hits in (a document
+    shard's own postings, its neighbours' outside); the fused kernel,
+    which has no such range, is then passed over."""
     w, v = tq.shape[1], _variants(tq)
     if (w > 2 and v > 1) or tq.shape[0] < CHUNK_MIN_B:
         return None
     carried = page_of is not None and _tab_serves(small, cap)
     fetch = _fetcher(coords, term_offsets, page_of, cap, carried)
     kw = dict(topk=topk, hit_cap=hit_cap)
+    if keep is not None:
+        kw["keep"] = keep
     if v > 1:
         a, apg, na = fetch(tq[:, 0])
         if w == 1:
@@ -787,7 +794,7 @@ def _chunked_bucket_full(term_offsets, coords, bounds, tq, rq, *, cap: int,
             outs = qk.locate_runs(a, bounds, pg=apg, **kw)
         return _pack(outs, tail, False)
     ra = rq[:, 0].contiguous()
-    if w == 2 and carried and 2 * cap <= qk.FUSED_AND_MAX:
+    if w == 2 and carried and 2 * cap <= qk.FUSED_AND_MAX and keep is None:
         b, bpg, nb = fetch(tq[:, 1])
         rb = rq[:, 1].contiguous()
         if sort_topk:
@@ -853,6 +860,31 @@ def _bucket_full(term_offsets, coords, bounds, page_doc, is_header, tq, rq,
                                is_header, tq, rq, cap=cap, topk=topk,
                                hit_cap=hit_cap, with_docs=with_docs,
                                small=small)
+
+
+def bucket_pre(term_offsets, coords, bounds, tq, rq, *, cap: int,
+               topk: int, hit_cap: int, use_kernels: bool, keep=None,
+               small=None) -> PreFull:
+    """One bucket up to its first-topk runs in slot order (a PreFull),
+    the hits in the range `keep` (lo, hi) only when it is given: the
+    chunked kernels, or where they take no such bucket (W >= 3 with
+    variants), or without the kernels, the plain route's fold and
+    compaction. What a document shard with its neighbours' postings
+    runs: no slot kernel, since none keeps a range."""
+    if use_kernels:
+        out = _chunked_bucket_full(term_offsets, coords, bounds, tq, rq,
+                                   cap=cap, topk=topk, hit_cap=hit_cap,
+                                   small=small, tail=False, keep=keep)
+        if out is not None:
+            return out
+    with profiling.span("route.plain"):
+        vals, kept = eval_query_masked(coords, term_offsets, tq, rq, cap,
+                                       small)
+        if keep is not None:
+            kept = kept & (vals >= keep[0]) & (vals < keep[1])
+        page = rank_in_sorted(vals, bounds, strict=False).clamp_max(
+            bounds.shape[0] - 1)
+        return PreFull(*locate_compact(vals, kept, page, topk, hit_cap))
 
 
 def batched_query_full(term_offsets, coords, bounds, page_doc, is_header,
@@ -1242,24 +1274,8 @@ class DeviceIndex:
     def _compile_cached(self, query):
         """compile_group_query's result and how the cache served it: 0 a
         hit, 1 a miss, 2 a miss the cache, at its cap, could not keep."""
-        try:
-            key = tuple(
-                (codes if isinstance(codes, str) else tuple(codes), r)
-                for codes, r in query
-            )
-        except TypeError:
-            key = None
-        if key is None:
-            return self._compile_group_query_uncached(query), 1
-        with self._cgq_lock:
-            if key in self._cgq_cache:
-                return self._cgq_cache[key], 0
-        out = self._compile_group_query_uncached(query)
-        with self._cgq_lock:
-            if len(self._cgq_cache) < 200_000:
-                self._cgq_cache[key] = out
-                return out, 1
-        return out, 2
+        return compile_cached(self._cgq_cache, self._cgq_lock, query,
+                              self._compile_group_query_uncached)
 
     def _compile_group_query_uncached(self, query):
         rows, rvals = [], []
@@ -1358,19 +1374,7 @@ class DeviceIndex:
                 out["hit_cap_eff"] = np.full(b, hit_cap, dtype=np.int64)
 
             round_cap = _cap_rounder(cap, cap_ladder)
-            # hit-stream readback tiers: a query whose smallest operand
-            # bounds its result small reads back a small buffer; overflow
-            # still flags through n_hits. Fused path only: per bucket,
-            # each extra tier is another launch
-            hit_tiers = sorted({min(hit_cap, t) for t in (128, 512, hit_cap)}
-                               ) if fused else [hit_cap]
-
-            def hit_tier(min_need: int) -> int:
-                want = 4 * min_need + 16
-                for t in hit_tiers:
-                    if want <= t:
-                        return t
-                return hit_cap
+            tiers = hit_tiers(hit_cap, fused)
 
             compiled = []
             buckets = {}
@@ -1387,7 +1391,7 @@ class DeviceIndex:
                     _rows, _rvals, w, v, need, min_need = cg
                     buckets.setdefault(
                         (round_cap(need), w, _bucket(v, lo=1),
-                         hit_tier(min_need)), []).append(i)
+                         hit_tier(tiers, min_need, hit_cap)), []).append(i)
 
             terms_list, rs_list, caps_list, hcaps_list, idx_list = (
                 [], [], [], [], [])
@@ -1405,15 +1409,7 @@ class DeviceIndex:
                     topks_list.append(topk_b)
                     brows = (_bucket(len(idxs), lo=8) if fused
                              else _bucket4(len(idxs)))
-                    terms = np.full((brows, w, vb), -1, dtype=np.int32)
-                    rs = np.ones((brows, w), dtype=np.int32)
-                    for row, i in enumerate(idxs):
-                        rows_i, rvals_i = compiled[i][0], compiled[i][1]
-                        for j, (ids, r) in enumerate(zip(rows_i, rvals_i)):
-                            terms[row, j, : len(ids)] = ids
-                            rs[row, j] = r
-                    if vb == 1:
-                        terms = terms[:, :, 0]
+                    terms, rs = bucket_arrays(compiled, idxs, brows, w, vb)
                 # each copy from pageable memory waits for the stream
                 with profiling.span("query.upload", seq):
                     terms_list.append(torch.as_tensor(terms, device=dev))
@@ -1483,17 +1479,75 @@ class DeviceIndex:
         return finish if deferred else finish()
 
 
+# the most compiled queries a compile cache keeps
+COMPILE_CACHE_MAX = 200_000
+
+
+def compile_cached(cache: dict, lock, query, compile_one):
+    """compile_one(query) through `cache` (keyed by the query's codes and
+    windows, at most COMPILE_CACHE_MAX entries), and how the cache served
+    it: 0 a hit, 1 a miss, 2 a miss the cache, at its cap, could not
+    keep. `lock` guards the cache: a batcher's collector and completion
+    threads both fill it."""
+    try:
+        key = tuple((codes if isinstance(codes, str) else tuple(codes), r)
+                    for codes, r in query)
+    except TypeError:
+        return compile_one(query), 1
+    with lock:
+        if key in cache:
+            return cache[key], 0
+    out = compile_one(query)
+    with lock:
+        if len(cache) < COMPILE_CACHE_MAX:
+            cache[key] = out
+            return out, 1
+    return out, 2
+
+
+def hit_tiers(hit_cap: int, fused: bool) -> List[int]:
+    """The hit buffers a full-result batch reads back: by the fused path
+    128 / 512 / hit_cap, so that a query whose smallest operand bounds
+    its result small reads back a small buffer (an overflow still flags
+    through n_hits); one, hit_cap, a bucket on the per-bucket path, where
+    each extra tier is another launch."""
+    return sorted({min(hit_cap, t) for t in (128, 512, hit_cap)}
+                  ) if fused else [hit_cap]
+
+
+def hit_tier(tiers: Sequence[int], min_need: int, hit_cap: int) -> int:
+    """The tier of a query whose smallest group holds min_need
+    postings."""
+    want = 4 * min_need + 16
+    return next((t for t in tiers if want <= t), hit_cap)
+
+
+def bucket_arrays(compiled, idxs, rows: int, w: int, vb: int):
+    """A bucket's terms int32 [rows, W] (vb 1) or [rows, W, vb] and rs
+    int32 [rows, W] from compiled queries ((id rows, rvals, ...) each):
+    row j is query idxs[j], -1 terms and R 1 past them."""
+    terms = np.full((rows, w, vb), -1, dtype=np.int32)
+    rs = np.ones((rows, w), dtype=np.int32)
+    for row, i in enumerate(idxs):
+        for j, (ids, r) in enumerate(zip(compiled[i][0], compiled[i][1])):
+            terms[row, j, : len(ids)] = ids
+            rs[row, j] = r
+    return (terms[:, :, 0] if vb == 1 else terms), rs
+
+
 def _count_batch(queries: int, misses: int, full: int, buckets: int,
-                 readback_bytes: int) -> None:
+                 readback_bytes: int, uploads: Optional[int] = None) -> None:
     """search_batch_full's counters, added once a call: its queries, the
     compile cache's misses (and those it was too full to keep), its
-    buckets, their uploads (terms and rs each) and the bytes read back."""
+    buckets, their uploads (by default terms and rs each) and the bytes
+    read back."""
     profiling.count("query.batches")
     profiling.count("query.queries", queries)
     profiling.count("query.compile_miss", misses)
     profiling.count("query.compile_uncached_full", full)
     profiling.count("query.buckets", buckets)
-    profiling.count("query.uploads", 2 * buckets)
+    profiling.count("query.uploads",
+                    2 * buckets if uploads is None else uploads)
     profiling.count("readback.bytes", readback_bytes)
 
 

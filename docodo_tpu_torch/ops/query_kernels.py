@@ -944,13 +944,17 @@ def variants_keep_plain(vals, tag, ra, rb, bpad):
     return _variants_keep_plain(vals, tag, ra, rb, bpad.to(torch.int32))
 
 
-def _locate_runs_plain(hv, pg, bounds, kpad, hpad):
+def _locate_runs_plain(hv, pg, bounds, kpad, hpad, keep=(0, INF32)):
     """Plain version of docodo_locate_runs."""
     page = pg if pg is not None else shared_pg(hv, bounds)
-    return locate_compact(hv, hv < INF32, page, kpad, hpad)
+    kept = hv < INF32
+    if keep != (0, INF32):
+        kept = kept & (hv >= keep[0]) & (hv < keep[1])
+        hv = torch.where(kept, hv, INF32)
+    return locate_compact(hv, kept, page, kpad, hpad)
 
 
-def _locate_runs_kernel(hv, pg, bounds, kpad, hpad):
+def _locate_runs_kernel(hv, pg, bounds, kpad, hpad, keep=(0, INF32)):
     rows, n = hv.shape
     _cuda.check(hv, "hv", torch.int32, (rows, n))
     if pg is not None:
@@ -960,31 +964,39 @@ def _locate_runs_kernel(hv, pg, bounds, kpad, hpad):
     scratch = _cuda.tile_scratch("docodo_locate_runs_scratch", hv.device,
                                  rows, n, kpad)
     _cuda.LOCATE_RUNS.launch(hv.device, hv, pg, bounds, bounds.shape[0],
-                             rows, n, kpad, hpad, *outs, *scratch)
+                             rows, n, kpad, hpad, *keep, *outs, *scratch)
     return outs
 
 
-def _locate_runs_call(core, hv, bounds, topk, hit_cap, pg):
+def _locate_runs_call(core, hv, bounds, topk, hit_cap, pg, keep):
     n = hv.shape[1]
-    outs = core(hv, pg, bounds, min(topk, n), min(hit_cap, n))
+    lo, hi = (0, INF32) if keep is None else (int(keep[0]), int(keep[1]))
+    if not 0 <= lo <= hi <= INF32:
+        raise ValueError(f"locate_runs: keep range {keep} outside "
+                         f"[0, {INF32}]")
+    outs = core(hv, pg, bounds, min(topk, n), min(hit_cap, n), (lo, hi))
     return _slots_glue(outs, topk, hit_cap, tail=False)
 
 
-def locate_runs(hv, bounds, *, topk: int, hit_cap: int, pg=None):
+def locate_runs(hv, bounds, *, topk: int, hit_cap: int, pg=None,
+                keep=None):
     """Page runs of a kept stream hv [B, n] of any width (INF32 at
     dropped lanes, kept values ascending), pages carried in pg or looked
     up in bounds (pallas_chunked_locate with tail=False, plus the hits
-    compaction of device_index._locate_full_chunked). Returns
-    (pg_c, rk_c, ct_c [B, topk], n_pages, n_hits, hits [B, hit_cap])."""
+    compaction of device_index._locate_full_chunked). keep: a value range
+    (lo, hi); kept values outside it are dropped as well (a document
+    shard's postings of its neighbours). Returns (pg_c, rk_c, ct_c
+    [B, topk], n_pages, n_hits, hits [B, hit_cap])."""
     return _locate_runs_call(
         lambda *x: _on_device(_locate_runs_kernel, _locate_runs_plain, *x),
-        hv, bounds, topk, hit_cap, pg)
+        hv, bounds, topk, hit_cap, pg, keep)
 
 
-def locate_runs_plain(hv, bounds, *, topk: int, hit_cap: int, pg=None):
+def locate_runs_plain(hv, bounds, *, topk: int, hit_cap: int, pg=None,
+                      keep=None):
     """locate_runs through its plain version, on any device."""
     return _locate_runs_call(_locate_runs_plain, hv, bounds, topk, hit_cap,
-                             pg)
+                             pg, keep)
 
 
 # ---------------------------------------------------------------------------

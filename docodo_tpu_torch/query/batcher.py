@@ -491,8 +491,8 @@ class BatchExecutor:
             if self._gen == gen:
                 return True
             if self.mesh is not None:
-                sdi = ShardedDeviceIndex.from_index(self.index, self.mesh,
-                                                    host=host)
+                sdi = ShardedDeviceIndex.from_index(
+                    self.index, self.mesh, host=host, stage="served")
                 devices = sdi.devices
             else:
                 di = DeviceIndex.from_index(host, device=self.device)

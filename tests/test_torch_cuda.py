@@ -211,6 +211,34 @@ def test_chunked_kernels_match_plain_on_card(cuda_device, cap, paged, bsz):
     assert int(got[3].max()) > 16
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,paged,bsz", [(4096, True, 128),
+                                           (4096, False, 128),
+                                           (262144, True, 3),
+                                           (262144, False, 8)])
+def test_locate_runs_keep_range_matches_plain_on_card(cuda_device, cap,
+                                                      paged, bsz):
+    """locate_runs with a kept range (a document shard's own postings)
+    against its plain version, and against the same stream with the
+    values outside the range dropped beforehand."""
+    x = _merged(np.random.default_rng(7 * cap + bsz), bsz, cap, cuda_device,
+                page=256 if cap > 4096 else None)
+    apg, bpg = (x["a_pg"], x["b_pg"]) if paged else (None, None)
+    vals, tag, pg = qk.merge_tagged(x["a"], x["na"], x["b"], x["nb"], apg,
+                                    bpg)
+    hv = qk.and_keep(vals, tag, x["ra"], x["rb"])
+    live = hv[hv < INF32]
+    lo, hi = (int(torch.quantile(live.double(), q)) for q in (0.3, 0.7))
+    kw = dict(topk=16, hit_cap=1000, pg=pg)
+    got = qk.locate_runs(hv, x["bounds"], keep=(lo, hi), **kw)
+    torch.cuda.synchronize()
+    _assert_fields_equal(got, qk.locate_runs_plain(hv, x["bounds"],
+                                                   keep=(lo, hi), **kw))
+    cut = torch.where((hv >= lo) & (hv < hi), hv, INF32)
+    _assert_fields_equal(got, qk.locate_runs(cut, x["bounds"], **kw))
+    assert 0 < int(got[4].sum()) < int((hv < INF32).sum())
+
+
 def _variant_blocks(rng, bsz, va, vb, cap, dev, spacing=12):
     """Two words' variant blocks per row from one per-row pool (shared
     coordinates within and across words), ragged lengths, word B empty
